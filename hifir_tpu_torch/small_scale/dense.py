@@ -1,0 +1,106 @@
+"""Host factorization of the dense last level: LUP, rank-revealing QRCP, SYEIG.
+
+The port's copy of the factorize half of ``hifir_tpu/small_scale/dense.py``
+(scipy LAPACK: ``getrf``/``geqp3``/``syev``).  The factors are plain arrays
+that :class:`hifir_tpu_torch.alg.prec.DenseTail` moves to the device; the
+solves run there.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import scipy.linalg as sla
+
+__all__ = ["QRCP", "LUP", "SYEIG", "DENSE_SOLVERS"]
+
+_EPS = float(np.finfo(np.float64).eps)
+
+
+class LUP:
+    """Dense LU with partial pivoting."""
+
+    kind = "lup"
+
+    def __init__(self):
+        self.lu = None
+        self.piv = None
+        self.rank = 0
+        self.n = 0
+
+    def factorize(self, M: np.ndarray, opts=None) -> None:
+        self.n = M.shape[0]
+        self.lu, self.piv = sla.lu_factor(M, check_finite=False)
+        d = np.abs(np.diag(self.lu))
+        if self.n and (d.min() <= _EPS * max(d.max(), 1.0)):
+            warnings.warn("dense LU appears singular; consider QRCP")
+        self.rank = self.n
+
+    def piv_perm(self) -> np.ndarray:
+        """LAPACK's sequential row swaps as one permutation."""
+        perm = np.arange(self.n)
+        for i, pi in enumerate(self.piv):
+            perm[i], perm[pi] = perm[pi], perm[i]
+        return perm
+
+
+class QRCP:
+    """Rank-revealing QR with column pivoting.
+
+    The rank is the last diagonal of R above ``|R_00| / rrqr_cond``, with
+    ``rrqr_cond`` defaulting to ``eps^{-2/3}``.
+    """
+
+    kind = "qrcp"
+
+    def __init__(self):
+        self.Q = None
+        self.R = None
+        self.jpvt = None
+        self.rank = 0
+        self.n = 0
+
+    def factorize(self, M: np.ndarray, opts=None) -> None:
+        self.n = M.shape[0]
+        if self.n == 0:
+            self.rank = 0
+            return
+        Q, R, piv = sla.qr(M, pivoting=True, mode="economic",
+                           check_finite=False)
+        self.Q, self.R, self.jpvt = Q, R, piv
+        rrqr_cond = getattr(opts, "rrqr_cond", 0.0) if opts is not None \
+            else 0.0
+        if rrqr_cond <= 0.0:
+            rrqr_cond = _EPS ** (-2.0 / 3.0)
+        d = np.abs(np.diag(R))
+        if d.size == 0 or d[0] == 0.0:
+            self.rank = 0
+            return
+        good = d > d[0] / rrqr_cond
+        self.rank = int(np.flatnonzero(good)[-1] + 1) if good.any() else 0
+
+
+class SYEIG:
+    """Symmetric eigen-decomposition with an ``n eps max|w|`` rank cut."""
+
+    kind = "syeig"
+
+    def __init__(self):
+        self.V = None
+        self.w = None
+        self.rank = 0
+        self.n = 0
+
+    def factorize(self, M: np.ndarray, opts=None) -> None:
+        self.n = M.shape[0]
+        if self.n == 0:
+            self.rank = 0
+            return
+        w, V = sla.eigh(0.5 * (M + M.conj().T), check_finite=False)
+        self.w, self.V = w, V
+        amax = np.abs(w).max() if w.size else 0.0
+        self.rank = int((np.abs(w) > self.n * _EPS * amax).sum())
+
+
+DENSE_SOLVERS = {"qrcp": QRCP, "syeig": SYEIG, "lup": LUP}
