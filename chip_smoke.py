@@ -9,13 +9,20 @@ Phases, in order; any failed gate raises and the script exits non-zero:
 
 1. Toolchain: torch, CUDA, nvcc, the card's name and power limit.
 2. Build the hand-written kernels (csrc/kernels.cu) with nvcc.
-3. Kernel phases: each kernel (K7 BSR SpMV, K1 sliced-ELL SpMV, K2 level
-   scan) against its plain PyTorch version on the card, at the main path's
-   shapes, in f32 and f64, with CUDA-event times of the kernel, the plain
-   version and the PyTorch call that computes the same function (the
-   library yardstick, which the port never calls: torch.sparse.mm for K7
-   and K1, torch.triangular_solve on a CSR factor for K2), each library
-   result checked against the kernel's.
+3. Kernel phases: each kernel (K7 BSR SpMV, K1 sliced-ELL SpMV, K2
+   triangular solve on a level schedule) against its plain PyTorch version
+   on the card, at the main path's shapes, in f32 and f64, with CUDA-event
+   times of the kernel, the plain version and the PyTorch call that
+   computes the same function (the library yardstick, which the port never
+   calls: torch.sparse.mm for K7 and K1, torch.triangular_solve on a CSR
+   factor for K2), each library result checked against the kernel's.  K7
+   runs at 128, 8 and 1 right-hand sides, so that each of its three paths
+   (DMMA, 3xTF32, streaming) is held against the plain version; K2 runs
+   B to X on both levels' factors at 128 and 1 right-hand sides.  Sweeps
+   beside the rows: K7's paths at 1, 2 and 4 right-hand sides; and the
+   streaming path at 1 right-hand side against a plain read kernel and a
+   torch sum over the same blocks (what reading them alone takes), each
+   timed after the timer's writing L2 flush and after a reading one.
 4. Main path: the frozen preconditioner (benchdata/frozen_prec.npz,
    poisson2d(128), n=16384) packed with dense_inv="auto" and 0, in f32 and
    f64; a batched M-solve of 128 seeded right-hand sides against the port's
@@ -23,7 +30,9 @@ Phases, in order; any failed gate raises and the script exits non-zero:
    then HIFIR refinement with A = BSR(poisson2d(128), bs=128), nirs = 1..4,
    whose residual must fall at every step for every column and whose result
    must match the plain CPU refinement (f64, 1e-10).  The launch counts of
-   this phase show that the main path went through every kernel.
+   this phase show that the main path went through every kernel: K2 once
+   per triangular solve on a schedule (8 per dense_inv=0 M-solve on the
+   fixture), K7 3 times per nirs=4 HIFIR apply.
 5. Timing of the main path: 50 back-to-back M-solves of the same block
    per pack (one stream runs them in order, so this times what chaining
    X <- M^{-1} X would, without the f32 overflow that ||M^{-1}|| ~ 1e3
@@ -53,9 +62,13 @@ FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 NRHS = 128
 CHAIN = 50
 # H100 SXM: 3.35 TB/s device memory; 67 TFLOP/s in f32 outside the tensor
-# cores and 67 TFLOP/s in f64 on the tensor cores (NVIDIA's data sheet).
+# cores, 67 TFLOP/s in f64 on the tensor cores and 495 TFLOP/s in TF32
+# (NVIDIA's data sheet).  K7's f32 tensor-core path does each product as
+# three TF32 products (3xTF32), so its least time for 2*m*n*k FLOP of f32
+# work counts 3 * that at the TF32 rate.
 MEM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
+TF32X3_FLOPS = 495e12 / 3
 
 
 def log(*a):
@@ -77,23 +90,22 @@ def power_line() -> str:
 class Timer:
     """CUDA-event timing: warm-up, then the median of ``iters`` launches,
     each after an L2 flush (the main path streams >100 MB of operands per
-    solve, so its kernels find their inputs cold)."""
+    solve, so its kernels find their inputs cold).  The flush writes 256 MB
+    and so leaves L2 full of dirty lines, which the timed kernel's own
+    traffic writes back; ``clean=True`` flushes by reading instead."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
 
-    def ms(self, fn, iters=20, warmup=3, before=None) -> float:
+    def ms(self, fn, iters=20, warmup=3, clean=False) -> float:
         torch = self.torch
+        flush = self.flush.sum if clean else self.flush.zero_
         for _ in range(warmup):
-            if before:
-                before()
             fn()
         pairs = []
         for _ in range(iters):
-            if before:
-                before()
-            self.flush.zero_()
+            flush()
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -104,9 +116,9 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound(nbytes: float, flops: float, dtype: str):
+def bound(nbytes: float, flops: float, dtype: str, peak: float = None):
     tb = nbytes / MEM_BYTES_PER_S * 1e3
-    tf = flops / PEAK_FLOPS[dtype] * 1e3
+    tf = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -130,13 +142,15 @@ def spmv_bytes(E, nrhs: int, es: int) -> int:
 
 
 def kernel_phases(torch, T, M, rng):
-    """Each kernel against its plain version at main-path shapes."""
+    """Each kernel against its plain version at main-path shapes; returns
+    the rows and the sweeps."""
     import scipy.sparse as sp
 
+    from hifir_tpu_torch.kernels.build import check, load_kernels
     from hifir_tpu_torch.models.problems import poisson2d
     from hifir_tpu_torch.ops import bsr_spmv, spmv, trsv
 
-    rows = []
+    rows, sweeps = [], []
 
     def library(what, fn, ref, tol):
         """Check one PyTorch call computing the same function against the
@@ -148,21 +162,33 @@ def kernel_phases(torch, T, M, rng):
         return T.ms(fn), rel
 
     def record(name, dtype, shape, Y, Yp, ms, plain_ms, lib, nbytes,
-               flops, tol):
+               flops, tol, peak=None):
         abs_err = float((Y - Yp).abs().max())
         rel = rel_diff(Y, Yp)
-        bms, by = bound(nbytes, flops, dtype)
+        bms, by = bound(nbytes, flops, dtype, peak)
         library_ms, library_rel = lib if lib else (None, None)
         row = dict(name=name, dtype=dtype, shape=shape, max_abs_err=abs_err,
                    rel_err=rel, tol=tol, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, library_rel_diff=library_rel,
-                   bytes=nbytes, flops=flops, bound_ms=bms, bound_by=by)
-        log(f"  {name:9s} {dtype:7s} {shape:34s} rel_err {rel:.3e} "
+                   bytes=nbytes, flops=flops, bound_ms=bms, bound_by=by,
+                   share_of_bound=bms / ms,
+                   vs_library=None if library_ms is None else ms / library_ms)
+        log(f"  {name:9s} {dtype:7s} {shape:44s} rel_err {rel:.3e} "
             f"(tol {tol:.0e})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
             f"library {'-' if library_ms is None else f'{library_ms:.4f}'} ms"
             f"  bound {bms:.4f} ms ({by})")
         gate(rel <= tol, f"{name} {dtype} {shape}: rel err {rel:.3e} > {tol}")
         rows.append(row)
+
+    def sweep(what, dtype, fn, ref, tol):
+        """Time a forced variant after checking it against ``ref``."""
+        Y = fn()
+        torch.cuda.synchronize()
+        rel = rel_diff(Y, ref)
+        gate(rel <= tol, f"{what} {dtype}: rel err {rel:.3e} > {tol}")
+        ms = T.ms(fn)
+        sweeps.append(dict(what=what, dtype=dtype, ms=ms, rel_err=rel))
+        log(f"  sweep {what:48s} {dtype:7s} {ms:.4f} ms (rel err {rel:.1e})")
 
     A = poisson2d(128)
     for npdt in (np.float32, np.float64):
@@ -170,30 +196,68 @@ def kernel_phases(torch, T, M, rng):
         dname = str(dt).removeprefix("torch.")
         es = 4 if npdt == np.float32 else 8
         tol = 1e-5 if npdt == np.float32 else 1e-12
+        tensor = "tf32x3" if npdt == np.float32 else "dmma"
 
-        # K7: BSR SpMV, A = poisson2d(128), bs=128, at 128 and 1 RHS
+        # K7: BSR SpMV, A = poisson2d(128), bs=128
         Ab = bsr_spmv.bsr_from_csr(A, bs=128, dtype=npdt)
         Acsr = csr_tensor(torch, A, dt, "cuda")
         # the blocks A really has; the zero blocks that pad rows to KB are
         # format overhead
         Arows = np.repeat(np.arange(A.nrows), np.diff(A.indptr))
         nblk = np.unique(Arows // Ab.bs * Ab.nbr + A.indices // Ab.bs).size
-        for nrhs in (NRHS, 1):
+        for nrhs in (NRHS, 8, 1):
             X = torch.as_tensor(rng.standard_normal((Ab.nbr * Ab.bs, nrhs)),
                                 dtype=dt, device="cuda")
+            path = bsr_spmv.bsr_path(dt, nrhs)
             Y = bsr_spmv.bsr_matvec_mrhs(Ab, X)
             Yp = bsr_spmv.bsr_matvec_mrhs_plain(Ab, X)
             torch.cuda.synchronize()
             nbytes = (nblk * (Ab.bs * Ab.bs * es + 4) + 2 * X.numel() * es)
             flops = 2.0 * nblk * Ab.bs * Ab.bs * nrhs
             record("K7_bsr", dname,
-                   f"nbr={Ab.nbr} kb={Ab.kb} bs={Ab.bs} nrhs={nrhs}", Y, Yp,
+                   f"nbr={Ab.nbr} kb={Ab.kb} bs={Ab.bs} nrhs={nrhs} "
+                   f"path={path}", Y, Yp,
                    T.ms(lambda: bsr_spmv.bsr_matvec_mrhs(Ab, X)),
                    T.ms(lambda: bsr_spmv.bsr_matvec_mrhs_plain(Ab, X)),
                    library(f"K7 {dname} nrhs={nrhs} torch.sparse.mm",
                            lambda: torch.sparse.mm(Acsr, X[:A.nrows]),
                            Y[:A.nrows], tol),
-                   nbytes, flops, tol)
+                   nbytes, flops, tol,
+                   TF32X3_FLOPS if path == "tf32x3" else None)
+        # K7's paths where the choice turns
+        for nrhs in (1, 2, 4):
+            X = torch.as_tensor(rng.standard_normal((Ab.nbr * Ab.bs, nrhs)),
+                                dtype=dt, device="cuda")
+            Yp = bsr_spmv.bsr_matvec_mrhs_plain(Ab, X)
+            paths = ["stream", tensor] if nrhs <= 2 else [tensor]
+            for p in paths:
+                sweep(f"K7 nrhs={nrhs} path={p}", dname,
+                      lambda: bsr_spmv.bsr_spmv_cuda(Ab, X, path=p), Yp, tol)
+        # the streaming path against what reading its blocks alone takes:
+        # a plain 16-byte-load read kernel over the same bytes, and torch's
+        # sum, under the timer's write flush and under a clean (read) flush
+        X = torch.as_tensor(rng.standard_normal((Ab.nbr * Ab.bs, 1)),
+                            dtype=dt, device="cuda")
+        blocks, mb = Ab.blocks, Ab.blocks.numel() * es
+        sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+        lib = load_kernels().lib
+
+        def read_blocks():
+            check(lib.read_rate(blocks.data_ptr(), mb, sink.data_ptr(),
+                                0x9E3779B9, torch.cuda.current_stream()
+                                .cuda_stream), "read_rate")
+
+        for what, fn in (("K7 stream nrhs=1",
+                          lambda: bsr_spmv.bsr_spmv_cuda(Ab, X)),
+                         ("read kernel over the BSR blocks", read_blocks),
+                         ("torch sum over the BSR blocks", blocks.sum)):
+            for clean in (False, True):
+                ms = T.ms(fn, clean=clean)
+                flush = "read" if clean else "write"
+                sweeps.append(dict(what=what, dtype=dname, flush=flush, ms=ms,
+                                   bytes=mb, tb_per_s=mb / ms / 1e9))
+                log(f"  read rate {what:34s} {dname:7s} {flush:5s} flush "
+                    f"{ms:.4f} ms ({mb / ms / 1e9:.3f} TB/s of blocks)")
 
         dp = M.to_device(dtype=npdt, dense_inv=0)
         lvl = dp.levels[0]
@@ -217,6 +281,7 @@ def kernel_phases(torch, T, M, rng):
 
         # K1 on a uniform ELL (the form an ELL operator A takes in HIFIR)
         El = spmv.ell_from_csr(host.E, dtype=npdt)
+        Ecsr = csr_tensor(torch, host.E, dt, "cuda")
         X = torch.as_tensor(rng.standard_normal((El.ncols, NRHS)), dtype=dt,
                             device="cuda")
         Y = spmv.ell_matvec_mrhs(El, X)
@@ -225,54 +290,83 @@ def kernel_phases(torch, T, M, rng):
         record("K1_ell_E", dname, f"{El.nrows}x{El.ncols} K={El.k} "
                f"nrhs={NRHS}", Y, Yp,
                T.ms(lambda: spmv.ell_matvec_mrhs(El, X)),
-               T.ms(lambda: spmv.ell_matvec_mrhs_plain(El, X)), None,
+               T.ms(lambda: spmv.ell_matvec_mrhs_plain(El, X)),
+               library(f"K1 {dname} uniform ELL E torch.sparse.mm",
+                       lambda: torch.sparse.mm(Ecsr, X), Y, tol),
                spmv_bytes(host.E, NRHS, es), 2.0 * host.E.nnz * NRHS, tol)
 
-        # K2: level scan on level 0's L_B and U_B schedules, 128 RHS.  The
-        # library call solving the same unit triangular system is
-        # torch.triangular_solve on a CSR factor (cuSPARSE SpSM): the
-        # scan's slot order is a permutation that trsv_apply_mrhs's entry
-        # and exit gathers undo, so it is checked against that function.
+        # K2: B to X on both levels' L_B and U_B schedules.  The library
+        # call solving the same unit triangular system is
+        # torch.triangular_solve on a CSR factor (cuSPARSE SpSM), in row
+        # order like the kernel's B and X.
         stol = 1e-4 if npdt == np.float32 else 1e-10
-        for nm, S, Th, lower in (("L", lvl.L, host.L_B, True),
-                                 ("U", lvl.U, host.U_B, False)):
-            nslots = S.nchunks * S.chunk
-            x0 = torch.as_tensor(rng.standard_normal((nslots + 1, NRHS)),
-                                 dtype=dt, device="cuda")
-            x0[-1] = 0
-            xw = torch.empty_like(x0)
-            Y = trsv.trsv_scan(S, x0.clone())
-            Yp = trsv.trsv_scan_plain(S, x0.clone())
-            Ts = Th.to_scipy().tocsr()
-            Ts = (sp.tril(Ts, -1) if lower else sp.triu(Ts, 1)).tocsr()
-            Tcsr = csr_tensor(torch, (Ts + sp.eye(S.n, format="csr"))
-                              .tocsr().sorted_indices(), dt, "cuda")
-            B = torch.as_tensor(rng.standard_normal((S.n, NRHS)), dtype=dt,
-                                device="cuda")
-            Xs = trsv.trsv_apply_mrhs(S, B)
-            torch.cuda.synchronize()
-            # the function's bytes: the strict factor's entries, B and X
-            nbytes = Ts.nnz * (4 + es) + 2 * S.n * NRHS * es
-            flops = 2.0 * Ts.nnz * NRHS
-            reset = lambda: xw.copy_(x0)   # noqa: E731
-            record(f"K2_scan_{nm}", dname,
-                   f"slots={nslots} K={S.cols.shape[2]} levels={S.nlevels} "
-                   f"nrhs={NRHS}", Y, Yp,
-                   T.ms(lambda: trsv.trsv_scan(S, xw), before=reset),
-                   T.ms(lambda: trsv.trsv_scan_plain(S, xw), before=reset),
-                   library(f"K2 {dname} {nm} torch.triangular_solve (CSR)",
-                           lambda: torch.triangular_solve(
-                               B, Tcsr, upper=not lower,
-                               unitriangular=True)[0], Xs, stol),
-                   nbytes, flops, tol)
-    return rows
+        for li, (lv, hp) in enumerate(zip(dp.levels, M.precs)):
+            for nm, S, Th, lower in (("L", lv.L, hp.L_B, True),
+                                     ("U", lv.U, hp.U_B, False)):
+                nslots = S.nchunks * S.chunk
+                Ts = Th.to_scipy().tocsr()
+                Ts = (sp.tril(Ts, -1) if lower else sp.triu(Ts, 1)).tocsr()
+                Tcsr = csr_tensor(torch, (Ts + sp.eye(S.n, format="csr"))
+                                  .tocsr().sorted_indices(), dt, "cuda")
+                for nrhs in (NRHS, 1):
+                    B = torch.as_tensor(rng.standard_normal((S.n, nrhs)),
+                                        dtype=dt, device="cuda")
+                    Xk = trsv.trsv_apply_mrhs(S, B)
+                    Xp = trsv.trsv_apply_plain(S, B)
+                    torch.cuda.synchronize()
+                    K = S.cols.shape[2]
+                    # the function's bytes: the strict factor's entries, B
+                    # and X
+                    nbytes = Ts.nnz * (4 + es) + 2 * S.n * nrhs * es
+                    record(f"K2_trsv_{nm}", dname,
+                           f"level={li} slots={nslots} K={K} "
+                           f"levels={S.nlevels} nrhs={nrhs} "
+                           f"x={trsv.trsv_shape(nslots, es)}",
+                           Xk, Xp,
+                           T.ms(lambda: trsv.trsv_apply_mrhs(S, B)),
+                           T.ms(lambda: trsv.trsv_apply_plain(S, B)),
+                           library(f"K2 {dname} level {li} {nm} nrhs={nrhs} "
+                                   "torch.triangular_solve (CSR)",
+                                   lambda: torch.triangular_solve(
+                                       B, Tcsr, upper=not lower,
+                                       unitriangular=True)[0], Xk, stol),
+                           nbytes, 2.0 * Ts.nnz * nrhs, tol)
+    return rows, sweeps
+
+
+def ptxas_report(log_text: str) -> dict:
+    """Registers, spills and shared memory of each kernel from nvcc's
+    ``-Xptxas -v`` log."""
+    import re
+
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out[name]["static_smem"] = int(m.group(1))
+    return out
 
 
 def counters():
     from hifir_tpu_torch.ops import bsr_spmv, spmv, trsv
 
     return {"K7": bsr_spmv.bsr_spmv_cuda, "K1": spmv.sell_spmv_cuda,
-            "K2": trsv.trsv_scan_cuda}
+            "K2": trsv.trsv_apply_cuda}
 
 
 def reset_counts():
@@ -290,6 +384,7 @@ def main_path(torch, M, A, rng):
     import hifir_tpu_torch as ht
     from hifir_tpu_torch.ops.bsr_spmv import bsr_from_csr
     from hifir_tpu_torch.ops.spmv import ell_matvec_mrhs
+    from hifir_tpu_torch.ops.trsv import TrsvSchedule
 
     n = M.precs[0].n
     B = rng.standard_normal((n, NRHS))
@@ -330,6 +425,13 @@ def main_path(torch, M, A, rng):
             f"{rel:.3e} (tol {tol:.0e}); launches "
             f"{per_solve[f'dense_inv={di} {dt}']}")
         gate(rel <= tol, f"M-solve dense_inv={di} {dt}: {rel:.3e} > {tol}")
+        # one K2 launch per triangular solve on a schedule: L and U of every
+        # such level, once down and once up
+        want = 2 * sum(isinstance(f, TrsvSchedule) and f.nchunks > 0
+                       for lvl in dp.levels for f in (lvl.L, lvl.U))
+        got = per_solve[f"dense_inv={di} {dt}"]["K2"]
+        gate(got == want, f"M-solve dense_inv={di} {dt}: {got} K2 launches, "
+             f"{want} schedule-form triangular solves")
 
     # HIFIR with A as BSR, f64: residual falls every step for every column
     dp = packs[("auto", "float64")]
@@ -343,6 +445,8 @@ def main_path(torch, M, A, rng):
     per_solve["hifir nirs=4 float64"] = {
         k: launches[k] - before[k] for k in launches}
     log(f"  HIFIR nirs=4 launches {per_solve['hifir nirs=4 float64']}")
+    k7 = per_solve["hifir nirs=4 float64"]["K7"]
+    gate(k7 == 3, f"HIFIR nirs=4: {k7} K7 launches, expected 3")
     # the residual check's own products run after the counts were read
     res = np.array([torch.linalg.vector_norm(
         Bt - ell_matvec_mrhs(Ab, Xk), dim=0).cpu().numpy() for Xk in Xs])
@@ -402,7 +506,8 @@ def time_main_path(torch, packs, Bd, Ab, nnz):
 
 
 def _kernel_name(name: str) -> str:
-    for k in ("bsr_spmv_kernel", "sell_spmv_kernel", "trsv_level_kernel"):
+    for k in ("bsr_mma_kernel", "bsr_stream_kernel", "sell_spmv_kernel",
+              "trsv_solve_kernel"):
         if k in name:
             return k
     return name if len(name) <= 70 else name[:67] + "..."
@@ -465,15 +570,15 @@ _SOURCES = {
            "hifir_tpu/ops/pallas_spmv.py:133"),
     "K1": ("K1_sell", "cuda", "hifir_tpu_torch/csrc/kernels.cu",
            "hifir_tpu/ops/spmv.py:167"),
-    "K2": ("K2_scan", "cuda", "hifir_tpu_torch/csrc/kernels.cu",
+    "K2": ("K2_trsv", "cuda", "hifir_tpu_torch/csrc/kernels.cu",
            "hifir_tpu/ops/trsv.py:544"),
 }
 # the kernel-phase row that stands for each kernel in the summary line: the
 # shape and dtype it runs at on the main path (HIFIR's A-product is f64 at
 # 128 RHS; the M-solve kernels are timed in f32, the bench dtype)
-_MAIN_ROW = {"K7": ("K7_bsr", "float64", f"nrhs={NRHS}"),
-             "K1": ("K1_sell_E", "float32", ""),
-             "K2": ("K2_scan_L", "float32", "")}
+_MAIN_ROW = {"K7": ("K7_bsr", "float64", (f"nrhs={NRHS} ",)),
+             "K1": ("K1_sell_E", "float32", ()),
+             "K2": ("K2_trsv_L", "float32", ("level=0 ", f"nrhs={NRHS} "))}
 
 
 def main(argv=None) -> int:
@@ -518,7 +623,7 @@ def main(argv=None) -> int:
     T = Timer(torch)
 
     log("== kernel phases (kernel vs plain version on the card)")
-    rows = kernel_phases(torch, T, M, rng)
+    rows, sweeps = kernel_phases(torch, T, M, rng)
 
     log("== main path: frozen-operator M-solve and HIFIR (BSR A)")
     launches, per_solve, packs, Bd, Ab, ir_res = main_path(torch, M, A, rng)
@@ -536,7 +641,8 @@ def main(argv=None) -> int:
     for k, (name, route, src, repl) in _SOURCES.items():
         rname, rdt, rshape = _MAIN_ROW[k]
         row = next(r for r in rows if r["name"] == rname
-                   and r["dtype"] == rdt and rshape in r["shape"])
+                   and r["dtype"] == rdt
+                   and all(x in r["shape"] for x in rshape))
         kernels.append(dict(
             name=name, route=route, source=src, replaces=repl,
             launches=launches[k], max_abs_err=row["max_abs_err"],
@@ -548,6 +654,8 @@ def main(argv=None) -> int:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(nvidia_smi=smi, kernel_rows=rows,
+                           sweeps=sweeps,
+                           ptxas=ptxas_report(kl.ptxas_log),
                            main_path_launches=launches,
                            launches_per_solve=per_solve, timing=timing,
                            profile=prof,

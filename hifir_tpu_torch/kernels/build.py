@@ -30,9 +30,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _SIGNATURES = {
-    "bsr_spmv": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "bsr_spmv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sell_spmv": [_P, _P, _P, _P, _I, _L, _I, _I, _P, _P, _P],
-    "trsv_scan": [_P, _P, _P, _P, _I, _I, _I, _L, _P],
+    "trsv_solve": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P,
+                   _P],
 }
 
 
@@ -97,6 +98,8 @@ def load_kernels() -> KernelLib:
             f.restype = ctypes.c_int
     lib.hifir_error_string.argtypes = [ctypes.c_int]
     lib.hifir_error_string.restype = ctypes.c_char_p
+    lib.read_rate.argtypes = [_P, _L, _P, ctypes.c_uint, _P]
+    lib.read_rate.restype = ctypes.c_int
     return KernelLib(lib, so, seconds, log)
 
 

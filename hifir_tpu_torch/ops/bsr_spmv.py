@@ -3,6 +3,9 @@
 The port of ``hifir_tpu/ops/pallas_spmv.py``: ``bsr_from_csr`` is copied as
 it is; the product is kernel K7 (``csrc/kernels.cu:bsr_spmv``) on the card
 and its plain PyTorch version, :func:`bsr_matvec_mrhs_plain`, on the CPU.
+K7 has three paths, chosen by :func:`bsr_path`: DMMA tensor cores (f64) and
+3xTF32 tensor cores (f32) for blocks of right-hand sides, and a streaming
+kernel bound by the blocks' bytes for one or two.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import torch
 from ..device import resolve_device
 from ..kernels.build import check, kernel_fn
 
-__all__ = ["BSR", "bsr_from_csr", "bsr_matvec_mrhs", "bsr_matvec_mrhs_plain"]
+__all__ = ["BSR", "bsr_from_csr", "bsr_matvec_mrhs", "bsr_matvec_mrhs_plain",
+           "bsr_path"]
 
 
 @dataclasses.dataclass
@@ -74,16 +78,50 @@ def bsr_matvec_mrhs_plain(A: BSR, X: torch.Tensor) -> torch.Tensor:
     return Y.reshape(A.nbr * A.bs, -1)
 
 
-def bsr_spmv_cuda(A: BSR, X: torch.Tensor) -> torch.Tensor:
-    """Launch K7; ``bsr_spmv_cuda.launches`` counts its launches."""
+# Widest block of right-hand sides that the streaming kernel takes; up to
+# here it beat the tensor-core tile in both dtypes on the H100 at the main
+# path's bs=128 (chip_smoke.py's K7 path sweep).
+STREAM_MAX_NRHS = 2
+
+
+def bsr_path(dtype: torch.dtype, nrhs: int) -> str:
+    """K7's path for a block of ``nrhs`` right-hand sides: "stream" for
+    narrow blocks, else the tensor cores, "dmma" (f64) or "tf32x3" (f32)."""
+    if nrhs <= STREAM_MAX_NRHS:
+        return "stream"
+    return "dmma" if dtype == torch.float64 else "tf32x3"
+
+
+def bsr_spmv_cuda(A: BSR, X: torch.Tensor, path: str = None) -> torch.Tensor:
+    """Launch K7 on ``path`` (default :func:`bsr_path`);
+    ``bsr_spmv_cuda.launches`` counts its launches.  ``path`` is there for
+    chip_smoke.py, which times both sides of :func:`bsr_path`'s choice at
+    1, 2 and 4 right-hand sides on every run, each checked against the
+    plain version, so that ``STREAM_MAX_NRHS`` stays measured."""
+    if X.shape[0] != A.nbr * A.bs:
+        raise ValueError(f"X has {X.shape[0]} rows, BSR needs {A.nbr * A.bs}")
     nrhs = X.shape[1]
     Y = X.new_empty((A.nbr * A.bs, nrhs))
     if A.nbr == 0 or nrhs == 0:
         return Y
     fn = kernel_fn("bsr_spmv", A.blocks, A.block_cols, X, Y,
                    index_dtypes=(torch.int32,))
+    path = path or bsr_path(X.dtype, nrhs)
+    tensor = "dmma" if X.dtype == torch.float64 else "tf32x3"
+    stream = path == "stream"
+    if path not in ("stream", tensor):
+        raise ValueError(f"bsr_spmv: path {path!r} for {X.dtype}: "
+                         f"'stream' or {tensor!r}")
+    if stream and nrhs > STREAM_MAX_NRHS:
+        raise ValueError(f"bsr_spmv: the streaming path takes at most "
+                         f"{STREAM_MAX_NRHS} right-hand sides, got {nrhs}")
+    # 16-byte loads need 16-byte rows and base addresses in the blocks and
+    # X (whose rows the tensor-core paths read 16 bytes at a time)
+    v = 16 // X.element_size()
+    vec = (A.bs % v == 0 and (stream or nrhs % v == 0)
+           and all(t.data_ptr() % 16 == 0 for t in (A.blocks, X)))
     err = fn(A.blocks.data_ptr(), A.block_cols.data_ptr(), X.data_ptr(),
-             Y.data_ptr(), A.nbr, A.kb, A.bs, nrhs,
+             Y.data_ptr(), A.nbr, A.kb, A.bs, nrhs, int(stream), int(vec),
              torch.cuda.current_stream(X.device).cuda_stream)
     check(err, "bsr_spmv")
     bsr_spmv_cuda.launches += 1
@@ -96,8 +134,9 @@ bsr_spmv_cuda.launches = 0
 def bsr_matvec_mrhs(A: BSR, X: torch.Tensor) -> torch.Tensor:
     """Y = A X for X of shape (nbr*bs, nrhs): kernel K7 for a CUDA tensor,
     the plain version for a CPU one."""
-    if X.shape[0] != A.nbr * A.bs:
-        raise ValueError(f"X has {X.shape[0]} rows, BSR needs {A.nbr * A.bs}")
     if X.device.type == "cpu":
+        if X.shape[0] != A.nbr * A.bs:
+            raise ValueError(f"X has {X.shape[0]} rows, BSR needs "
+                             f"{A.nbr * A.bs}")
         return bsr_matvec_mrhs_plain(A, X)
     return bsr_spmv_cuda(A, X.contiguous())

@@ -6,8 +6,9 @@ layouts equal the reference's arrays:
 
 - :class:`TrsvSchedule`: the chunked level schedule in slot order.  Besides
   the reference's arrays it keeps ``level_slots``, the slot range of every
-  effective level, which the JAX pytree drops: kernel K2
-  (``csrc/kernels.cu:trsv_scan``) launches once per level over that range.
+  effective level, which the JAX pytree drops, on the host and on the
+  device: kernel K2 (``csrc/kernels.cu:trsv_solve``) walks those ranges,
+  from B to X with the entry and exit gathers, in one launch per solve.
 - :class:`TrsvDense`: an explicit dense inverse, applied by ``torch.matmul``.
 - :class:`TrsvBlockDense`: W-row blocks, each an off-diagonal sliced-ELL
   product (kernel K1) and a dense ``torch.matmul`` with the block's inverse.
@@ -26,8 +27,8 @@ from ..kernels.build import check, kernel_fn
 
 __all__ = ["TrsvSchedule", "TrsvDense", "TrsvBlockDense",
            "build_trsv_schedule", "build_trsv_dense",
-           "build_trsv_block_dense", "trsv_apply_mrhs", "trsv_scan",
-           "trsv_scan_plain"]
+           "build_trsv_block_dense", "trsv_apply_mrhs", "trsv_apply_plain",
+           "trsv_shape"]
 
 
 @dataclasses.dataclass
@@ -44,6 +45,7 @@ class TrsvSchedule:
     nlevels: int
     level_slots: np.ndarray   # (nlevels + 1,) int64 host: level l is slots
     #                           [level_slots[l], level_slots[l + 1])
+    level_slots_dev: torch.Tensor   # the same, int64, on the device
 
 
 @dataclasses.dataclass
@@ -285,7 +287,8 @@ def build_trsv_schedule(T, lower: bool, chunk: int = 256, dtype=None,
                             torch.zeros((0, c0, 1), dtype=torch_dtype(zdt),
                                         device=dev),
                             torch.zeros((0,), **i32), 0, 0, c0, 0,
-                            np.zeros(1, np.int64))
+                            np.zeros(1, np.int64),
+                            torch.zeros(1, dtype=torch.int64, device=dev))
 
     rows_of = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
     keep = (indices < rows_of) if lower else (indices > rows_of)
@@ -414,16 +417,18 @@ def build_trsv_schedule(T, lower: bool, chunk: int = 256, dtype=None,
                         t(cols2d.reshape(nchunks, chunk, K)),
                         t(vals2d.reshape(nchunks, chunk, K)),
                         t(out_slots.astype(np.int32)),
-                        n, nchunks, chunk, nlev, level_slots)
+                        n, nchunks, chunk, nlev, level_slots, t(level_slots))
 
 
 # ---------------------------------------------------------------------------
 # K2 and its plain version
 
-def trsv_scan_plain(sched: TrsvSchedule, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch level scan, in place on slot-ordered ``x`` of shape
-    (nslots + 1, nrhs) whose last row is the zero sentinel: level by level,
-    x[slots] -= sum_k vals * x[cols]."""
+def trsv_apply_plain(sched: TrsvSchedule, B: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch solve (I + strict(T)) X = B on the schedule: gather B
+    into slot order with a zero sentinel slot, then level by level
+    x[slots] -= sum_k vals * x[cols], then gather X out of slot order."""
+    zero = B.new_zeros((1, B.shape[1]))
+    x = torch.cat([torch.cat([B, zero])[sched.in_rows], zero])
     K = sched.cols.shape[2]
     cols = sched.cols.view(-1, K)
     vals = sched.vals.view(-1, K)
@@ -431,50 +436,72 @@ def trsv_scan_plain(sched: TrsvSchedule, x: torch.Tensor) -> torch.Tensor:
                       sched.level_slots[1:].tolist()):
         g = x[cols[s0:s1]]                              # (S, K, nrhs)
         x[s0:s1] -= torch.einsum("sk,skj->sj", vals[s0:s1], g)
-    return x
+    return x[sched.out_slots]
 
 
-def trsv_scan_cuda(sched: TrsvSchedule, x: torch.Tensor) -> torch.Tensor:
-    """Launch K2 once per level; ``trsv_scan_cuda.launches`` counts them."""
+# The shared memory a thread block of K2 may hold its column's slot vector
+# in (227 KB on the H100).
+SMEM_BYTES = 227 * 1024
+
+
+def trsv_shape(nslots: int, itemsize: int) -> str:
+    """Where K2 keeps a column's slot vector of ``nslots`` + 1 elements of
+    ``itemsize`` bytes: "shared" memory while it fits, else "global".  Either
+    way the kernel copies the next levels' dependencies ahead into shared
+    memory (the ring): into what x leaves, or, with x in global memory,
+    into at most 128 KB, so that L1 keeps room for x."""
+    return "shared" if (nslots + 1) * itemsize <= SMEM_BYTES else "global"
+
+
+def _ring_width(sched: TrsvSchedule) -> int:
+    """The widest level, in slots, for K2's ring of copied dependencies; 0
+    (no ring) when a level's rows are not whole 16-byte lines (chunk % 4)."""
+    if sched.chunk % 4:
+        return 0
+    return int(np.diff(sched.level_slots).max())
+
+
+def trsv_apply_cuda(sched: TrsvSchedule, B: torch.Tensor) -> torch.Tensor:
+    """Launch K2 once for the whole solve, B to X, one thread block a
+    column; ``trsv_apply_cuda.launches`` counts its launches."""
+    n, nrhs = B.shape
+    if n != sched.n:
+        raise ValueError(f"B has {n} rows, the schedule {sched.n}")
+    X = B.new_empty((n, nrhs))
+    if nrhs == 0 or sched.nchunks == 0:
+        return X
     nslots = sched.nchunks * sched.chunk
-    nrhs = x.shape[1]
-    if x.shape[0] != nslots + 1:
-        raise ValueError(f"x has {x.shape[0]} rows, the schedule needs "
-                         f"{nslots + 1}")
-    if nrhs == 0:
-        return x
-    fn = kernel_fn("trsv_scan", x, sched.cols, sched.vals,
-                   index_dtypes=(torch.int32,))
-    K = sched.cols.shape[2]
-    err = fn(x.data_ptr(), sched.cols.data_ptr(), sched.vals.data_ptr(),
-             sched.level_slots.ctypes.data, sched.nlevels, K, nrhs, nslots,
-             torch.cuda.current_stream(x.device).cuda_stream)
-    check(err, "trsv_scan")
-    trsv_scan_cuda.launches += sched.nlevels   # one launch per level
-    return x
+    scratch = None
+    if trsv_shape(nslots, B.element_size()) == "global":
+        scratch = B.new_empty((nrhs * (nslots + 1),))
+    extra = () if scratch is None else (scratch,)
+    fn = kernel_fn("trsv_solve", B, X, sched.in_rows, sched.cols, sched.vals,
+                   sched.out_slots, sched.level_slots_dev, *extra,
+                   index_dtypes=(torch.int32,) * 3 + (torch.int64,))
+    err = fn(B.data_ptr(), X.data_ptr(), sched.in_rows.data_ptr(),
+             sched.cols.data_ptr(), sched.vals.data_ptr(),
+             sched.out_slots.data_ptr(), sched.level_slots_dev.data_ptr(),
+             sched.nlevels, sched.cols.shape[2], n, nrhs, nslots,
+             _ring_width(sched),
+             None if scratch is None else scratch.data_ptr(),
+             torch.cuda.current_stream(B.device).cuda_stream)
+    check(err, "trsv_solve")
+    trsv_apply_cuda.launches += 1
+    return X
 
 
-trsv_scan_cuda.launches = 0
-
-
-def trsv_scan(sched: TrsvSchedule, x: torch.Tensor) -> torch.Tensor:
-    """In-place level scan of slot-ordered ``x`` (nslots + 1, nrhs): kernel K2
-    for a CUDA tensor, the plain version for a CPU one."""
-    if x.device.type == "cpu":
-        return trsv_scan_plain(sched, x)
-    if not x.is_contiguous():
-        raise ValueError("trsv_scan updates x in place: x must be contiguous")
-    return trsv_scan_cuda(sched, x)
+trsv_apply_cuda.launches = 0
 
 
 def trsv_apply_mrhs(sched, B: torch.Tensor) -> torch.Tensor:
-    """Solve (I + strict(T)) X = B for B of shape (n, nrhs)."""
+    """Solve (I + strict(T)) X = B for B of shape (n, nrhs); on a schedule,
+    kernel K2 for a CUDA tensor and the plain version for a CPU one."""
     if isinstance(sched, TrsvDense):
         return sched.inv @ B
     if isinstance(sched, TrsvBlockDense):
         return _block_dense_apply(sched, B)
     if sched.nchunks == 0:
         return B
-    zero = B.new_zeros((1, B.shape[1]))
-    x = torch.cat([torch.cat([B, zero])[sched.in_rows], zero])  # + sentinel
-    return trsv_scan(sched, x)[sched.out_slots]
+    if B.device.type == "cpu":
+        return trsv_apply_plain(sched, B)
+    return trsv_apply_cuda(sched, B.contiguous())

@@ -262,11 +262,15 @@ def test_kernel_launchers_refuse_cpu_tensors():
     T = trsv.build_trsv_schedule(_port(_triangles()["random"](True)),
                                  lower=True, chunk=8, device=CPU)
     X = torch.zeros((A.nrows, 2), dtype=torch.float64)
-    x = torch.zeros((T.nchunks * T.chunk + 1, 2), dtype=torch.float64)
-    for launch in (lambda: spmv.sell_spmv_cuda(s, X),
-                   lambda: bsr_spmv.bsr_spmv_cuda(b, X),
-                   lambda: trsv.trsv_scan_cuda(T, x)):
+    B = torch.zeros((T.n, 2), dtype=torch.float64)
+    launches = [lambda: spmv.sell_spmv_cuda(s, X),
+                lambda: bsr_spmv.bsr_spmv_cuda(b, X)]
+    launches += [lambda p=p: bsr_spmv.bsr_spmv_cuda(b, X, path=p)
+                 for p in ("stream", "dmma")]
+    launches += [lambda Bt=Bt: trsv.trsv_apply_cuda(T, Bt)
+                 for Bt in (B, B[:, :1].contiguous())]
+    for launch in launches:
         with pytest.raises(ValueError, match="CUDA"):
             launch()
     assert (spmv.sell_spmv_cuda.launches, bsr_spmv.bsr_spmv_cuda.launches,
-            trsv.trsv_scan_cuda.launches) == (0, 0, 0)
+            trsv.trsv_apply_cuda.launches) == (0, 0, 0)
