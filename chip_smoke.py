@@ -9,17 +9,23 @@ Phases, in order; any failed gate raises and the script exits non-zero:
 
 1. Toolchain: torch, CUDA, nvcc, the card's name and power limit.
 2. Build the hand-written kernels (csrc/kernels.cu) with nvcc.
-3. Kernel phases: each kernel (K7 BSR SpMV, K1 sliced-ELL SpMV, K2
-   triangular solve on a level schedule) against its plain PyTorch version
-   on the card, at the main path's shapes, in f32 and f64, with CUDA-event
-   times of the kernel, the plain version and the PyTorch call that
-   computes the same function (the library yardstick, which the port never
-   calls: torch.sparse.mm for K7 and K1, torch.triangular_solve on a CSR
-   factor for K2), each library result checked against the kernel's.  K7
-   runs at 128, 8 and 1 right-hand sides, so that each of its three paths
-   (DMMA, 3xTF32, streaming) is held against the plain version; K2 runs
-   B to X on both levels' factors at 128 and 1 right-hand sides.  Sweeps
-   beside the rows: K7's paths at 1, 2 and 4 right-hand sides; and the
+3. Kernel phases: each kernel (K7 BSR SpMV, K1 sliced-ELL SpMV with its
+   fused C - A X epilogue, K2 triangular solve on a level schedule) against
+   its plain PyTorch version on the card, at the main path's shapes, in f32
+   and f64, with CUDA-event times of the kernel, the plain version and the
+   PyTorch call that computes the same function (the library yardstick,
+   which the port never calls: torch.sparse.mm for K7 and K1's product,
+   torch.addmm(C, A, X, alpha=-1) on a CSR A for K1's C - A X,
+   torch.triangular_solve on a CSR factor for K2), each library result
+   checked against the kernel's.  K7 runs at 128, 8 and 1 right-hand
+   sides, so that each of its three paths (DMMA, 3xTF32, streaming) is
+   held against the plain version; K1 runs level 0's E and F in place at
+   128, 8 and 1 (its wide and narrow shapes) and as the product at 128,
+   and the heaviest Off_b of each blocked inverse at 128 and 1, in the
+   form its call site uses; K2 runs B to X on both levels' factors at 128
+   and 1 right-hand sides.  Sweeps beside the rows: the timer's launch
+   floor (a kernel that reads 16 bytes) and each K1 row again after a
+   reading L2 flush; K7's paths at 1, 2 and 4 right-hand sides; and the
    streaming path at 1 right-hand side against a plain read kernel and a
    torch sum over the same blocks (what reading them alone takes), each
    timed after the timer's writing L2 flush and after a reading one.
@@ -32,7 +38,8 @@ Phases, in order; any failed gate raises and the script exits non-zero:
    must match the plain CPU refinement (f64, 1e-10).  The launch counts of
    this phase show that the main path went through every kernel: K2 once
    per triangular solve on a schedule (8 per dense_inv=0 M-solve on the
-   fixture), K7 3 times per nirs=4 HIFIR apply.
+   fixture), K1 once per operator with entries (28 per dense_inv="auto"
+   M-solve, 4 per dense_inv=0), K7 3 times per nirs=4 HIFIR apply.
 5. Timing of the main path: 50 back-to-back M-solves of the same block
    per pack (one stream runs them in order, so this times what chaining
    X <- M^{-1} X would, without the f32 overflow that ||M^{-1}|| ~ 1e3
@@ -92,7 +99,14 @@ class Timer:
     each after an L2 flush (the main path streams >100 MB of operands per
     solve, so its kernels find their inputs cold).  The flush writes 256 MB
     and so leaves L2 full of dirty lines, which the timed kernel's own
-    traffic writes back; ``clean=True`` flushes by reading instead."""
+    traffic writes back; ``clean=True`` flushes by reading instead.
+
+    A sleep kernel holds the stream while the host queues the timed
+    launches, so that the card runs flush, event, launch, event back to back
+    and no stall of the host falls between a pair of events (on a shared
+    host such stalls inflated single-launch times several-fold)."""
+
+    HOLD_CYCLES = 20_000_000   # ~10 ms at the H100's 1.98 GHz boost clock
 
     def __init__(self, torch):
         self.torch = torch
@@ -103,6 +117,8 @@ class Timer:
         flush = self.flush.sum if clean else self.flush.zero_
         for _ in range(warmup):
             fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(self.HOLD_CYCLES)
         pairs = []
         for _ in range(iters):
             flush()
@@ -134,11 +150,34 @@ def rel_diff(Y, ref) -> float:
     return float((Y - ref).abs().max()) / max(float(ref.abs().max()), 1e-300)
 
 
-def spmv_bytes(E, nrhs: int, es: int) -> int:
-    """Bytes that Y = E X must move: E's entries (index and value) once, the
-    rows of X that E reads once, Y once.  Row tables are format overhead."""
-    return (E.nnz * (4 + es) + np.unique(E.indices).size * nrhs * es
-            + E.nrows * nrhs * es)
+def k1_bytes(A, nrhs: int, es: int, form: str) -> int:
+    """Bytes that K1's function must move for a scipy CSR A: A's entries
+    (index and value) once, the rows of X that A reads once, and the rows
+    of C read and of out written: in place only the rows with entries, out
+    of place every row, C not read for the plain product.  K1's row tables
+    are format overhead."""
+    nrows = A.shape[0]
+    rows = {"in-place": 2 * int(np.count_nonzero(np.diff(A.indptr))),
+            "out-of-place": 2 * nrows, "product": nrows}[form]
+    return (A.nnz * (4 + es) + np.unique(A.indices).size * nrhs * es
+            + rows * nrhs * es)
+
+
+def sell_csr(A):
+    """A SlicedELL back as a host scipy CSR, from K1's position table."""
+    import scipy.sparse as sp
+
+    order = A.order.cpu().numpy()
+    counts = np.zeros(A.nrows, np.int64)
+    counts[order] = A.pos_nnz.cpu().numpy()
+    first = np.zeros(A.nrows, np.int64)
+    first[order] = A.pos_ptr.cpu().numpy()
+    indptr = np.concatenate([[0], np.cumsum(counts)])
+    at = (np.repeat(first, counts) + np.arange(indptr[-1])
+          - np.repeat(indptr[:-1], counts))
+    return sp.csr_matrix((A.flat_values.cpu().numpy()[at],
+                          A.flat_indices.cpu().numpy()[at], indptr),
+                         shape=(A.nrows, A.ncols))
 
 
 def kernel_phases(torch, T, M, rng):
@@ -190,6 +229,23 @@ def kernel_phases(torch, T, M, rng):
         sweeps.append(dict(what=what, dtype=dtype, ms=ms, rel_err=rel))
         log(f"  sweep {what:48s} {dtype:7s} {ms:.4f} ms (rel err {rel:.1e})")
 
+    # the timer's floor: a launch that reads 16 bytes (the yardstick read
+    # kernel), after the writing flush and after a reading one
+    lib = load_kernels().lib
+    sink = torch.zeros(4, dtype=torch.int32, device="cuda")
+
+    def launch_floor():
+        check(lib.read_rate(sink.data_ptr(), 16, sink.data_ptr(), 0x9E3779B9,
+                            torch.cuda.current_stream().cuda_stream),
+              "read_rate")
+
+    for clean in (False, True):
+        ms = T.ms(launch_floor, clean=clean)
+        flush = "read" if clean else "write"
+        sweeps.append(dict(what="launch floor (16-byte read kernel)",
+                           flush=flush, ms=ms))
+        log(f"  launch floor: 16-byte read kernel, {flush} flush {ms:.4f} ms")
+
     A = poisson2d(128)
     for npdt in (np.float32, np.float64):
         dt = torch.float32 if npdt == np.float32 else torch.float64
@@ -239,8 +295,6 @@ def kernel_phases(torch, T, M, rng):
         X = torch.as_tensor(rng.standard_normal((Ab.nbr * Ab.bs, 1)),
                             dtype=dt, device="cuda")
         blocks, mb = Ab.blocks, Ab.blocks.numel() * es
-        sink = torch.zeros(1, dtype=torch.int32, device="cuda")
-        lib = load_kernels().lib
 
         def read_blocks():
             check(lib.read_rate(blocks.data_ptr(), mb, sink.data_ptr(),
@@ -262,38 +316,85 @@ def kernel_phases(torch, T, M, rng):
         dp = M.to_device(dtype=npdt, dense_inv=0)
         lvl = dp.levels[0]
         host = M.precs[0]
-        # K1: sliced-ELL SpMV on level 0's E and F, 128 RHS
-        for nm, E, Eh in (("E", lvl.E, host.E), ("F", lvl.F, host.F)):
-            X = torch.as_tensor(rng.standard_normal((E.ncols, NRHS)),
+
+        def k1_row(name, A, nrhs, form, what):
+            """K1 in ``form`` (as its call site runs it) against the plain
+            version, with the library call computing the same function."""
+            Ah = sell_csr(A)
+            X = torch.as_tensor(rng.standard_normal((A.ncols, nrhs)),
                                 dtype=dt, device="cuda")
-            Y = spmv.sliced_ell_matvec_mrhs(E, X)
-            Yp = spmv.sliced_ell_matvec_mrhs_plain(E, X)
+            C = (None if form == "product" else torch.as_tensor(
+                rng.standard_normal((A.nrows, nrhs)), dtype=dt,
+                device="cuda"))
+            Acsr = csr_tensor(torch, Ah, dt, "cuda")
+            if form == "in-place":
+                Y = C.clone()
+                spmv.sliced_ell_sub_mrhs(A, X, Y, out=Y)
+                Cw = C.clone()      # timed calls keep subtracting from it
+                run = lambda: spmv.sliced_ell_sub_mrhs(A, X, Cw, out=Cw)
+                plain = lambda: spmv.sliced_ell_sub_mrhs_plain(A, X, Cw,
+                                                               out=Cw)
+            else:
+                Y = spmv.sliced_ell_sub_mrhs(A, X, C)
+                run = lambda: spmv.sliced_ell_sub_mrhs(A, X, C)
+                plain = lambda: spmv.sliced_ell_sub_mrhs_plain(A, X, C)
+            Yp = spmv.sliced_ell_sub_mrhs_plain(A, X, C)
             torch.cuda.synchronize()
-            Ecsr = csr_tensor(torch, Eh, dt, "cuda")
-            record(f"K1_sell_{nm}", dname,
-                   f"{E.nrows}x{E.ncols} nnz={Eh.nnz} "
-                   f"buckets={len(E.blocks)} nrhs={NRHS}", Y, Yp,
-                   T.ms(lambda: spmv.sliced_ell_matvec_mrhs(E, X)),
-                   T.ms(lambda: spmv.sliced_ell_matvec_mrhs_plain(E, X)),
-                   library(f"K1 {dname} {nm} torch.sparse.mm",
-                           lambda: torch.sparse.mm(Ecsr, X), Y, tol),
-                   spmv_bytes(Eh, NRHS, es), 2.0 * Eh.nnz * NRHS, tol)
+            if form == "product":
+                lib = (f"K1 {dname} {what} torch.sparse.mm",
+                       lambda: torch.sparse.mm(Acsr, X))
+            else:
+                lib = (f"K1 {dname} {what} torch.addmm(C, A, X, alpha=-1)",
+                       lambda: torch.addmm(C, Acsr, X, beta=1, alpha=-1))
+            rows_nz = int(np.count_nonzero(np.diff(Ah.indptr)))
+            shape = (f"{A.nrows}x{A.ncols} nnz={Ah.nnz} rows_nz={rows_nz} "
+                     f"{what} nrhs={nrhs} form={form}")
+            record(name, dname, shape, Y, Yp, T.ms(run), T.ms(plain),
+                   library(lib[0], lib[1], Y, tol),
+                   k1_bytes(Ah, nrhs, es, form), 2.0 * Ah.nnz * nrhs, tol)
+            # the same launch after a reading flush (no dirty L2 lines)
+            ms = T.ms(run, clean=True)
+            sweeps.append(dict(what=f"{name} {shape}", dtype=dname,
+                               flush="read", ms=ms))
+            log(f"  {name:9s} {dname:7s} same, read flush: {ms:.4f} ms")
+
+        # K1 on level 0's E (down-sweep) and F (up-sweep) in place, as the
+        # M-solve runs them, and as the plain product at 128 RHS
+        for nm, E in (("E", lvl.E), ("F", lvl.F)):
+            for nrhs in (NRHS, 8, 1):
+                k1_row(f"K1_sell_{nm}", E, nrhs, "in-place",
+                       f"buckets={len(E.blocks)}")
+            k1_row(f"K1_sell_{nm}", E, NRHS, "product",
+                   f"buckets={len(E.blocks)}")
+        # the blocked inverse's heaviest Off_b of each side, in
+        # _block_dense_apply's form: out of place from B's rows into the
+        # scratch, in place on it when the block is short
+        for nm, Th, lower, b in (("L", host.L_B, True, 6),
+                                 ("U", host.U_B, False, 4)):
+            bd = trsv.build_trsv_block_dense(Th, lower=lower, W=2048,
+                                             dtype=npdt)
+            short = bd.n - bd.starts[b] < bd.W
+            for nrhs in (NRHS, 1):
+                k1_row(f"K1_sell_{nm}off", bd.offs[b], nrhs,
+                       "in-place" if short else "out-of-place",
+                       f"block={b + 1}/{len(bd.starts)}")
 
         # K1 on a uniform ELL (the form an ELL operator A takes in HIFIR)
         El = spmv.ell_from_csr(host.E, dtype=npdt)
-        Ecsr = csr_tensor(torch, host.E, dt, "cuda")
+        Eh = host.E.to_scipy().tocsr()
+        Ecsr = csr_tensor(torch, Eh, dt, "cuda")
         X = torch.as_tensor(rng.standard_normal((El.ncols, NRHS)), dtype=dt,
                             device="cuda")
         Y = spmv.ell_matvec_mrhs(El, X)
         Yp = spmv.ell_matvec_mrhs_plain(El, X)
         torch.cuda.synchronize()
         record("K1_ell_E", dname, f"{El.nrows}x{El.ncols} K={El.k} "
-               f"nrhs={NRHS}", Y, Yp,
+               f"nrhs={NRHS} form=product", Y, Yp,
                T.ms(lambda: spmv.ell_matvec_mrhs(El, X)),
                T.ms(lambda: spmv.ell_matvec_mrhs_plain(El, X)),
                library(f"K1 {dname} uniform ELL E torch.sparse.mm",
                        lambda: torch.sparse.mm(Ecsr, X), Y, tol),
-               spmv_bytes(host.E, NRHS, es), 2.0 * host.E.nnz * NRHS, tol)
+               k1_bytes(Eh, NRHS, es, "product"), 2.0 * Eh.nnz * NRHS, tol)
 
         # K2: B to X on both levels' L_B and U_B schedules.  The library
         # call solving the same unit triangular system is
@@ -384,7 +485,7 @@ def main_path(torch, M, A, rng):
     import hifir_tpu_torch as ht
     from hifir_tpu_torch.ops.bsr_spmv import bsr_from_csr
     from hifir_tpu_torch.ops.spmv import ell_matvec_mrhs
-    from hifir_tpu_torch.ops.trsv import TrsvSchedule
+    from hifir_tpu_torch.ops.trsv import TrsvBlockDense, TrsvSchedule
 
     n = M.precs[0].n
     B = rng.standard_normal((n, NRHS))
@@ -399,10 +500,17 @@ def main_path(torch, M, A, rng):
     for di in ("auto", 0):
         for npdt in (np.float32, np.float64):
             t0 = time.perf_counter()
-            packs[(di, np.dtype(npdt).name)] = M.to_device(dtype=npdt,
-                                                           dense_inv=di)
+            dp = packs[(di, np.dtype(npdt).name)] = M.to_device(
+                dtype=npdt, dense_inv=di)
+            # K1's row tables (order, pos_ptr, pos_nnz) of every operator
+            ops = [o for lvl in dp.levels for o in (lvl.E, lvl.F)]
+            ops += [o for lvl in dp.levels for f in (lvl.L, lvl.U)
+                    if isinstance(f, TrsvBlockDense) for o in f.offs]
+            table = sum(t.nbytes for o in ops
+                        for t in (o.order, o.pos_ptr, o.pos_nnz))
             log(f"  pack dense_inv={di!s:4s} {np.dtype(npdt).name}: "
-                f"{time.perf_counter() - t0:.2f} s (host)")
+                f"{time.perf_counter() - t0:.2f} s (host); K1 tables "
+                f"{table} B over {len(ops)} operators")
     Ab = bsr_from_csr(A, bs=128, dtype=np.float64)
     Bd = {dt: torch.as_tensor(B, dtype=getattr(torch, dt), device="cuda")
           for dt in ("float32", "float64")}
@@ -432,6 +540,16 @@ def main_path(torch, M, A, rng):
         got = per_solve[f"dense_inv={di} {dt}"]["K2"]
         gate(got == want, f"M-solve dense_inv={di} {dt}: {got} K2 launches, "
              f"{want} schedule-form triangular solves")
+        # one K1 launch per operator with entries: E on the way down, F on
+        # the way up, and every Off_b of a blocked inverse, whose L and U
+        # run once down and once up; empty ones launch nothing
+        want = sum((lvl.E.nnz > 0) + (lvl.F.nnz > 0) for lvl in dp.levels)
+        want += 2 * sum(o.nnz > 0 for lvl in dp.levels
+                        for f in (lvl.L, lvl.U)
+                        if isinstance(f, TrsvBlockDense) for o in f.offs)
+        got = per_solve[f"dense_inv={di} {dt}"]["K1"]
+        gate(got == want, f"M-solve dense_inv={di} {dt}: {got} K1 launches, "
+             f"{want} operators with entries")
 
     # HIFIR with A as BSR, f64: residual falls every step for every column
     dp = packs[("auto", "float64")]
@@ -506,8 +624,8 @@ def time_main_path(torch, packs, Bd, Ab, nnz):
 
 
 def _kernel_name(name: str) -> str:
-    for k in ("bsr_mma_kernel", "bsr_stream_kernel", "sell_spmv_kernel",
-              "trsv_solve_kernel"):
+    for k in ("bsr_mma_kernel", "bsr_stream_kernel", "sell_wide_kernel",
+              "sell_narrow_kernel", "trsv_solve_kernel"):
         if k in name:
             return k
     return name if len(name) <= 70 else name[:67] + "..."
@@ -574,10 +692,11 @@ _SOURCES = {
            "hifir_tpu/ops/trsv.py:544"),
 }
 # the kernel-phase row that stands for each kernel in the summary line: the
-# shape and dtype it runs at on the main path (HIFIR's A-product is f64 at
-# 128 RHS; the M-solve kernels are timed in f32, the bench dtype)
+# shape, dtype and form it runs at on the main path (HIFIR's A-product is
+# f64 at 128 RHS; the M-solve kernels are timed in f32, the bench dtype)
 _MAIN_ROW = {"K7": ("K7_bsr", "float64", (f"nrhs={NRHS} ",)),
-             "K1": ("K1_sell_E", "float32", ()),
+             "K1": ("K1_sell_E", "float32",
+                    (f"nrhs={NRHS} ", "form=in-place")),
              "K2": ("K2_trsv_L", "float32", ("level=0 ", f"nrhs={NRHS} "))}
 
 

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..device import numpy_dtype, resolve_device, torch_dtype
-from ..ops.spmv import SlicedELL, ell_matvec_mrhs, sliced_ell_from_csr
+from ..ops.spmv import SlicedELL, sliced_ell_from_csr, sliced_ell_sub_mrhs
 from ..ops.trsv import (build_trsv_block_dense, build_trsv_dense,
                         build_trsv_schedule, trsv_apply_mrhs)
 
@@ -77,13 +77,20 @@ def _tail_solve_mrhs(tail: DenseTail, Y: torch.Tensor) -> torch.Tensor:
 
 def prec_solve_mrhs(levels: List[DeviceLevel], tail: Optional[DenseTail],
                     B: torch.Tensor) -> torch.Tensor:
-    """Multilevel solve X = M^{-1} B for B of shape (n, nrhs)."""
+    """Multilevel solve X = M^{-1} B for B of shape (n, nrhs).
+
+    Each level's scaled right-hand side ``wb`` takes both subtractions in
+    place (kernel K1 with its fused epilogue): the down-sweep turns
+    ``wb[m:]`` into ``wb[m:] - E x1``, the next level's right-hand side, and
+    the up-sweep, which reads only ``wb[:m]``, turns that into
+    ``wb[:m] - F x_tail`` before its last use."""
     wbs = []
     rhs = B
     for lvl in levels:
         wb = lvl.s_p[:, None] * rhs[lvl.p]
         x1 = _ldu_solve_mrhs(lvl, wb[:lvl.m])
-        rhs = wb[lvl.m:] - ell_matvec_mrhs(lvl.E, x1)
+        rhs = wb[lvl.m:]
+        sliced_ell_sub_mrhs(lvl.E, x1, rhs, out=rhs)
         wbs.append(wb)
     if tail is None:
         x_tail = rhs
@@ -93,10 +100,10 @@ def prec_solve_mrhs(levels: List[DeviceLevel], tail: Optional[DenseTail],
         x_tail = _tail_solve_mrhs(tail, rhs)
     for lvl, wb in zip(reversed(levels), reversed(wbs)):
         m = lvl.m
+        head = wb[:m]
         if lvl.n - m:
-            x1 = _ldu_solve_mrhs(lvl, wb[:m] - ell_matvec_mrhs(lvl.F, x_tail))
-        else:
-            x1 = _ldu_solve_mrhs(lvl, wb[:m])
+            sliced_ell_sub_mrhs(lvl.F, x_tail, head, out=head)
+        x1 = _ldu_solve_mrhs(lvl, head)
         sol = torch.cat([x1, x_tail])
         x_tail = lvl.t[:, None] * sol[lvl.q_inv]
     return x_tail

@@ -8,7 +8,7 @@
 // K7  bsr_spmv     replaces hifir_tpu/ops/pallas_spmv.py:bsr_matvec_mrhs
 //                  (Pallas _bsr_kernel)
 // K1  sell_spmv    replaces hifir_tpu/ops/spmv.py:ell_matvec_mrhs
-//                  (sliced-ELL branch, XLA-compiled gathers)
+//                  (XLA-compiled gathers) and its callers' C - A X
 // K2  trsv_solve   replaces hifir_tpu/ops/trsv.py:trsv_apply_mrhs
 //                  (TrsvSchedule branch: entry gather, lax.scan over chunks,
 //                  exit gather)
@@ -474,49 +474,241 @@ read_rate_kernel(const uint4* __restrict__ p, int64_t n, unsigned* out,
 }
 
 // ---------------------------------------------------------------------------
-// K1: sliced-ELL times dense, Y = A X, all row-length buckets in one launch.
+// K1: sliced-ELL times dense with a fused epilogue, out = C - A X (out = A X
+// without C), every row-length bucket in one launch.
 //
-// Bound: bytes.  Each stored entry (index + value) is read once and used for
-// nrhs multiply-adds, but every one of them also gathers a row of X, so the
-// kernel moves at least indices + values + X + Y and does 2 FLOP per
-// (entry, column): far below the card's ~20 FLOP/byte balance point.
+// Replaces hifir_tpu/ops/spmv.py:167 (ell_matvec_mrhs, XLA-compiled
+// gathers) together with the subtraction each of its callers makes after
+// it: hifir_tpu/alg/prec.py:579,593 (b - E x1, b - F x_tail),
+// hifir_tpu/ops/trsv.py:176 (the blocked inverse's seg - Off_b x) and
+// hifir_tpu/solvers/gmres.py:199 (the refinement residual b - A x).
 //
-// Design: the JAX version ran one gather-multiply-reduce per bucket, then
-// concatenated the buckets and gathered rows back into original order.  Here
-// a per-row table (row_ptr: offset of the row's entries in the concatenated
-// bucket arrays, row_len: its bucket's width) lets one launch cover every
-// bucket and write each row straight to its original position.  One thread
-// per (row, column), columns fastest: a warp reads one row's index/value
-// (broadcast) and 32 consecutive columns of X (coalesced).  Pad entries
-// (index == ncols) are skipped by a bounds test.  row_ptr == nullptr means a
-// uniform ELL (row r at r * k_uniform).
+// Bound: bytes.  Each entry (index and value) is read once and used for
+// nrhs multiply-adds against a gathered row of X, 2 FLOP per 8 or 16 bytes
+// of X: far below the card's balance point.  The least traffic is the
+// entries, the distinct rows of X they read, and the rows of C read and of
+// out written; in place, only the rows that have entries.
+//
+// Design.  The JAX version gathered, multiplied and reduced bucket by
+// bucket, concatenated the buckets, gathered the rows back into order, and
+// its caller subtracted in a second pass.  Here the packer's tables walk
+// the concatenation by position p: order[p] is the row there, pos_ptr[p]
+// its first flat entry and pos_nnz[p] its true entry count (pads trail, so
+// the walk stops at the last real entry).  Rows without entries take the
+// first positions, so an in-place launch (out == C) starts at position
+// ``first`` == their count and neither reads nor writes them; an
+// out-of-place launch starts at 0 and writes them as C (or 0).  Indexing is
+// 32-bit (the wrapper checks the sizes) and nothing in the loops divides.
+// Two shapes, chosen by the host from nrhs:
+//
+// - wide (nrhs not in {1, 2, 4, 8}): one warp a row and chunk of 32 VEC
+//   columns (grid y), so that f64 at 128 right-hand sides runs two warps a
+//   row whose gathers are in flight together.  Lanes run across columns
+//   VEC at a time with 16-byte loads and stores (float4, double2; an f32 X
+//   row of 128 columns is one warp-wide load).  The row's (index, value)
+//   pairs are read once a warp, one lane an entry, and broadcast by
+//   shuffle; a lane loads the X rows of up to 32 entries (BATCH) before its
+//   first multiply-add, so that the gathers of a row are in flight
+//   together; C's row is loaded before them, and out's row is written once.
+// - narrow (nrhs in {1, 2, 4, 8}): a group of G lanes a row (G a power of
+//   two that covers the operator's longest row, at most 32), 32 / G rows a
+//   warp.  Lane l of a group takes entries l, l + G, ... of its row, so that
+//   the warp's index and value loads are contiguous; it gathers its nrhs
+//   columns of X, and a shuffle reduction inside the group sums them.
+//
+// C and out may be one array (in place); X never overlaps out (the wrapper
+// checks), so X alone is read through the read-only cache.  order ==
+// nullptr means a uniform ELL: row p at p * k_uniform, k_uniform slots,
+// pads (index == ncols) skipped by a bounds test.
+constexpr int kK1Threads = 256;
+
+// VEC consecutive elements, 16-byte aligned when VEC > 1: ldg through the
+// read-only cache (X), ld and st plain (C and out, which may alias).
+template <typename T, int VEC>
+struct K1Vec;
+template <>
+struct K1Vec<float, 4> {
+  __device__ __forceinline__ static void ldg(float* a, const float* p) {
+    set(a, __ldg(reinterpret_cast<const float4*>(p)));
+  }
+  __device__ __forceinline__ static void ld(float* a, const float* p) {
+    set(a, *reinterpret_cast<const float4*>(p));
+  }
+  __device__ __forceinline__ static void st(float* p, const float* a) {
+    *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+  }
+  __device__ __forceinline__ static void set(float* a, float4 v) {
+    a[0] = v.x;
+    a[1] = v.y;
+    a[2] = v.z;
+    a[3] = v.w;
+  }
+};
+template <>
+struct K1Vec<double, 2> {
+  __device__ __forceinline__ static void ldg(double* a, const double* p) {
+    set(a, __ldg(reinterpret_cast<const double2*>(p)));
+  }
+  __device__ __forceinline__ static void ld(double* a, const double* p) {
+    set(a, *reinterpret_cast<const double2*>(p));
+  }
+  __device__ __forceinline__ static void st(double* p, const double* a) {
+    *reinterpret_cast<double2*>(p) = make_double2(a[0], a[1]);
+  }
+  __device__ __forceinline__ static void set(double* a, double2 v) {
+    a[0] = v.x;
+    a[1] = v.y;
+  }
+};
 template <typename T>
-__global__ void sell_spmv_kernel(const int* __restrict__ idx,
-                                 const T* __restrict__ val,
-                                 const int64_t* __restrict__ row_ptr,
-                                 const int* __restrict__ row_len,
-                                 int k_uniform, int64_t nrows, int nrhs,
-                                 int ncols, const T* __restrict__ X,
-                                 T* __restrict__ Y) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= nrows * nrhs) return;
-  const int64_t r = t / nrhs;
-  const int j = (int)(t % nrhs);
-  int64_t start;
-  int len;
-  if (row_ptr != nullptr) {
-    start = row_ptr[r];
-    len = row_len[r];
+struct K1Vec<T, 1> {
+  __device__ __forceinline__ static void ldg(T* a, const T* p) {
+    a[0] = __ldg(p);
+  }
+  __device__ __forceinline__ static void ld(T* a, const T* p) { a[0] = *p; }
+  __device__ __forceinline__ static void st(T* p, const T* a) { *p = a[0]; }
+};
+
+// The row table of position p.
+__device__ __forceinline__ void k1_row(const int* __restrict__ order,
+                                       const int* __restrict__ pos_ptr,
+                                       const int* __restrict__ pos_nnz,
+                                       int k_uniform, int p, int& row,
+                                       int& ptr, int& nnz) {
+  if (order != nullptr) {
+    row = __ldg(order + p);
+    ptr = __ldg(pos_ptr + p);
+    nnz = __ldg(pos_nnz + p);
   } else {
-    start = r * k_uniform;
-    len = k_uniform;
+    row = p;
+    ptr = p * k_uniform;
+    nnz = k_uniform;
   }
-  T acc = T(0);
-  for (int k = 0; k < len; ++k) {
-    const int c = idx[start + k];
-    if (c < ncols) acc += val[start + k] * X[(int64_t)c * nrhs + j];
+}
+
+// BATCH: the X rows a lane loads before it multiplies, the longest row of
+// the operator rounded up to 4, 8, 16 or 32 (the host's choice), so that
+// the gathers of a row of up to 32 entries go out at once while an
+// operator of short rows keeps its registers few and its resident warps
+// many.
+template <typename T, int VEC, int BATCH>
+__global__ void __launch_bounds__(kK1Threads)
+sell_wide_kernel(const int* __restrict__ idx, const T* __restrict__ val,
+                 const int* __restrict__ order,
+                 const int* __restrict__ pos_ptr,
+                 const int* __restrict__ pos_nnz, int k_uniform, int first,
+                 int npos, int nrhs, int ncols, const T* __restrict__ X,
+                 const T* C, T* out) {
+  const int p = first + blockIdx.x * (kK1Threads / 32) + threadIdx.x / 32;
+  if (p >= npos) return;  // the whole warp
+  const int lane = threadIdx.x % 32;
+  int row, ptr, nnz;
+  k1_row(order, pos_ptr, pos_nnz, k_uniform, p, row, ptr, nnz);
+  const int rbase = row * nrhs;
+  // this warp's chunk of 32 * VEC columns (blockIdx.y)
+  const int j = blockIdx.y * 32 * VEC + lane * VEC;
+  const bool live = j < nrhs;  // nrhs % VEC == 0 (the host checks)
+  // C's row does not depend on the entries: its load goes out first
+  T acc[VEC], cv[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) acc[v] = cv[v] = T(0);
+  if (live && C != nullptr) K1Vec<T, VEC>::ld(cv, C + rbase + j);
+  for (int k0 = 0; k0 < nnz; k0 += 32) {
+    int mc = ncols;
+    T mv = T(0);
+    if (k0 + lane < nnz) {
+      mc = __ldg(idx + ptr + k0 + lane);
+      mv = __ldg(val + ptr + k0 + lane);
+    }
+    const int kn = min(32, nnz - k0);
+    for (int kb = 0; kb < kn; kb += BATCH) {
+      T a[BATCH], x[BATCH][VEC];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        a[u] = T(0);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) x[u][v] = T(0);
+        if (kb + u < kn) {  // the same for the whole warp
+          const int c = __shfl_sync(0xffffffffu, mc, kb + u);
+          a[u] = __shfl_sync(0xffffffffu, mv, kb + u);
+          if (live && c < ncols)
+            K1Vec<T, VEC>::ldg(x[u], X + c * nrhs + j);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u)
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) acc[v] += a[u] * x[u][v];
+    }
   }
-  Y[r * nrhs + j] = acc;
+  if (!live) return;
+  if (C != nullptr) {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[v] = cv[v] - acc[v];
+  }
+  K1Vec<T, VEC>::st(out + rbase + j, acc);
+}
+
+// NR elements of an X row: 16-byte loads where NR fills whole lines (X is
+// 16-byte aligned then; the host checks), else one element at a time.
+template <typename T, int NR>
+__device__ __forceinline__ void k1_load_row(T* a, const T* p) {
+  constexpr int V = 16 / sizeof(T);
+  if constexpr (NR % V == 0) {
+#pragma unroll
+    for (int q = 0; q < NR / V; ++q) K1Vec<T, V>::ldg(a + q * V, p + q * V);
+  } else {
+#pragma unroll
+    for (int q = 0; q < NR; ++q) a[q] = __ldg(p + q);
+  }
+}
+
+template <typename T, int NR>
+__global__ void __launch_bounds__(kK1Threads)
+sell_narrow_kernel(const int* __restrict__ idx, const T* __restrict__ val,
+                   const int* __restrict__ order,
+                   const int* __restrict__ pos_ptr,
+                   const int* __restrict__ pos_nnz, int k_uniform, int first,
+                   int npos, int ncols, int lg, const T* __restrict__ X,
+                   const T* C, T* out) {
+  const int lane = threadIdx.x % 32;
+  const int warp = blockIdx.x * (kK1Threads / 32) + threadIdx.x / 32;
+  const int p0 = first + (warp << (5 - lg));  // 2^(5 - lg) rows a warp
+  if (p0 >= npos) return;  // the whole warp
+  const int G = 1 << lg;
+  const int gl = lane & (G - 1);
+  const int p = p0 + (lane >> lg);
+  const bool live = p < npos;
+  int row = 0, ptr = 0, nnz = 0;
+  if (live) k1_row(order, pos_ptr, pos_nnz, k_uniform, p, row, ptr, nnz);
+  // lane gl of the group writes columns gl, gl + G, ...; their C goes out
+  // before the entries' loads
+  T acc[NR], cv[NR];
+#pragma unroll
+  for (int q = 0; q < NR; ++q) {
+    acc[q] = cv[q] = T(0);
+    if (live && C != nullptr && (q & (G - 1)) == gl) cv[q] = C[row * NR + q];
+  }
+  for (int k = gl; k < nnz; k += G) {
+    const int c = __ldg(idx + ptr + k);
+    const T v = __ldg(val + ptr + k);
+    if (c < ncols) {
+      T x[NR];
+      k1_load_row<T, NR>(x, X + c * NR);
+#pragma unroll
+      for (int q = 0; q < NR; ++q) acc[q] += v * x[q];
+    }
+  }
+  // every lane of the warp takes part; a group's lanes only meet each other
+  for (int o = G / 2; o > 0; o /= 2)
+#pragma unroll
+    for (int q = 0; q < NR; ++q)
+      acc[q] += __shfl_xor_sync(0xffffffffu, acc[q], o);
+  if (!live) return;
+#pragma unroll
+  for (int q = 0; q < NR; ++q)
+    if ((q & (G - 1)) == gl)
+      out[row * NR + q] = C != nullptr ? cv[q] - acc[q] : acc[q];
 }
 
 // ---------------------------------------------------------------------------
@@ -768,12 +960,6 @@ trsv_solve_kernel(const T* __restrict__ B, T* __restrict__ X,
   }
 }
 
-constexpr int kThreads = 256;
-
-inline unsigned blocks_for(int64_t work) {
-  return (unsigned)((work + kThreads - 1) / kThreads);
-}
-
 template <typename M, int VEC, typename T = typename M::T>
 int bsr_mma(const T* blocks, const int* bcols, const T* X, T* Y, int nbr,
             int kb, int bs, int nrhs, cudaStream_t stream) {
@@ -821,13 +1007,71 @@ int bsr_spmv(const T* blocks, const int* bcols, const T* X, T* Y, int nbr,
              : bsr_stream<T, 2, 1>(blocks, bcols, X, Y, nbr, kb, bs, s);
 }
 
+template <typename T, int NR>
+int sell_narrow(const int* idx, const T* val, const int* order,
+                const int* pos_ptr, const int* pos_nnz, int k_uniform,
+                int first, int npos, int ncols, int lg, const T* X,
+                const T* C, T* out, cudaStream_t s) {
+  const int64_t warps = ((int64_t)(npos - first) + (32 >> lg) - 1) >> (5 - lg);
+  constexpr int kWarps = kK1Threads / 32;
+  sell_narrow_kernel<T, NR>
+      <<<(unsigned)((warps + kWarps - 1) / kWarps), kK1Threads, 0, s>>>(
+          idx, val, order, pos_ptr, pos_nnz, k_uniform, first, npos, ncols,
+          lg, X, C, out);
+  return (int)cudaGetLastError();
+}
+
+// out = C - A X (A X when C is null) over positions [first, npos): first is
+// 0, or the count of rows without entries when out == C.  order, pos_ptr
+// and pos_nnz are null for a uniform ELL.  max_nnz: the longest row.  vec:
+// X, C and out are 16-byte aligned and nrhs is a multiple of 16 bytes of
+// elements (the wide shape's 16-byte path); the narrow shape needs X
+// 16-byte aligned where nrhs fills whole lines.
 template <typename T>
-int sell_spmv(const int* idx, const T* val, const int64_t* row_ptr,
-              const int* row_len, int k_uniform, int64_t nrows, int nrhs,
-              int ncols, const T* X, T* Y, void* stream) {
-  sell_spmv_kernel<T>
-      <<<blocks_for(nrows * nrhs), kThreads, 0, (cudaStream_t)stream>>>(
-          idx, val, row_ptr, row_len, k_uniform, nrows, nrhs, ncols, X, Y);
+int sell_spmv(const int* idx, const T* val, const int* order,
+              const int* pos_ptr, const int* pos_nnz, int k_uniform,
+              int first, int npos, int max_nnz, int nrhs, int ncols,
+              const T* X, const T* C, T* out, int vec, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (first >= npos || nrhs <= 0) return (int)cudaSuccess;
+  int lg = 0;
+  while (lg < 5 && (1 << lg) < max_nnz) ++lg;
+#define SELL_NARROW(NR)                                                       \
+  return sell_narrow<T, NR>(idx, val, order, pos_ptr, pos_nnz, k_uniform,     \
+                            first, npos, ncols, lg, X, C, out, s)
+  switch (nrhs) {
+    case 1: SELL_NARROW(1);
+    case 2: SELL_NARROW(2);
+    case 4: SELL_NARROW(4);
+    case 8: SELL_NARROW(8);
+    default: break;
+  }
+#undef SELL_NARROW
+  constexpr int kWarps = kK1Threads / 32;
+  constexpr int V = 16 / sizeof(T);
+  const int vec_cols = 32 * (vec ? V : 1);  // the columns of one warp
+  const dim3 blocks((unsigned)((npos - first + kWarps - 1) / kWarps),
+                    (unsigned)((nrhs + vec_cols - 1) / vec_cols));
+#define SELL_WIDE(VEC, BATCH)                                                 \
+  sell_wide_kernel<T, VEC, BATCH><<<blocks, kK1Threads, 0, s>>>(              \
+      idx, val, order, pos_ptr, pos_nnz, k_uniform, first, npos, nrhs, ncols, \
+      X, C, out)
+#define SELL_WIDE_BATCH(VEC)    \
+  if (max_nnz <= 4)             \
+    SELL_WIDE(VEC, 4);          \
+  else if (max_nnz <= 8)        \
+    SELL_WIDE(VEC, 8);          \
+  else if (max_nnz <= 16)       \
+    SELL_WIDE(VEC, 16);         \
+  else                          \
+    SELL_WIDE(VEC, 32)
+  if (vec) {
+    SELL_WIDE_BATCH(V);
+  } else {
+    SELL_WIDE_BATCH(1);
+  }
+#undef SELL_WIDE_BATCH
+#undef SELL_WIDE
   return (int)cudaGetLastError();
 }
 
@@ -918,12 +1162,13 @@ int read_rate(const void* p, int64_t nbytes, unsigned* out,
     return bsr_spmv<M>(blocks, bcols, X, Y, nbr, kb, bs, nrhs, path, vec,    \
                        stream);                                               \
   }                                                                           \
-  int sell_spmv_##SUFFIX(const int* idx, const T* val,                       \
-                         const int64_t* row_ptr, const int* row_len,         \
-                         int k_uniform, int64_t nrows, int nrhs, int ncols,  \
-                         const T* X, T* Y, void* stream) {                   \
-    return sell_spmv<T>(idx, val, row_ptr, row_len, k_uniform, nrows, nrhs,  \
-                        ncols, X, Y, stream);                                \
+  int sell_spmv_##SUFFIX(const int* idx, const T* val, const int* order,     \
+                         const int* pos_ptr, const int* pos_nnz,             \
+                         int k_uniform, int first, int npos, int max_nnz,    \
+                         int nrhs, int ncols, const T* X, const T* C,        \
+                         T* out, int vec, void* stream) {                    \
+    return sell_spmv<T>(idx, val, order, pos_ptr, pos_nnz, k_uniform, first, \
+                        npos, max_nnz, nrhs, ncols, X, C, out, vec, stream); \
   }                                                                           \
   int trsv_solve_##SUFFIX(const T* B, T* X, const int* in_rows,              \
                           const int* cols, const T* vals,                    \

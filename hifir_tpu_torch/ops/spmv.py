@@ -1,14 +1,17 @@
 """Sparse matrix times dense block in padded (sliced) ELL form.
 
 The port of ``hifir_tpu/ops/spmv.py``: the packers are copied as they are,
-so the arrays equal the reference's; the product is kernel K1
-(``csrc/kernels.cu:sell_spmv``) on the card and its plain PyTorch version,
-:func:`sliced_ell_matvec_mrhs_plain`, on the CPU.
+so the arrays equal the reference's.  The product and the subtraction every
+caller makes after it are one function, :func:`sliced_ell_sub_mrhs`
+(``out = C - A X``, or ``A X`` without C): kernel K1
+(``csrc/kernels.cu:sell_spmv``) on the card and its plain PyTorch version on
+the CPU.
 
 A :class:`SlicedELL` keeps the reference's per-bucket ELL blocks and, for
-the kernel, a per-row table into the concatenation of the buckets: the
-blocks are views of that concatenation, so the table costs two vectors and
-no second copy of the entries.
+the kernel, a table by position in the concatenation of the buckets (the
+row there, its first flat entry and its true entry count): the blocks are
+views of that concatenation, so the table costs three int32 vectors and no
+second copy of the entries.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from ..device import resolve_device
 from ..kernels.build import check, kernel_fn
 
 __all__ = ["ELL", "SlicedELL", "ell_from_csr", "sliced_ell_from_csr",
-           "ell_matvec", "ell_matvec_mrhs", "sliced_ell_matvec_mrhs",
+           "ell_matvec", "ell_matvec_mrhs", "sliced_ell_sub_mrhs", "sliced_ell_sub_mrhs_plain",
            "sliced_ell_matvec_mrhs_plain", "ell_matvec_mrhs_plain"]
 
 
@@ -52,8 +55,14 @@ class SlicedELL:
     ncols: int
     flat_indices: torch.Tensor   # all buckets' indices, flattened in order
     flat_values: torch.Tensor
-    row_ptr: torch.Tensor        # (nrows,) int64: row's first flat entry
-    row_len: torch.Tensor        # (nrows,) int32: its bucket's width K
+    # K1's table, by position p in the concatenation of the buckets (rows
+    # sorted by entry count, so the nempty rows without entries come first)
+    order: torch.Tensor          # (nrows,) int32: the row at position p
+    pos_ptr: torch.Tensor        # (nrows,) int32: its first flat entry
+    pos_nnz: torch.Tensor        # (nrows,) int32: its true entry count
+    nempty: int                  # rows without entries
+    max_nnz: int                 # entries of the longest row
+    nnz: int                     # entries in all
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -90,8 +99,7 @@ def sliced_ell_from_csr(A, dtype=None, base_k: int = 8,
     inv_order[order] = np.arange(n)
 
     packed: List[Tuple[np.ndarray, np.ndarray]] = []
-    row_ptr = np.empty(n, dtype=np.int64)
-    row_len = np.empty(n, dtype=np.int32)
+    pos_ptr = np.empty(n, dtype=np.int64)
     base = 0
     start = 0
     while start < n:
@@ -117,8 +125,7 @@ def sliced_ell_from_csr(A, dtype=None, base_k: int = 8,
             idx[rr, offs] = A.indices[flat]
             val[rr, offs] = A.data[flat]
         packed.append((idx, val))
-        row_ptr[rows] = base + np.arange(rows.size, dtype=np.int64) * K
-        row_len[rows] = K
+        pos_ptr[start:end] = base + np.arange(rows.size, dtype=np.int64) * K
         base += idx.size
         start = end
 
@@ -133,9 +140,16 @@ def sliced_ell_from_csr(A, dtype=None, base_k: int = 8,
         blocks.append(ELL(flat_idx[off:off + r * K].view(r, K),
                           flat_val[off:off + r * K].view(r, K), r, A.ncols))
         off += r * K
-    return SlicedELL(tuple(blocks), _tensor(inv_order.astype(np.int32), dev),
-                     n, A.ncols, flat_idx, flat_val, _tensor(row_ptr, dev),
-                     _tensor(row_len, dev))
+    if base >= 2**31:
+        raise ValueError(f"{base} packed slots: K1 indexes them in 32 bits")
+    i32 = np.int32
+    return SlicedELL(tuple(blocks), _tensor(inv_order.astype(i32), dev),
+                     n, A.ncols, flat_idx, flat_val,
+                     _tensor(order.astype(i32), dev),
+                     _tensor(pos_ptr.astype(i32), dev),
+                     _tensor(counts[order].astype(i32), dev),
+                     int(np.count_nonzero(counts == 0)),
+                     int(counts.max()) if n else 0, int(counts.sum()))
 
 
 # ---------------------------------------------------------------------------
@@ -158,43 +172,102 @@ def ell_matvec_mrhs_plain(A: ELL, X: torch.Tensor) -> torch.Tensor:
     return torch.einsum("rk,rkj->rj", A.values, X_ext[A.indices])
 
 
-def sell_spmv_cuda(A, X: torch.Tensor) -> torch.Tensor:
-    """Launch K1 over a SlicedELL (row table) or a uniform ELL;
-    ``sell_spmv_cuda.launches`` counts its launches."""
+def sliced_ell_sub_mrhs_plain(A, X: torch.Tensor, C=None,
+                              out=None) -> torch.Tensor:
+    """Plain PyTorch ``C - A X`` (``A X`` when C is None), written into
+    ``out`` when it is given."""
+    Y = (sliced_ell_matvec_mrhs_plain(A, X) if isinstance(A, SlicedELL)
+         else ell_matvec_mrhs_plain(A, X))
+    if C is not None:
+        Y = torch.sub(C, Y, out=out) if out is not None else C - Y
+    elif out is not None:
+        Y = out.copy_(Y)
+    return Y
+
+
+# The column counts K1 runs in its narrow shape (a group of lanes a row);
+# every other count runs in the wide shape (a warp a row).
+NARROW_NRHS = (1, 2, 4, 8)
+
+
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the memory spans of two contiguous tensors intersect."""
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return (a0 < b0 + b.numel() * b.element_size()
+            and b0 < a0 + a.numel() * a.element_size())
+
+
+def sell_spmv_cuda(A, X: torch.Tensor, C=None, out=None) -> torch.Tensor:
+    """Launch K1: ``out = C - A X`` (``A X`` when C is None) for a SlicedELL
+    or a uniform ELL; ``sell_spmv_cuda.launches`` counts its launches.
+
+    ``out`` (allocated when None) may be C itself: the kernel then reads and
+    writes only the rows that have entries.  Otherwise it must not overlap
+    C.  It must never overlap X (checked): a row of out could be a row of X
+    that A reads.  An operator without entries launches nothing; the result
+    is C (or zeros), copied into ``out`` unless ``out`` is C."""
+    nrhs = X.shape[1]
+    shape = (A.nrows, nrhs)
     if X.shape[0] != A.ncols:
         raise ValueError(f"X has {X.shape[0]} rows, operator {A.ncols} cols")
-    nrhs = X.shape[1]
-    Y = X.new_empty((A.nrows, nrhs))
-    if A.nrows == 0 or nrhs == 0:
-        return Y
-    if isinstance(A, SlicedELL):
+    for name, t in (("C", C), ("out", out)):
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name} is {tuple(t.shape)}, expected {shape}")
+    if out is None:
+        out = X.new_empty(shape)
+    in_place = C is not None and C.data_ptr() == out.data_ptr()
+    if _overlap(out, X) and out.numel() and X.numel():
+        raise ValueError("sell_spmv: out overlaps X")
+    if C is not None and not in_place and _overlap(out, C) and out.numel():
+        raise ValueError("sell_spmv: out partly overlaps C")
+    sliced = isinstance(A, SlicedELL)
+    if sliced:
         idx, val, k_uni = A.flat_indices, A.flat_values, 0
-        tables = (A.row_ptr, A.row_len)
-        ptrs = (A.row_ptr.data_ptr(), A.row_len.data_ptr())
-        index_dtypes = (torch.int32, torch.int64, torch.int32)
+        tables = (A.order, A.pos_ptr, A.pos_nnz)
+        first = A.nempty if in_place else 0
+        max_nnz, empty = A.max_nnz, A.nnz == 0
     else:
         idx, val, k_uni = A.indices, A.values, A.k
-        tables, ptrs = (), (None, None)
-        index_dtypes = (torch.int32,)
-    fn = kernel_fn("sell_spmv", idx, val, *tables, X, Y,
-                   index_dtypes=index_dtypes)
-    err = fn(idx.data_ptr(), val.data_ptr(), *ptrs, k_uni, A.nrows, nrhs,
-             A.ncols, X.data_ptr(), Y.data_ptr(),
+        tables, first, max_nnz = (), 0, A.k
+        empty = A.nrows * A.k == 0
+    if max(A.nrows * nrhs, A.ncols * nrhs, A.nrows * k_uni) >= 2**31:
+        raise ValueError("sell_spmv: operands too large for 32-bit indexing")
+    if empty or nrhs == 0:
+        if C is None:
+            return out.zero_()
+        return out if in_place else out.copy_(C)
+    lines = nrhs * X.element_size() % 16 == 0   # rows of whole 16 bytes
+    if lines and nrhs in NARROW_NRHS and X.data_ptr() % 16:
+        X = X.clone()      # the narrow shape loads such X rows in 16 bytes
+    vec = lines and all(t.data_ptr() % 16 == 0 for t in (X, out)
+                        + (() if C is None else (C,)))
+    operands = (X, out) if C is None else (X, C, out)
+    fn = kernel_fn("sell_spmv", idx, val, *tables, *operands,
+                   index_dtypes=(torch.int32,) * (1 + len(tables)))
+    ptrs = [t.data_ptr() for t in tables] if sliced else [None] * 3
+    err = fn(idx.data_ptr(), val.data_ptr(), *ptrs, k_uni, first, A.nrows,
+             max_nnz, nrhs, A.ncols, X.data_ptr(),
+             None if C is None else C.data_ptr(), out.data_ptr(), int(vec),
              torch.cuda.current_stream(X.device).cuda_stream)
     check(err, "sell_spmv")
     sell_spmv_cuda.launches += 1
-    return Y
+    return out
 
 
 sell_spmv_cuda.launches = 0
 
 
-def sliced_ell_matvec_mrhs(A: SlicedELL, X: torch.Tensor) -> torch.Tensor:
-    """Y = A X: kernel K1 for a CUDA tensor, the plain version for a CPU
-    one."""
+def sliced_ell_sub_mrhs(A, X: torch.Tensor, C=None,
+                        out=None) -> torch.Tensor:
+    """``out = C - A X`` for a SlicedELL or a uniform ELL A, X of shape
+    (ncols, nrhs); ``A X`` when C is None.  ``out`` may be C (in place) and
+    must not overlap X.  Kernel K1 for a CUDA tensor, the plain version for
+    a CPU one."""
     if X.device.type == "cpu":
-        return sliced_ell_matvec_mrhs_plain(A, X)
-    return sell_spmv_cuda(A, X.contiguous())
+        return sliced_ell_sub_mrhs_plain(A, X, C, out)
+    if C is not None and C is not out:
+        C = C.contiguous()
+    return sell_spmv_cuda(A, X.contiguous(), C, out)
 
 
 def ell_matvec_mrhs(A, X: torch.Tensor) -> torch.Tensor:
@@ -206,11 +279,7 @@ def ell_matvec_mrhs(A, X: torch.Tensor) -> torch.Tensor:
         npad = A.nbr * A.bs
         Xp = torch.nn.functional.pad(X, (0, 0, 0, npad - X.shape[0]))
         return bsr_matvec_mrhs(A, Xp)[:A.n]
-    if isinstance(A, SlicedELL):
-        return sliced_ell_matvec_mrhs(A, X)
-    if X.device.type == "cpu":
-        return ell_matvec_mrhs_plain(A, X)
-    return sell_spmv_cuda(A, X.contiguous())
+    return sliced_ell_sub_mrhs(A, X)
 
 
 def ell_matvec(A, x: torch.Tensor) -> torch.Tensor:

@@ -113,15 +113,33 @@ def build_trsv_block_dense(T, lower: bool, W: int = 2048, dtype=None,
 
 
 def _block_dense_apply(bd: TrsvBlockDense, B: torch.Tensor) -> torch.Tensor:
-    from .spmv import ell_matvec_mrhs
+    """X = (I + strict T)^{-1} B block by block: S = B_b - Off_b X (K1, its
+    epilogue fused), then X_b = Inv_b S (``torch.matmul``).
 
-    pad = bd.W * len(bd.starts) - bd.n
-    # a fresh buffer: the blocks below update it in place
-    x = torch.cat([B, B.new_zeros((pad, B.shape[1]))])
+    X is written block by block into one buffer of the padded height, which
+    Off_b's columns index; they lie outside the block's own rows, so K1
+    never writes a row it reads.  Only the w real rows of a block enter the
+    product (the padded inverse is the identity past them), so B is never
+    padded: a block whose Off_b is empty multiplies B's rows directly, and
+    the last block, when it is short and not empty, copies its rows into
+    the scratch S first."""
+    from .spmv import sliced_ell_sub_mrhs
+
+    n, W = bd.n, bd.W
+    B = B.contiguous()
+    x = B.new_empty((W * len(bd.starts), B.shape[1]))
+    S = B.new_empty((W, B.shape[1]))
     for inv, off, lo in zip(bd.invs, bd.offs, bd.starts):
-        seg = x[lo:lo + bd.W] - ell_matvec_mrhs(off, x)
-        x[lo:lo + bd.W] = inv @ seg
-    return x[:bd.n]
+        w = min(W, n - lo)
+        if off.nnz == 0:
+            seg = B[lo:lo + w]
+        elif w == W:
+            seg = sliced_ell_sub_mrhs(off, x, B[lo:lo + W], out=S)
+        else:
+            S[:w] = B[lo:n]
+            seg = sliced_ell_sub_mrhs(off, x, S, out=S)[:w]
+        torch.matmul(inv[:w, :w], seg, out=x[lo:lo + w])
+    return x[:n]
 
 
 def build_trsv_dense(T, lower: bool, dtype=None, device="cuda") -> TrsvDense:

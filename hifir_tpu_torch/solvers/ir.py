@@ -2,14 +2,15 @@
 
 The port of ``hifir_tpu/solvers/gmres.py:ir_apply_device``.  The operator A
 may be a sliced ELL, an ELL or a BSR (:mod:`..ops.spmv`,
-:mod:`..ops.bsr_spmv`); its product runs in kernel K1 or K7 on the card.
+:mod:`..ops.bsr_spmv`); the residual B - A X runs in kernel K1 with its
+fused epilogue, or in K7 followed by a subtraction, on the card.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.spmv import ell_matvec_mrhs
+from ..ops.spmv import ell_matvec_mrhs, sliced_ell_sub_mrhs
 
 __all__ = ["ir_apply"]
 
@@ -25,5 +26,9 @@ def ir_apply(A, prec, b, nirs: int) -> torch.Tensor:
     B = b[:, None] if b.ndim == 1 else b
     X = prec.solve_mrhs(B)
     for _ in range(1, nirs):
-        X = X + prec.solve_mrhs(B - ell_matvec_mrhs(A, X))
+        if hasattr(A, "block_cols"):   # BSR: K7, then the subtraction
+            R = B - ell_matvec_mrhs(A, X)
+        else:                          # (sliced) ELL: K1's fused B - A X
+            R = sliced_ell_sub_mrhs(A, X, B)
+        X = X + prec.solve_mrhs(R)
     return X[:, 0] if b.ndim == 1 else X

@@ -101,20 +101,42 @@ def test_ell_packers_equal_reference(dtype):
                jspmv.sliced_ell_from_csr(A, dtype=dtype))
 
 
+def _with_empty_rows(A, every=3):
+    """A copy of A whose rows 0, every, 2 every, ... have no entries."""
+    M = A.to_scipy().tolil()
+    M[::every] = 0
+    M = M.tocsr()
+    M.eliminate_zeros()
+    return JCSR.from_scipy(M)
+
+
 def test_sliced_ell_row_table_addresses_buckets():
-    """row_ptr/row_len (the kernel's table) point at each row's bucket row."""
-    A = random_sparse(300, 40, seed=5, ncols=90)
+    """K1's table (order, pos_ptr, pos_nnz by position in the bucket
+    concatenation) points at each row's bucket row, counts its CSR entries,
+    and puts the rows without entries first."""
+    A = _with_empty_rows(random_sparse(300, 40, seed=5, ncols=90))
+    counts = np.diff(A.indptr)
     s = spmv.sliced_ell_from_csr(_port(A), device=CPU)
-    pos = s.inv_order.long()
+    for t in (s.order, s.pos_ptr, s.pos_nnz):
+        assert t.dtype == torch.int32 and t.shape == (A.nrows,)
+    order = s.order.numpy()
+    np.testing.assert_array_equal(s.inv_order.numpy()[order],
+                                  np.arange(A.nrows))
+    np.testing.assert_array_equal(s.pos_nnz.numpy(), counts[order])
+    assert s.nempty == np.count_nonzero(counts == 0) > 0
+    assert not s.pos_nnz[:s.nempty].any() and s.pos_nnz[s.nempty:].all()
+    assert (s.max_nnz, s.nnz) == (counts.max(), counts.sum())
     starts = np.cumsum([0] + [b.nrows for b in s.blocks])
-    for r in range(A.nrows):
-        b = int(np.searchsorted(starts, int(pos[r]), side="right")) - 1
-        o = int(pos[r]) - starts[b]
+    for p, r in enumerate(order):
+        b = int(np.searchsorted(starts, p, side="right")) - 1
         K = s.blocks[b].k
-        assert int(s.row_len[r]) == K
-        p = int(s.row_ptr[r])
-        np.testing.assert_array_equal(s.flat_indices[p:p + K].numpy(),
-                                      s.blocks[b].indices[o].numpy())
+        q, c = int(s.pos_ptr[p]), counts[r]
+        np.testing.assert_array_equal(s.flat_indices[q:q + K].numpy(),
+                                      s.blocks[b].indices[p - starts[b]])
+        # the true entries, then only pads
+        np.testing.assert_array_equal(s.flat_indices[q:q + c].numpy(),
+                                      A.indices[A.indptr[r]:A.indptr[r + 1]])
+        assert (s.flat_indices[q + c:q + K] == A.ncols).all()
 
 
 @pytest.mark.parametrize("nx,bs", [(24, 128), (16, 64)])
@@ -213,6 +235,37 @@ def test_k1_plain_empty_operator():
     assert Y.shape == (5, 3) and not Y.any()
 
 
+@pytest.mark.parametrize("op", ["empty_rows", "empty"])
+@pytest.mark.parametrize("in_place", [True, False])
+@pytest.mark.parametrize("nrhs", [1, 5])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("sliced", [True, False])
+def test_k1_fused_plain_matches_reference(op, in_place, nrhs, dtype, sliced):
+    """out = C - A X against the JAX package's C - ell_matvec_mrhs(A, X), in
+    place (out is C) and out of place; an operator without entries gives C
+    itself (in place) or a copy of it."""
+    A = _with_empty_rows(random_sparse(120, 9, seed=2, ncols=77))
+    if op == "empty":
+        A = JCSR.from_scipy(sp.csr_matrix((120, 77)))
+    rng = np.random.default_rng(6)
+    X = rng.standard_normal((77, nrhs)).astype(dtype)
+    C = rng.standard_normal((120, nrhs)).astype(dtype)
+    pack, jpack = ((spmv.sliced_ell_from_csr, jspmv.sliced_ell_from_csr)
+                   if sliced else (spmv.ell_from_csr, jspmv.ell_from_csr))
+    Ct = torch.from_numpy(C.copy())
+    out = Ct if in_place else torch.empty_like(Ct)
+    Y = spmv.sliced_ell_sub_mrhs(pack(_port(A), dtype=dtype, device=CPU),
+                                 torch.from_numpy(X), Ct, out=out)
+    assert Y is out
+    if not in_place:
+        np.testing.assert_array_equal(Ct.numpy(), C)   # C left as it was
+    Yj = C - np.asarray(jspmv.ell_matvec_mrhs(jpack(A, dtype=dtype),
+                                              jnp.asarray(X)))
+    _close(Y, Yj, dtype)
+    if op == "empty":
+        np.testing.assert_array_equal(Y.numpy(), C)
+
+
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("nx,bs,nrhs", [(24, 128, 8), (16, 64, 1)])
 def test_k7_plain_matches_reference(dtype, nx, bs, nrhs):
@@ -252,6 +305,54 @@ def test_k2_trsv_apply_matches_reference(form, lower):
                                atol=1e-12 * np.abs(np.asarray(Xj)).max())
 
 
+@pytest.mark.parametrize("nrhs", [1, 5])
+@pytest.mark.parametrize("W", [16, 64])
+@pytest.mark.parametrize("lower", [True, False])
+def test_block_dense_apply_matches_reference(nrhs, W, lower):
+    """The blocked inverse (K1 with its fused epilogue, then the block's
+    inverse) against the JAX package's _block_dense_apply; the first block
+    solved on each side has an empty Off_b, and the last block is short."""
+    T = _triangles()["wide"](lower)
+    bd = trsv.build_trsv_block_dense(_port(T), lower=lower, W=W, device=CPU)
+    jbd = jtrsv.build_trsv_block_dense(T, lower=lower, W=W)
+    assert bd.offs[0].nnz == 0 and all(o.nnz for o in bd.offs[1:])
+    assert T.nrows % W
+    B = np.random.default_rng(9).standard_normal((T.nrows, nrhs))
+    X = trsv._block_dense_apply(bd, torch.from_numpy(B))
+    Xj = np.asarray(jtrsv._block_dense_apply(jbd, jnp.asarray(B)))
+    assert X.shape == (T.nrows, nrhs)
+    np.testing.assert_allclose(X.numpy(), Xj, rtol=1e-12,
+                               atol=1e-12 * np.abs(Xj).max())
+
+
+@pytest.mark.parametrize("lower", [True, False])
+def test_block_offdiag_columns_outside_block(lower):
+    """Off_b reads no row of its own block, so K1 may write the block's rows
+    while it reads the solution buffer."""
+    T = _triangles()["convdiff"](lower)
+    bd = trsv.build_trsv_block_dense(_port(T), lower=lower, W=16, device=CPU)
+    for off, lo in zip(bd.offs, bd.starts):
+        cols = off.flat_indices[off.flat_indices < off.ncols]
+        assert not ((cols >= lo) & (cols < lo + bd.W)).any()
+        assert (cols < lo).all() if lower else (cols >= lo + bd.W).all()
+
+
+def test_k1_launcher_checks_operands():
+    """Before any build or launch: out may not overlap X or share part of
+    C's memory, and C and out take A's row count."""
+    A = poisson2d(16)
+    s = spmv.sliced_ell_from_csr(_port(A), device=CPU)
+    X = torch.zeros((A.nrows, 4), dtype=torch.float64)
+    buf = torch.zeros((2 * A.nrows, 4), dtype=torch.float64)
+    for kw, msg in ((dict(out=X), "overlaps X"),
+                    (dict(C=buf[:A.nrows], out=buf[1:A.nrows + 1]),
+                     "partly overlaps C"),
+                    (dict(C=buf), "expected")):
+        with pytest.raises(ValueError, match=msg):
+            spmv.sell_spmv_cuda(s, X, **kw)
+    assert spmv.sell_spmv_cuda.launches == 0
+
+
 def test_kernel_launchers_refuse_cpu_tensors():
     """The launchers never fall back: a CPU operand is refused before any
     build or launch (the plain versions are chosen only by the public
@@ -261,10 +362,18 @@ def test_kernel_launchers_refuse_cpu_tensors():
     b = bsr_spmv.bsr_from_csr(_port(A), bs=64, device=CPU)
     T = trsv.build_trsv_schedule(_port(_triangles()["random"](True)),
                                  lower=True, chunk=8, device=CPU)
+    e = spmv.ell_from_csr(_port(A), device=CPU)
     X = torch.zeros((A.nrows, 2), dtype=torch.float64)
+    C = torch.zeros((A.nrows, 2), dtype=torch.float64)
     B = torch.zeros((T.n, 2), dtype=torch.float64)
     launches = [lambda: spmv.sell_spmv_cuda(s, X),
                 lambda: bsr_spmv.bsr_spmv_cuda(b, X)]
+    # K1's fused entry: in place, out of place, uniform ELL, one column
+    launches += [lambda: spmv.sell_spmv_cuda(s, X, C, C),
+                 lambda: spmv.sell_spmv_cuda(s, X, C, torch.empty_like(C)),
+                 lambda: spmv.sell_spmv_cuda(e, X, C),
+                 lambda: spmv.sell_spmv_cuda(s, X[:, :1].contiguous(),
+                                             C[:, :1].contiguous())]
     launches += [lambda p=p: bsr_spmv.bsr_spmv_cuda(b, X, path=p)
                  for p in ("stream", "dmma")]
     launches += [lambda Bt=Bt: trsv.trsv_apply_cuda(T, Bt)
