@@ -23,7 +23,9 @@ Phases, in order; any failed gate raises and the script exits non-zero:
    128, 8 and 1 (its wide and narrow shapes) and as the product at 128,
    and the heaviest Off_b of each blocked inverse at 128 and 1, in the
    form its call site uses; K2 runs B to X on both levels' factors at 128
-   and 1 right-hand sides.  Sweeps beside the rows: the timer's launch
+   and 1 right-hand sides; K1 with sign=+1 (C + A X, the products') runs
+   the nonsymmetric fixture's level-0 U_B in place at 128 and 1.  Sweeps
+   beside the rows: the timer's launch
    floor (a kernel that reads 16 bytes) and each K1 row again after a
    reading L2 flush; K7's paths at 1, 2 and 4 right-hand sides; and the
    streaming path at 1 right-hand side against a plain read kernel and a
@@ -46,6 +48,27 @@ Phases, in order; any failed gate raises and the script exits non-zero:
    brings to a 50-fold chain), and a
    torch.profiler breakdown of the f32 M-solves and the HIFIR apply:
    device time by kernel and the device's busy share of the time per run.
+6. Surface, on the nonsymmetric fixture hifir_tpu_torch/data/
+   convdiff2d_128_prec.npz (n=16384, two levels, a 203x203 QRCP tail) and
+   A = convdiff2d(128), each part with the launch counts set to 0 just
+   before it and read just after, each reference the port's plain f64 CPU
+   run: the adjoint M-solve of 128 seeded RHS on packs dense_inv "auto"
+   and 0 in f32 and f64 (gates 1e-4 / 1e-10, and the forward solve beside
+   it), the adjoint identity <Y, M^-1 X> = <M^-H Y, X> in f64 (1e-10 of
+   |Y| |M^-1 X| per column pair), and K1/K2 launches per adjoint solve by
+   the forward rule on the adjoint pack; the runtime rank (r = the tail's
+   rank equals the pack's within 1e-12, r = 3/4 of it matches the CPU
+   within 1e-10), forward and adjoint; a constant-mode null-space filter
+   (every column's mean within 1e-12 of max|X|); the products M X and
+   M^H X on 8 and 128 columns (1e-10 against the CPU, K1's sign=+1
+   launches counted, and M (M^-1 B) = B, M^H (M^-H B) = B within 1e-9);
+   the GMRES drivers to rtol 1e-6 (gmres_hif and fgmres_hifir with the
+   tail's rank on one RHS with a sliced-ELL A, gmres_mrhs on 128 RHS with
+   A = BSR(bs=128), which launches K7): flag 0, true residual within
+   1.01 rtol, iteration (cycle) counts within one of the CPU run.  Then
+   the timing: adjoint and forward M-solves per pack, the products, and
+   each driver's time to solution, device busy share (torch.profiler),
+   host syncs and peak memory.
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels and, last, {"ok": true, "device": {...}}.  Without a card the
@@ -64,8 +87,10 @@ import time
 
 import numpy as np
 
-FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                       "benchdata", "frozen_prec.npz")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+FIXTURE = os.path.join(ROOT, "benchdata", "frozen_prec.npz")
+CONVDIFF = os.path.join(ROOT, "hifir_tpu_torch", "data",
+                        "convdiff2d_128_prec.npz")
 NRHS = 128
 CHAIN = 50
 # H100 SXM: 3.35 TB/s device memory; 67 TFLOP/s in f32 outside the tensor
@@ -180,9 +205,10 @@ def sell_csr(A):
                          shape=(A.nrows, A.ncols))
 
 
-def kernel_phases(torch, T, M, rng):
-    """Each kernel against its plain version at main-path shapes; returns
-    the rows and the sweeps."""
+def kernel_phases(torch, T, M, Mc, rng):
+    """Each kernel against its plain version at main-path shapes (``M`` the
+    frozen fixture, ``Mc`` the nonsymmetric one); returns the rows and the
+    sweeps."""
     import scipy.sparse as sp
 
     from hifir_tpu_torch.kernels.build import check, load_kernels
@@ -317,9 +343,10 @@ def kernel_phases(torch, T, M, rng):
         lvl = dp.levels[0]
         host = M.precs[0]
 
-        def k1_row(name, A, nrhs, form, what):
+        def k1_row(name, A, nrhs, form, what, sign=-1):
             """K1 in ``form`` (as its call site runs it) against the plain
-            version, with the library call computing the same function."""
+            version, with the library call computing the same function;
+            ``sign=1`` computes C + A X."""
             Ah = sell_csr(A)
             X = torch.as_tensor(rng.standard_normal((A.ncols, nrhs)),
                                 dtype=dt, device="cuda")
@@ -329,26 +356,29 @@ def kernel_phases(torch, T, M, rng):
             Acsr = csr_tensor(torch, Ah, dt, "cuda")
             if form == "in-place":
                 Y = C.clone()
-                spmv.sliced_ell_sub_mrhs(A, X, Y, out=Y)
-                Cw = C.clone()      # timed calls keep subtracting from it
-                run = lambda: spmv.sliced_ell_sub_mrhs(A, X, Cw, out=Cw)
-                plain = lambda: spmv.sliced_ell_sub_mrhs_plain(A, X, Cw,
-                                                               out=Cw)
+                spmv.sliced_ell_sub_mrhs(A, X, Y, out=Y, sign=sign)
+                Cw = C.clone()      # timed calls keep updating it
+                run = lambda: spmv.sliced_ell_sub_mrhs(A, X, Cw, out=Cw,
+                                                       sign=sign)
+                plain = lambda: spmv.sliced_ell_sub_mrhs_plain(
+                    A, X, Cw, out=Cw, sign=sign)
             else:
-                Y = spmv.sliced_ell_sub_mrhs(A, X, C)
-                run = lambda: spmv.sliced_ell_sub_mrhs(A, X, C)
-                plain = lambda: spmv.sliced_ell_sub_mrhs_plain(A, X, C)
-            Yp = spmv.sliced_ell_sub_mrhs_plain(A, X, C)
+                Y = spmv.sliced_ell_sub_mrhs(A, X, C, sign=sign)
+                run = lambda: spmv.sliced_ell_sub_mrhs(A, X, C, sign=sign)
+                plain = lambda: spmv.sliced_ell_sub_mrhs_plain(A, X, C,
+                                                               sign=sign)
+            Yp = spmv.sliced_ell_sub_mrhs_plain(A, X, C, sign=sign)
             torch.cuda.synchronize()
             if form == "product":
                 lib = (f"K1 {dname} {what} torch.sparse.mm",
                        lambda: torch.sparse.mm(Acsr, X))
             else:
-                lib = (f"K1 {dname} {what} torch.addmm(C, A, X, alpha=-1)",
-                       lambda: torch.addmm(C, Acsr, X, beta=1, alpha=-1))
+                lib = (f"K1 {dname} {what} torch.addmm(C, A, X, "
+                       f"alpha={sign})",
+                       lambda: torch.addmm(C, Acsr, X, beta=1, alpha=sign))
             rows_nz = int(np.count_nonzero(np.diff(Ah.indptr)))
             shape = (f"{A.nrows}x{A.ncols} nnz={Ah.nnz} rows_nz={rows_nz} "
-                     f"{what} nrhs={nrhs} form={form}")
+                     f"{what} nrhs={nrhs} form={form} sign={sign:+d}")
             record(name, dname, shape, Y, Yp, T.ms(run), T.ms(plain),
                    library(lib[0], lib[1], Y, tol),
                    k1_bytes(Ah, nrhs, es, form), 2.0 * Ah.nnz * nrhs, tol)
@@ -378,6 +408,13 @@ def kernel_phases(torch, T, M, rng):
                 k1_row(f"K1_sell_{nm}off", bd.offs[b], nrhs,
                        "in-place" if short else "out-of-place",
                        f"block={b + 1}/{len(bd.starts)}")
+        # K1 with sign +1, the products' z + U z: level 0's strict U_B of
+        # the nonsymmetric fixture, in place
+        Uell = spmv.sliced_ell_from_csr(Mc.precs[0].U_B, dtype=npdt)
+        for nrhs in (NRHS, 1):
+            k1_row("K1_sell_Uplus", Uell, nrhs, "in-place",
+                   f"convdiff level=0 U_B buckets={len(Uell.blocks)}",
+                   sign=1)
 
         # K1 on a uniform ELL (the form an ELL operator A takes in HIFIR)
         El = spmv.ell_from_csr(host.E, dtype=npdt)
@@ -473,10 +510,28 @@ def counters():
 def reset_counts():
     for f in counters().values():
         f.launches = 0
+    counters()["K1"].plus_launches = 0
 
 
 def read_counts():
     return {k: f.launches for k, f in counters().items()}
+
+
+def want_launches(forms) -> dict:
+    """The launches one M-solve must make on a pack whose levels' operands
+    are ``forms``, (L, U, E, F) per level (forward, or the adjoint's
+    (L^H, U^H, F^H, E^H)): K2 once per triangular solve on a schedule, L and
+    U of every such level once down and once up; K1 once per operator with
+    entries, E on the way down, F on the way up, and every Off_b of a
+    blocked inverse, whose L and U run once down and once up."""
+    from hifir_tpu_torch.ops.trsv import TrsvBlockDense, TrsvSchedule
+
+    k2 = 2 * sum(isinstance(f, TrsvSchedule) and f.nchunks > 0
+                 for L, U, _, _ in forms for f in (L, U))
+    k1 = sum((E.nnz > 0) + (F.nnz > 0) for _, _, E, F in forms)
+    k1 += 2 * sum(o.nnz > 0 for L, U, _, _ in forms for f in (L, U)
+                  if isinstance(f, TrsvBlockDense) for o in f.offs)
+    return {"K1": k1, "K2": k2}
 
 
 def main_path(torch, M, A, rng):
@@ -485,7 +540,7 @@ def main_path(torch, M, A, rng):
     import hifir_tpu_torch as ht
     from hifir_tpu_torch.ops.bsr_spmv import bsr_from_csr
     from hifir_tpu_torch.ops.spmv import ell_matvec_mrhs
-    from hifir_tpu_torch.ops.trsv import TrsvBlockDense, TrsvSchedule
+    from hifir_tpu_torch.ops.trsv import TrsvBlockDense
 
     n = M.precs[0].n
     B = rng.standard_normal((n, NRHS))
@@ -533,23 +588,12 @@ def main_path(torch, M, A, rng):
             f"{rel:.3e} (tol {tol:.0e}); launches "
             f"{per_solve[f'dense_inv={di} {dt}']}")
         gate(rel <= tol, f"M-solve dense_inv={di} {dt}: {rel:.3e} > {tol}")
-        # one K2 launch per triangular solve on a schedule: L and U of every
-        # such level, once down and once up
-        want = 2 * sum(isinstance(f, TrsvSchedule) and f.nchunks > 0
-                       for lvl in dp.levels for f in (lvl.L, lvl.U))
-        got = per_solve[f"dense_inv={di} {dt}"]["K2"]
-        gate(got == want, f"M-solve dense_inv={di} {dt}: {got} K2 launches, "
-             f"{want} schedule-form triangular solves")
-        # one K1 launch per operator with entries: E on the way down, F on
-        # the way up, and every Off_b of a blocked inverse, whose L and U
-        # run once down and once up; empty ones launch nothing
-        want = sum((lvl.E.nnz > 0) + (lvl.F.nnz > 0) for lvl in dp.levels)
-        want += 2 * sum(o.nnz > 0 for lvl in dp.levels
-                        for f in (lvl.L, lvl.U)
-                        if isinstance(f, TrsvBlockDense) for o in f.offs)
-        got = per_solve[f"dense_inv={di} {dt}"]["K1"]
-        gate(got == want, f"M-solve dense_inv={di} {dt}: {got} K1 launches, "
-             f"{want} operators with entries")
+        want = want_launches([(lvl.L, lvl.U, lvl.E, lvl.F)
+                              for lvl in dp.levels])
+        for k, w in want.items():
+            got = per_solve[f"dense_inv={di} {dt}"][k]
+            gate(got == w, f"M-solve dense_inv={di} {dt}: {got} {k} "
+                 f"launches, expected {w}")
 
     # HIFIR with A as BSR, f64: residual falls every step for every column
     dp = packs[("auto", "float64")]
@@ -631,13 +675,56 @@ def _kernel_name(name: str) -> str:
     return name if len(name) <= 70 else name[:67] + "..."
 
 
+def device_profile(torch, run, reps: int) -> dict:
+    """torch.profiler over ``reps`` runs of ``run``: device time and
+    operations per run, the host's synchronisations per run, and the eight
+    largest device items by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    by, syncs = {}, 0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            syncs += ev.name in ("cudaStreamSynchronize",
+                                 "cudaDeviceSynchronize")
+            continue
+        name = _kernel_name(ev.name)
+        us, cnt = by.get(name, (0.0, 0))
+        by[name] = (us + ev.time_range.elapsed_us(), cnt + 1)
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(
+        device_ms_per_run=sum(us for us, _ in by.values()) / reps / 1e3,
+        device_ops_per_run=sum(c for _, c in by.values()) / reps,
+        host_syncs_per_run=(syncs - 1) / reps,   # less the closing one
+        top=[dict(name=n, ms_per_run=us / reps / 1e3,
+                  count_per_run=c / reps) for n, (us, c) in top])
+
+
+def log_profile(key: str, p: dict, wall_ms: float) -> None:
+    busy = p["device_ms_per_run"]
+    p["busy_share"] = busy / wall_ms if busy else None
+    if not busy:
+        log(f"  {key}: the profiler saw no device time (not measured)")
+        return
+    log(f"  {key}: device busy {busy:.4f} of {wall_ms:.4f} ms/run "
+        f"({100 * busy / wall_ms:.1f}%), {p['device_ops_per_run']:.0f} "
+        f"device ops/run, {p['host_syncs_per_run']:.0f} host syncs/run")
+    for t in p["top"]:
+        log(f"    {t['ms_per_run']:.4f} ms  x{t['count_per_run']:.0f}"
+            f"  {t['name']}")
+
+
 def profile_phase(torch, packs, Bd, Ab, timing, reps=5):
     """Where the time goes in the f32 M-solves and the f64 HIFIR apply:
     device time by kernel from torch.profiler over ``reps`` runs, and the
     device's busy share of the unprofiled time per run measured above."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     import hifir_tpu_torch as ht
 
     runs = {f"dense_inv={di} float32": (
@@ -647,40 +734,308 @@ def profile_phase(torch, packs, Bd, Ab, timing, reps=5):
         Ab, packs[("auto", "float64")], Bd["float64"], 4)
     out = {}
     for key, run in runs.items():
-        run()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                run()
-            torch.cuda.synchronize()
-        by = {}
-        for ev in prof.events():
-            if ev.device_type != DeviceType.CUDA:
-                continue
-            name = _kernel_name(ev.name)
-            us, cnt = by.get(name, (0.0, 0))
-            by[name] = (us + ev.time_range.elapsed_us(), cnt + 1)
-        busy_ms = sum(us for us, _ in by.values()) / reps / 1e3
-        wall_ms = (timing[key].get("ms_per_solve")
-                   or timing[key]["ms_per_apply"])
-        top = sorted(by.items(), key=lambda kv: -kv[1][0])[:8]
-        out[key] = dict(
-            device_ms_per_run=busy_ms,
-            device_ops_per_run=sum(c for _, c in by.values()) / reps,
-            busy_share=busy_ms / wall_ms if busy_ms else None,
-            top=[dict(name=n, ms_per_run=us / reps / 1e3,
-                      count_per_run=c / reps) for n, (us, c) in top])
-        if not busy_ms:
-            log(f"  {key}: the profiler saw no device time (not measured)")
-            continue
-        log(f"  {key}: device busy {busy_ms:.4f} of {wall_ms:.4f} ms/run "
-            f"({100 * busy_ms / wall_ms:.1f}%), "
-            f"{out[key]['device_ops_per_run']:.0f} device ops/run")
-        for t in out[key]["top"]:
-            log(f"    {t['ms_per_run']:.4f} ms  x{t['count_per_run']:.0f}"
-                f"  {t['name']}")
+        out[key] = device_profile(torch, run, reps)
+        log_profile(key, out[key], timing[key].get("ms_per_solve")
+                    or timing[key]["ms_per_apply"])
     return out
+
+
+def surface_phase(torch, M, A, rng):
+    """The rest of the preconditioner's surface on the nonsymmetric fixture
+    ``M`` with its operator ``A``: the adjoint M-solve, the runtime rank, the
+    null-space filter, the products M X and M^H X and the three GMRES
+    drivers, each against the port's plain f64 CPU run or a check that needs
+    no reference.  Every part runs with the launch counts set to 0 just
+    before it and read just after; returns the report, the packs and the
+    launches of each part with what each must be."""
+    import hifir_tpu_torch as ht
+    from hifir_tpu_torch.alg.prec import prec_prod_mrhs, prec_prod_tran_mrhs
+    from hifir_tpu_torch.ops.bsr_spmv import bsr_from_csr
+    from hifir_tpu_torch.ops.spmv import sell_spmv_cuda, sliced_ell_from_csr
+
+    launches, want = {}, {}
+
+    def counted(what, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[what] = dict(read_counts(),
+                              K1plus=sell_spmv_cuda.plus_launches)
+        return out
+
+    def rel(X, ref) -> float:
+        X = X.double().cpu().numpy() if torch.is_tensor(X) else X
+        ref = ref.double().numpy() if torch.is_tensor(ref) else ref
+        return float(np.abs(X - ref).max() / np.abs(ref).max())
+
+    n = A.nrows
+    rank = M.precs[-1].dense_solver.rank
+    B = rng.standard_normal((n, NRHS))
+    report = {}
+    # the references: the port's plain f64 CPU runs, level-scan form
+    cpu = M.to_device(dtype=np.float64, device="cpu", dense_inv=0)
+    cpu.pack_transpose(M.precs)
+    ref = {t: cpu.solve_mrhs(B, trans=t).numpy() for t in (False, True)}
+
+    # 1. the adjoint M-solve (and the forward one beside it) on every pack
+    packs = {}
+    for di in ("auto", 0):
+        for npdt in (np.float32, np.float64):
+            t0 = time.perf_counter()
+            dp = M.to_device(dtype=npdt, dense_inv=di, device="cuda")
+            dp.pack_transpose(M.precs)
+            packs[(di, np.dtype(npdt).name)] = dp
+            log(f"  pack + pack_transpose dense_inv={di!s:4s} "
+                f"{np.dtype(npdt).name}: {time.perf_counter() - t0:.2f} s")
+    Bd = {dt: torch.as_tensor(B, dtype=getattr(torch, dt), device="cuda")
+          for dt in ("float32", "float64")}
+    for (di, dt), dp in packs.items():
+        for trans in (True, False):
+            key = f"{'adjoint' if trans else 'forward'} dense_inv={di} {dt}"
+            X = counted(key, lambda: dp.solve_mrhs(Bd[dt], trans=trans))
+            gate(bool(torch.isfinite(X).all()), f"{key}: non-finite")
+            gate(tuple(X.shape) == (n, NRHS), f"{key}: shape")
+            tol = 1e-4 if dt == "float32" else 1e-10
+            d = rel(X, ref[trans])
+            forms = ([(t.LT, t.UT, t.FT, t.ET) for t in dp.tran] if trans
+                     else [(lv.L, lv.U, lv.E, lv.F) for lv in dp.levels])
+            want[key] = want_launches(forms)
+            report[key] = dict(rel_diff=d, tol=tol)
+            log(f"  M-solve {key:30s}: rel diff vs CPU f64 {d:.3e} "
+                f"(tol {tol:.0e}); launches {launches[key]}")
+            gate(d <= tol, f"{key}: {d:.3e} > {tol}")
+    # <Y, M^{-1} X> = <M^{-H} Y, X> for every column pair, in f64
+    Y = torch.as_tensor(rng.standard_normal((n, NRHS)), dtype=torch.float64,
+                        device="cuda")
+    for di in ("auto", 0):
+        dp = packs[(di, "float64")]
+        MX = dp.solve_mrhs(Bd["float64"])
+        lhs = Y.T @ MX
+        rhs = dp.solve_mrhs(Y, trans=True).T @ Bd["float64"]
+        scale = (torch.linalg.vector_norm(Y, dim=0)[:, None]
+                 * torch.linalg.vector_norm(MX, dim=0)[None, :])
+        worst = float(((lhs - rhs).abs() / scale).max())
+        report[f"adjoint identity dense_inv={di}"] = worst
+        log(f"  adjoint identity dense_inv={di!s:4s} f64: max |<Y, M^-1 X> - "
+            f"<M^-H Y, X>| / (|Y| |M^-1 X|) = {worst:.3e} (tol 1e-10)")
+        gate(worst <= 1e-10, f"adjoint identity dense_inv={di}: {worst:.3e}")
+
+    # 2. the runtime rank, f64, forward and adjoint, on 8 columns
+    dp = packs[("auto", "float64")]
+    B8 = Bd["float64"][:, :8]
+    r = round(0.75 * rank)
+    for trans in (False, True):
+        side = "adjoint" if trans else "forward"
+        X = dp.solve_mrhs(B8, trans=trans)
+        d_full = rel(dp.solve_mrhs(B8, trans=trans, r=rank), X.cpu())
+        Xr = dp.solve_mrhs(B8, trans=trans, r=r)
+        d_trunc = rel(Xr, cpu.solve_mrhs(B[:, :8], trans=trans, r=r))
+        moved = rel(Xr, X.cpu())
+        report[f"rank {side}"] = dict(r_full=rank, full_vs_static=d_full,
+                                      r=r, vs_cpu=d_trunc, moved=moved)
+        log(f"  rank {side}: r={rank} vs the pack's rank {d_full:.3e} "
+            f"(tol 1e-12); r={r} vs CPU {d_trunc:.3e} (tol 1e-10), "
+            f"vs the full rank {moved:.3e}")
+        gate(d_full <= 1e-12, f"rank {side}: r=rank differs by {d_full:.3e}")
+        gate(d_trunc <= 1e-10, f"rank {side}: r={r} vs CPU {d_trunc:.3e}")
+        gate(moved > 1e-8, f"rank {side}: r={r} changed nothing")
+
+    # 3. the constant-mode null-space filter on every column
+    dp.nsp, dp.nsp_tran = ht.NspFilter(), ht.NspFilter()
+    for trans in (False, True):
+        X = dp.solve_mrhs(Bd["float64"], trans=trans)
+        worst = float(X.mean(dim=0).abs().max() / X.abs().max())
+        report[f"nsp {'adjoint' if trans else 'forward'}"] = worst
+        log(f"  nsp {'adjoint' if trans else 'forward'}: max |column mean| "
+            f"/ max|X| = {worst:.3e} (tol 1e-12)")
+        gate(worst <= 1e-12, f"nsp: column mean {worst:.3e}")
+    dp.nsp = dp.nsp_tran = None
+
+    # 4. the products through the module functions, 8 and NRHS columns
+    dp.pack_prod(M.precs)
+    dp.pack_prod_tran(M.precs)
+    cpu.pack_prod(M.precs)
+    cpu.pack_prod_tran(M.precs)
+
+    def prod(p, X, trans):
+        if trans:
+            return prec_prod_tran_mrhs(p.levels, p.tran, p.prod_tran, p.tail,
+                                       X)
+        return prec_prod_mrhs(p.levels, p.prod, p.tail, X)
+
+    for k in (8, NRHS):
+        Xk = Bd["float64"][:, :k].contiguous()
+        for trans in (False, True):
+            key = f"mmultiply{' adjoint' if trans else ''} {k} columns"
+            Yk = counted(key, lambda: prod(dp, Xk, trans))
+            d = rel(Yk, prod(cpu, torch.as_tensor(B[:, :k]), trans))
+            # K1 with sign +1: L and U of every level with entries, and E
+            # (F^H for the adjoint) where the level has tail rows
+            want[key] = {"K1plus": sum(
+                (pl.Lell.nnz > 0) + (pl.Uell.nnz > 0)
+                + (lv.n > lv.m and lv.E.nnz > 0)
+                for lv, pl in zip(dp.levels, dp.prod)) if not trans else sum(
+                (pt.LellH.nnz > 0) + (pt.UellH.nnz > 0)
+                + (lv.n > lv.m and t.FT.nnz > 0)
+                for lv, t, pt in zip(dp.levels, dp.tran, dp.prod_tran))}
+            report[key] = dict(rel_diff=d)
+            log(f"  {key}: rel diff vs CPU f64 {d:.3e} (tol 1e-10); "
+                f"launches {launches[key]}")
+            gate(d <= 1e-10, f"{key}: {d:.3e} > 1e-10")
+    for trans in (False, True):
+        Bt = Bd["float64"]
+        err = float(torch.linalg.norm(
+            prod(dp, dp.solve_mrhs(Bt, trans=trans), trans) - Bt)
+            / torch.linalg.norm(Bt))
+        side = "M^H (M^-H B)" if trans else "M (M^-1 B)"
+        report[f"{side} - B"] = err
+        log(f"  ||{side} - B|| / ||B|| = {err:.3e} (tol 1e-9)")
+        gate(err <= 1e-9, f"{side} - B: {err:.3e}")
+
+    # 5. the GMRES drivers, f64, against the plain CPU runs of the same
+    # pack form; true residuals on the host from the CSR A
+    Ah = A.to_scipy()
+    cpu_auto = M.to_device(dtype=np.float64, device="cpu")
+    ops = {"sell": (sliced_ell_from_csr(A, device="cuda"),
+                    sliced_ell_from_csr(A, device="cpu")),
+           "bsr": (bsr_from_csr(A, bs=128, device="cuda"),
+                   bsr_from_csr(A, bs=128, device="cpu"))}
+    rtol = 1e-6
+    drivers = {
+        "gmres_hif": ("sell", lambda Ao, p: ht.gmres_hif(Ao, p, B[:, 0],
+                                                         rtol=rtol)),
+        "fgmres_hifir": ("sell", lambda Ao, p: ht.fgmres_hifir(
+            Ao, p, B[:, 0], rtol=rtol, rank=rank)),
+        "gmres_mrhs": ("bsr", lambda Ao, p: ht.gmres_mrhs(Ao, p, B,
+                                                          rtol=rtol)),
+    }
+    for name, (op, drive) in drivers.items():
+        t0 = time.perf_counter()
+        x, flag, it = counted(name, lambda: drive(ops[op][0], dp))
+        seconds = time.perf_counter() - t0
+        _, flag_c, it_c = drive(ops[op][1], cpu_auto)
+        X = x.cpu().numpy().reshape(n, -1)
+        Bk = B[:, :X.shape[1]]
+        res = np.linalg.norm(Bk - Ah @ X, axis=0) / np.linalg.norm(Bk, axis=0)
+        what = "cycles" if name == "gmres_mrhs" else "iterations"
+        report[name] = dict(flag=flag, count=it, cpu_count=it_c,
+                            cpu_flag=flag_c, what=what,
+                            max_true_rel_residual=float(res.max()),
+                            first_run_seconds=seconds)
+        log(f"  {name} ({op} A, {X.shape[1]} RHS): flag {flag}, {it} {what} "
+            f"(CPU plain run: flag {flag_c}, {it_c}), max true relative "
+            f"residual {res.max():.3e} (tol {1.01 * rtol:.2e}); first run "
+            f"{seconds:.3f} s; launches {launches[name]}")
+        gate(flag == 0, f"{name}: flag {flag}")
+        gate(float(res.max()) <= 1.01 * rtol, f"{name}: residual "
+             f"{res.max():.3e}")
+        gate(abs(it - it_c) <= 1, f"{name}: {it} {what} against the CPU "
+             f"run's {it_c}")
+        if it != it_c:
+            log(f"  {name}: one {what[:-1]} apart from the CPU run: the "
+                "card's and the CPU's sums round differently, and the last "
+                "residual estimate sits at rtol")
+        want[name] = {"K7": 1} if op == "bsr" else {}
+    return report, packs, launches, want, ops, B
+
+
+def check_surface_launches(launches, want):
+    """Gate each part's launches: exactly what the M-solves and products
+    must make, and at least one K7 launch in the batched GMRES (its
+    A-products)."""
+    for key, w in want.items():
+        got = launches[key]
+        for k, v in w.items():
+            ok = got[k] >= v if k == "K7" else got[k] == v
+            gate(ok, f"{key}: {got[k]} {k} launches, expected "
+                 f"{'at least ' if k == 'K7' else ''}{v}")
+    total = {k: sum(c[k] for c in launches.values())
+             for k in ("K7", "K1", "K2", "K1plus")}
+    for k, c in total.items():
+        gate(c > 0, f"kernel {k} was not launched on the surface path")
+    return total
+
+
+def time_surface(torch, packs, ops, M, B):
+    """Card times of the surface on the right-hand sides ``B`` that its
+    gates used: the adjoint and forward M-solves (``CHAIN`` back-to-back,
+    CUDA events), the products (20 back-to-back), each GMRES driver's time
+    to solution (host clock, synchronised) and peak memory, and
+    torch.profiler breakdowns of the f32 adjoint solves, the 128-column
+    products and each driver's solve."""
+    import hifir_tpu_torch as ht
+    from hifir_tpu_torch.alg.prec import prec_prod_mrhs, prec_prod_tran_mrhs
+
+    def events(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / reps
+
+    out, runs = {}, {}
+    Bd = {dt: torch.as_tensor(B, dtype=getattr(torch, dt), device="cuda")
+          for dt in ("float32", "float64")}
+    for (di, dt), dp in packs.items():
+        for trans in (True, False):
+            key = f"{'adjoint' if trans else 'forward'} dense_inv={di} {dt}"
+            run = runs[key] = (lambda dp=dp, dt=dt, trans=trans:
+                               dp.solve_mrhs(Bd[dt], trans=trans))
+            ms = events(run, CHAIN)
+            out[key] = dict(ms=ms, us_per_rhs=ms * 1e3 / NRHS)
+            log(f"  {key:30s}: {ms:.4f} ms/solve, {ms * 1e3 / NRHS:.4f} "
+                "us/RHS")
+    dp = packs[("auto", "float64")]
+    for k in (8, NRHS):
+        Xk = Bd["float64"][:, :k].contiguous()
+        for trans in (False, True):
+            key = f"mmultiply{' adjoint' if trans else ''} {k} columns f64"
+            run = runs[key] = (
+                (lambda Xk=Xk: prec_prod_tran_mrhs(
+                    dp.levels, dp.tran, dp.prod_tran, dp.tail, Xk)) if trans
+                else (lambda Xk=Xk: prec_prod_mrhs(dp.levels, dp.prod,
+                                                   dp.tail, Xk)))
+            ms = events(run, 20)
+            out[key] = dict(ms=ms)
+            log(f"  {key:33s}: {ms:.4f} ms")
+    rank = M.precs[-1].dense_solver.rank
+    drivers = {
+        "gmres_hif": lambda: ht.gmres_hif(ops["sell"][0], dp, B[:, 0]),
+        "fgmres_hifir": lambda: ht.fgmres_hifir(ops["sell"][0], dp, B[:, 0],
+                                                rank=rank),
+        "gmres_mrhs": lambda: ht.gmres_mrhs(ops["bsr"][0], dp, B),
+    }
+    for name, run in drivers.items():
+        runs[name] = run
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        _, _, count = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        out[name] = dict(ms=ms, count=count, peak_bytes=peak,
+                         peak_bytes_above_packs=peak - base)
+        log(f"  {name:12s}: {ms:.2f} ms to solution ({count} "
+            f"{'cycles' if name == 'gmres_mrhs' else 'iterations'}); peak "
+            f"memory {peak / 2**20:.1f} MiB, {(peak - base) / 2**20:.1f} MiB "
+            "above the packs")
+    log("  where the time goes (torch.profiler):")
+    profiles = {}
+    for key in ("adjoint dense_inv=auto float32", "adjoint dense_inv=0 "
+                "float32", f"mmultiply {NRHS} columns f64",
+                f"mmultiply adjoint {NRHS} columns f64", *drivers):
+        reps = 1 if key in drivers else 5
+        profiles[key] = device_profile(torch, runs[key], reps)
+        log_profile(key, profiles[key], out[key]["ms"])
+    return out, profiles
 
 
 _SOURCES = {
@@ -717,7 +1072,7 @@ def main(argv=None) -> int:
     import hifir_tpu_torch as ht
     from hifir_tpu_torch.kernels.build import (load_kernels, nvcc_path,
                                                nvcc_version)
-    from hifir_tpu_torch.models.problems import poisson2d
+    from hifir_tpu_torch.models.problems import convdiff2d, poisson2d
 
     t_start = time.perf_counter()
     smi = power_line()
@@ -739,10 +1094,16 @@ def main(argv=None) -> int:
     nnz = M.nnz()
     log(f"  frozen fixture: n={M.precs[0].n} levels={len(M.precs)} "
         f"nnz(M)={nnz}")
+    Mc = ht.load_prec(CONVDIFF)
+    Ac = convdiff2d(128)
+    log(f"  nonsymmetric fixture: n={Mc.precs[0].n} levels "
+        f"{[(p.m, p.n) for p in Mc.precs]} tail "
+        f"{Mc.precs[-1].dense_solver.kind} rank "
+        f"{Mc.precs[-1].dense_solver.rank} nnz(M)={Mc.nnz()}")
     T = Timer(torch)
 
     log("== kernel phases (kernel vs plain version on the card)")
-    rows, sweeps = kernel_phases(torch, T, M, rng)
+    rows, sweeps = kernel_phases(torch, T, M, Mc, rng)
 
     log("== main path: frozen-operator M-solve and HIFIR (BSR A)")
     launches, per_solve, packs, Bd, Ab, ir_res = main_path(torch, M, A, rng)
@@ -756,6 +1117,16 @@ def main(argv=None) -> int:
     log("== where the time goes (torch.profiler)")
     prof = profile_phase(torch, packs, Bd, Ab, timing)
 
+    log("== surface: adjoint M-solve, rank, nsp, products, GMRES "
+        "(nonsymmetric fixture, A = convdiff2d(128))")
+    # its own generator, so that its inputs do not move with the rows above
+    surface, spacks, slaunches, swant, sops, sB = surface_phase(
+        torch, Mc, Ac, np.random.default_rng(args.seed + 1))
+    stotal = check_surface_launches(slaunches, swant)
+    log(f"  launches on the surface path: {stotal}")
+    log("== surface timing")
+    stiming, sprof = time_surface(torch, spacks, sops, Mc, sB)
+
     kernels = []
     for k, (name, route, src, repl) in _SOURCES.items():
         rname, rdt, rshape = _MAIN_ROW[k]
@@ -764,7 +1135,8 @@ def main(argv=None) -> int:
                    and all(x in r["shape"] for x in rshape))
         kernels.append(dict(
             name=name, route=route, source=src, replaces=repl,
-            launches=launches[k], max_abs_err=row["max_abs_err"],
+            launches=launches[k], launches_surface=stotal[k],
+            max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], dtype=rdt, shape=row["shape"]))
@@ -779,6 +1151,9 @@ def main(argv=None) -> int:
                            launches_per_solve=per_solve, timing=timing,
                            profile=prof,
                            hifir_rel_residual=list(map(float, ir_res)),
+                           surface=surface, surface_launches=slaunches,
+                           surface_launches_total=stotal,
+                           surface_timing=stiming, surface_profile=sprof,
                            seconds=time.perf_counter() - t_start), f,
                       indent=1)
         with open(os.path.join(args.out, "nvcc_ptxas.txt"), "w") as f:

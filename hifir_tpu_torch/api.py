@@ -2,8 +2,9 @@
 
 A thin counterpart of ``hifir_tpu.api.HIF``: it holds host levels (loaded
 with :func:`load_prec`) and packs them onto a device with
-:meth:`HIF.to_device`.
-Factorization is not ported yet.
+:meth:`HIF.to_device`; the pack's ``pack_transpose``, ``pack_prod`` and
+``pack_prod_tran`` take ``HIF.precs``.  The GMRES drivers and the
+null-space filter are exported here too.  Factorization is not ported yet.
 """
 
 from __future__ import annotations
@@ -12,9 +13,12 @@ from typing import List
 
 from .alg.level import LevelPrec
 from .alg.prec import DevicePrec
+from .nsp import NspFilter
+from .solvers.gmres import fgmres_hifir, gmres_hif, gmres_mrhs
 from .utils.serialize import load_prec, prec_from_arrays
 
-__all__ = ["HIF", "load_prec", "prec_from_arrays"]
+__all__ = ["HIF", "load_prec", "prec_from_arrays", "NspFilter", "gmres_hif",
+           "fgmres_hifir", "gmres_mrhs"]
 
 
 class HIF:

@@ -8,7 +8,8 @@
 // K7  bsr_spmv     replaces hifir_tpu/ops/pallas_spmv.py:bsr_matvec_mrhs
 //                  (Pallas _bsr_kernel)
 // K1  sell_spmv    replaces hifir_tpu/ops/spmv.py:ell_matvec_mrhs
-//                  (XLA-compiled gathers) and its callers' C - A X
+//                  (XLA-compiled gathers) and its callers' C - A X (and the
+//                  products' C + A X)
 // K2  trsv_solve   replaces hifir_tpu/ops/trsv.py:trsv_apply_mrhs
 //                  (TrsvSchedule branch: entry gather, lax.scan over chunks,
 //                  exit gather)
@@ -474,14 +475,16 @@ read_rate_kernel(const uint4* __restrict__ p, int64_t n, unsigned* out,
 }
 
 // ---------------------------------------------------------------------------
-// K1: sliced-ELL times dense with a fused epilogue, out = C - A X (out = A X
-// without C), every row-length bucket in one launch.
+// K1: sliced-ELL times dense with a fused epilogue, out = C + sign A X with
+// sign -1 or +1 (out = A X without C), every row-length bucket in one launch.
 //
 // Replaces hifir_tpu/ops/spmv.py:167 (ell_matvec_mrhs, XLA-compiled
 // gathers) together with the subtraction each of its callers makes after
-// it: hifir_tpu/alg/prec.py:579,593 (b - E x1, b - F x_tail),
-// hifir_tpu/ops/trsv.py:176 (the blocked inverse's seg - Off_b x) and
-// hifir_tpu/solvers/gmres.py:199 (the refinement residual b - A x).
+// it: hifir_tpu/alg/prec.py:579,593 (b - E x1, b - F x_tail) and :649,664
+// (their adjoints with F^H and E^H), hifir_tpu/ops/trsv.py:176 (the blocked
+// inverse's seg - Off_b x) and hifir_tpu/solvers/gmres.py:199 (the
+// refinement residual b - A x); with sign +1, the sums of the products M x
+// and M^H x, hifir_tpu/alg/prec.py:727-734,764-771 (z + U z, E w + y).
 //
 // Bound: bytes.  Each entry (index and value) is read once and used for
 // nrhs multiply-adds against a gathered row of X, 2 FLOP per 8 or 16 bytes
@@ -598,7 +601,7 @@ sell_wide_kernel(const int* __restrict__ idx, const T* __restrict__ val,
                  const int* __restrict__ pos_ptr,
                  const int* __restrict__ pos_nnz, int k_uniform, int first,
                  int npos, int nrhs, int ncols, const T* __restrict__ X,
-                 const T* C, T* out) {
+                 const T* C, T* out, T sign) {
   const int p = first + blockIdx.x * (kK1Threads / 32) + threadIdx.x / 32;
   if (p >= npos) return;  // the whole warp
   const int lane = threadIdx.x % 32;
@@ -644,7 +647,7 @@ sell_wide_kernel(const int* __restrict__ idx, const T* __restrict__ val,
   if (!live) return;
   if (C != nullptr) {
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) acc[v] = cv[v] - acc[v];
+    for (int v = 0; v < VEC; ++v) acc[v] = cv[v] + sign * acc[v];
   }
   K1Vec<T, VEC>::st(out + rbase + j, acc);
 }
@@ -670,7 +673,7 @@ sell_narrow_kernel(const int* __restrict__ idx, const T* __restrict__ val,
                    const int* __restrict__ pos_ptr,
                    const int* __restrict__ pos_nnz, int k_uniform, int first,
                    int npos, int ncols, int lg, const T* __restrict__ X,
-                   const T* C, T* out) {
+                   const T* C, T* out, T sign) {
   const int lane = threadIdx.x % 32;
   const int warp = blockIdx.x * (kK1Threads / 32) + threadIdx.x / 32;
   const int p0 = first + (warp << (5 - lg));  // 2^(5 - lg) rows a warp
@@ -708,7 +711,7 @@ sell_narrow_kernel(const int* __restrict__ idx, const T* __restrict__ val,
 #pragma unroll
   for (int q = 0; q < NR; ++q)
     if ((q & (G - 1)) == gl)
-      out[row * NR + q] = C != nullptr ? cv[q] - acc[q] : acc[q];
+      out[row * NR + q] = C != nullptr ? cv[q] + sign * acc[q] : acc[q];
 }
 
 // ---------------------------------------------------------------------------
@@ -1011,17 +1014,18 @@ template <typename T, int NR>
 int sell_narrow(const int* idx, const T* val, const int* order,
                 const int* pos_ptr, const int* pos_nnz, int k_uniform,
                 int first, int npos, int ncols, int lg, const T* X,
-                const T* C, T* out, cudaStream_t s) {
+                const T* C, T* out, T sign, cudaStream_t s) {
   const int64_t warps = ((int64_t)(npos - first) + (32 >> lg) - 1) >> (5 - lg);
   constexpr int kWarps = kK1Threads / 32;
   sell_narrow_kernel<T, NR>
       <<<(unsigned)((warps + kWarps - 1) / kWarps), kK1Threads, 0, s>>>(
           idx, val, order, pos_ptr, pos_nnz, k_uniform, first, npos, ncols,
-          lg, X, C, out);
+          lg, X, C, out, sign);
   return (int)cudaGetLastError();
 }
 
-// out = C - A X (A X when C is null) over positions [first, npos): first is
+// out = C + sign A X (A X when C is null; sign is -1 or +1, exact either
+// way) over positions [first, npos): first is
 // 0, or the count of rows without entries when out == C.  order, pos_ptr
 // and pos_nnz are null for a uniform ELL.  max_nnz: the longest row.  vec:
 // X, C and out are 16-byte aligned and nrhs is a multiple of 16 bytes of
@@ -1031,14 +1035,17 @@ template <typename T>
 int sell_spmv(const int* idx, const T* val, const int* order,
               const int* pos_ptr, const int* pos_nnz, int k_uniform,
               int first, int npos, int max_nnz, int nrhs, int ncols,
-              const T* X, const T* C, T* out, int vec, void* stream) {
+              const T* X, const T* C, T* out, int sign, int vec,
+              void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  if (sign != 1 && sign != -1) return (int)cudaErrorInvalidValue;
   if (first >= npos || nrhs <= 0) return (int)cudaSuccess;
+  const T sg = (T)sign;
   int lg = 0;
   while (lg < 5 && (1 << lg) < max_nnz) ++lg;
 #define SELL_NARROW(NR)                                                       \
   return sell_narrow<T, NR>(idx, val, order, pos_ptr, pos_nnz, k_uniform,     \
-                            first, npos, ncols, lg, X, C, out, s)
+                            first, npos, ncols, lg, X, C, out, sg, s)
   switch (nrhs) {
     case 1: SELL_NARROW(1);
     case 2: SELL_NARROW(2);
@@ -1055,7 +1062,7 @@ int sell_spmv(const int* idx, const T* val, const int* order,
 #define SELL_WIDE(VEC, BATCH)                                                 \
   sell_wide_kernel<T, VEC, BATCH><<<blocks, kK1Threads, 0, s>>>(              \
       idx, val, order, pos_ptr, pos_nnz, k_uniform, first, npos, nrhs, ncols, \
-      X, C, out)
+      X, C, out, sg)
 #define SELL_WIDE_BATCH(VEC)    \
   if (max_nnz <= 4)             \
     SELL_WIDE(VEC, 4);          \
@@ -1166,9 +1173,10 @@ int read_rate(const void* p, int64_t nbytes, unsigned* out,
                          const int* pos_ptr, const int* pos_nnz,             \
                          int k_uniform, int first, int npos, int max_nnz,    \
                          int nrhs, int ncols, const T* X, const T* C,        \
-                         T* out, int vec, void* stream) {                    \
+                         T* out, int sign, int vec, void* stream) {          \
     return sell_spmv<T>(idx, val, order, pos_ptr, pos_nnz, k_uniform, first, \
-                        npos, max_nnz, nrhs, ncols, X, C, out, vec, stream); \
+                        npos, max_nnz, nrhs, ncols, X, C, out, sign, vec,    \
+                        stream);                                              \
   }                                                                           \
   int trsv_solve_##SUFFIX(const T* B, T* X, const int* in_rows,              \
                           const int* cols, const T* vals,                    \

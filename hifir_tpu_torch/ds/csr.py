@@ -1,8 +1,8 @@
 """Minimal host CSR container.
 
 The port's own copy of the parts of ``hifir_tpu/ds/csr.py`` that packing and
-loading use: construction (``from_coo``) and scipy round trips.  The
-transpose returns with the adjoint solves that need it.
+loading use: construction (``from_coo``), scipy round trips and the explicit
+transpose that the adjoint solves and products pack.
 """
 
 from __future__ import annotations
@@ -59,6 +59,13 @@ class CSR:
 
         return sp.csr_matrix((self.data, self.indices, self.indptr),
                              shape=(self.nrows, self.ncols))
+
+    def transpose(self) -> "CSR":
+        """Explicit transpose (a counting sort, scipy's CSR to CSC)."""
+        T = self.to_scipy().tocsc()
+        T.sort_indices()
+        return CSR(self.ncols, self.nrows, T.indptr.astype(np.int64),
+                   T.indices, T.data)
 
     @property
     def nnz(self) -> int:

@@ -32,7 +32,7 @@ _L = ctypes.c_int64
 _SIGNATURES = {
     "bsr_spmv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sell_spmv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
-                  _P],
+                  _I, _P],
     "trsv_solve": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P,
                    _P],
 }

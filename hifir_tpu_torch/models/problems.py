@@ -6,7 +6,7 @@ import numpy as np
 
 from ..ds.csr import CSR
 
-__all__ = ["poisson2d"]
+__all__ = ["poisson2d", "convdiff2d"]
 
 
 def poisson2d(nx: int, ny: int | None = None, dtype=np.float64) -> CSR:
@@ -23,5 +23,35 @@ def poisson2d(nx: int, ny: int | None = None, dtype=np.float64) -> CSR:
             rows.append(a)
             cols.append(b)
             vals.append(np.full(a.size, -1.0, dtype=dtype))
+    return CSR.from_coo(n, n, np.concatenate(rows), np.concatenate(cols),
+                        np.concatenate(vals))
+
+
+def convdiff2d(nx: int, ny: int | None = None, wind=(10.0, 20.0),
+               dtype=np.float64) -> CSR:
+    """2-D convection-diffusion, upwind FDM (nonsymmetric)."""
+    ny = ny or nx
+    n = nx * ny
+    h = 1.0 / (nx + 1)
+    bx, by = wind
+    idx = np.arange(n).reshape(ny, nx)
+    diag = 4.0 + h * (abs(bx) + abs(by))
+    rows = [np.arange(n)]
+    cols = [np.arange(n)]
+    vals = [np.full(n, diag, dtype=dtype)]
+    west = -(1.0 + (h * bx if bx > 0 else 0.0))
+    east = -(1.0 - (h * bx if bx < 0 else 0.0))
+    south = -(1.0 + (h * by if by > 0 else 0.0))
+    north = -(1.0 - (h * by if by < 0 else 0.0))
+    pairs = [
+        (idx[:, 1:].ravel(), idx[:, :-1].ravel(), west),
+        (idx[:, :-1].ravel(), idx[:, 1:].ravel(), east),
+        (idx[1:, :].ravel(), idx[:-1, :].ravel(), south),
+        (idx[:-1, :].ravel(), idx[1:, :].ravel(), north),
+    ]
+    for r, c, v in pairs:
+        rows.append(r)
+        cols.append(c)
+        vals.append(np.full(r.size, v, dtype=dtype))
     return CSR.from_coo(n, n, np.concatenate(rows), np.concatenate(cols),
                         np.concatenate(vals))

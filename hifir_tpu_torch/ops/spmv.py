@@ -3,9 +3,9 @@
 The port of ``hifir_tpu/ops/spmv.py``: the packers are copied as they are,
 so the arrays equal the reference's.  The product and the subtraction every
 caller makes after it are one function, :func:`sliced_ell_sub_mrhs`
-(``out = C - A X``, or ``A X`` without C): kernel K1
-(``csrc/kernels.cu:sell_spmv``) on the card and its plain PyTorch version on
-the CPU.
+(``out = C - A X``, ``out = C + A X`` with ``sign=1``, or ``A X`` without
+C): kernel K1 (``csrc/kernels.cu:sell_spmv``) on the card and its plain
+PyTorch version on the CPU.
 
 A :class:`SlicedELL` keeps the reference's per-bucket ELL blocks and, for
 the kernel, a table by position in the concatenation of the buckets (the
@@ -172,17 +172,23 @@ def ell_matvec_mrhs_plain(A: ELL, X: torch.Tensor) -> torch.Tensor:
     return torch.einsum("rk,rkj->rj", A.values, X_ext[A.indices])
 
 
-def sliced_ell_sub_mrhs_plain(A, X: torch.Tensor, C=None,
-                              out=None) -> torch.Tensor:
-    """Plain PyTorch ``C - A X`` (``A X`` when C is None), written into
+def sliced_ell_sub_mrhs_plain(A, X: torch.Tensor, C=None, out=None,
+                              sign: int = -1) -> torch.Tensor:
+    """Plain PyTorch ``C + sign A X`` (``A X`` when C is None), written into
     ``out`` when it is given."""
+    _check_sign(sign)
     Y = (sliced_ell_matvec_mrhs_plain(A, X) if isinstance(A, SlicedELL)
          else ell_matvec_mrhs_plain(A, X))
     if C is not None:
-        Y = torch.sub(C, Y, out=out) if out is not None else C - Y
+        Y = torch.add(C, Y, alpha=sign, out=out)
     elif out is not None:
         Y = out.copy_(Y)
     return Y
+
+
+def _check_sign(sign: int) -> None:
+    if sign not in (-1, 1):
+        raise ValueError(f"sell_spmv: sign must be -1 or +1, got {sign}")
 
 
 # The column counts K1 runs in its narrow shape (a group of lanes a row);
@@ -197,15 +203,19 @@ def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
             and b0 < a0 + a.numel() * a.element_size())
 
 
-def sell_spmv_cuda(A, X: torch.Tensor, C=None, out=None) -> torch.Tensor:
-    """Launch K1: ``out = C - A X`` (``A X`` when C is None) for a SlicedELL
-    or a uniform ELL; ``sell_spmv_cuda.launches`` counts its launches.
+def sell_spmv_cuda(A, X: torch.Tensor, C=None, out=None,
+                   sign: int = -1) -> torch.Tensor:
+    """Launch K1: ``out = C + sign A X`` with sign -1 or +1 (``A X`` when C
+    is None) for a SlicedELL or a uniform ELL; ``sell_spmv_cuda.launches``
+    counts its launches and ``sell_spmv_cuda.plus_launches`` those with
+    ``sign=1`` among them.
 
     ``out`` (allocated when None) may be C itself: the kernel then reads and
     writes only the rows that have entries.  Otherwise it must not overlap
     C.  It must never overlap X (checked): a row of out could be a row of X
     that A reads.  An operator without entries launches nothing; the result
     is C (or zeros), copied into ``out`` unless ``out`` is C."""
+    _check_sign(sign)
     nrhs = X.shape[1]
     shape = (A.nrows, nrhs)
     if X.shape[0] != A.ncols:
@@ -247,27 +257,30 @@ def sell_spmv_cuda(A, X: torch.Tensor, C=None, out=None) -> torch.Tensor:
     ptrs = [t.data_ptr() for t in tables] if sliced else [None] * 3
     err = fn(idx.data_ptr(), val.data_ptr(), *ptrs, k_uni, first, A.nrows,
              max_nnz, nrhs, A.ncols, X.data_ptr(),
-             None if C is None else C.data_ptr(), out.data_ptr(), int(vec),
-             torch.cuda.current_stream(X.device).cuda_stream)
+             None if C is None else C.data_ptr(), out.data_ptr(), sign,
+             int(vec), torch.cuda.current_stream(X.device).cuda_stream)
     check(err, "sell_spmv")
     sell_spmv_cuda.launches += 1
+    if C is not None and sign == 1:
+        sell_spmv_cuda.plus_launches += 1
     return out
 
 
 sell_spmv_cuda.launches = 0
+sell_spmv_cuda.plus_launches = 0
 
 
-def sliced_ell_sub_mrhs(A, X: torch.Tensor, C=None,
-                        out=None) -> torch.Tensor:
-    """``out = C - A X`` for a SlicedELL or a uniform ELL A, X of shape
-    (ncols, nrhs); ``A X`` when C is None.  ``out`` may be C (in place) and
-    must not overlap X.  Kernel K1 for a CUDA tensor, the plain version for
-    a CPU one."""
+def sliced_ell_sub_mrhs(A, X: torch.Tensor, C=None, out=None,
+                        sign: int = -1) -> torch.Tensor:
+    """``out = C - A X`` (``C + A X`` with ``sign=1``) for a SlicedELL or a
+    uniform ELL A, X of shape (ncols, nrhs); ``A X`` when C is None.
+    ``out`` may be C (in place) and must not overlap X.  Kernel K1 for a
+    CUDA tensor, the plain version for a CPU one."""
     if X.device.type == "cpu":
-        return sliced_ell_sub_mrhs_plain(A, X, C, out)
+        return sliced_ell_sub_mrhs_plain(A, X, C, out, sign)
     if C is not None and C is not out:
         C = C.contiguous()
-    return sell_spmv_cuda(A, X.contiguous(), C, out)
+    return sell_spmv_cuda(A, X.contiguous(), C, out, sign)
 
 
 def ell_matvec_mrhs(A, X: torch.Tensor) -> torch.Tensor:

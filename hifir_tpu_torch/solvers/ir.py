@@ -8,27 +8,36 @@ fused epilogue, or in K7 followed by a subtraction, on the card.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from ..alg.prec import prec_solve_mrhs
 from ..ops.spmv import ell_matvec_mrhs, sliced_ell_sub_mrhs
 
-__all__ = ["ir_apply"]
+__all__ = ["ir_apply", "residual_mrhs"]
 
 
-def ir_apply(A, prec, b, nirs: int) -> torch.Tensor:
+def residual_mrhs(A, B: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """B - A X for blocks of shape (n, nrhs)."""
+    if hasattr(A, "block_cols"):   # BSR: K7, then the subtraction
+        return B - ell_matvec_mrhs(A, X)
+    return sliced_ell_sub_mrhs(A, X, B)   # (sliced) ELL: K1's fused B - A X
+
+
+def ir_apply(A, prec, b, nirs: int, r: Optional[int] = None) -> torch.Tensor:
     """x = HIFIR(b): x = M^{-1} b, then nirs - 1 steps of x += M^{-1}(b - A x).
 
     ``b`` is one vector (n,) or a block (n, nrhs); ``prec`` a
     :class:`~hifir_tpu_torch.alg.prec.DevicePrec`, whose dtype and device the
-    result takes.
+    result takes.  ``r`` (> 0) overrides the dense tail's rank in every
+    M-solve.  As in the JAX package, the M-solves are the bare multilevel
+    solve: ``prec.nsp`` is not applied.
     """
     b = torch.as_tensor(b, dtype=prec.dtype, device=prec.device)
     B = b[:, None] if b.ndim == 1 else b
-    X = prec.solve_mrhs(B)
+    X = prec_solve_mrhs(prec.levels, prec.tail, B, r)
     for _ in range(1, nirs):
-        if hasattr(A, "block_cols"):   # BSR: K7, then the subtraction
-            R = B - ell_matvec_mrhs(A, X)
-        else:                          # (sliced) ELL: K1's fused B - A X
-            R = sliced_ell_sub_mrhs(A, X, B)
-        X = X + prec.solve_mrhs(R)
+        X = X + prec_solve_mrhs(prec.levels, prec.tail,
+                                residual_mrhs(A, B, X), r)
     return X[:, 0] if b.ndim == 1 else X

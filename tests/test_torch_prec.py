@@ -195,6 +195,16 @@ def test_port_imports_no_jax():
         "dp = M.to_device(device='cpu', dense_inv=0)\n"
         "x = dp.solve(np.ones(dp.n))\n"
         "assert bool(x.isfinite().all())\n"
+        "dp.pack_transpose(M.precs)\n"
+        "assert bool(dp.solve(x, trans=True, r=300).isfinite().all())\n"
+        "dp.pack_prod(M.precs)\n"
+        "assert bool(dp.mmultiply(x).isfinite().all())\n"
+        "from hifir_tpu_torch.models.problems import poisson2d\n"
+        "from hifir_tpu_torch.ops.spmv import sliced_ell_from_csr\n"
+        "A = sliced_ell_from_csr(poisson2d(128), device='cpu')\n"
+        "x, flag, it = ht.gmres_hif(A, dp, np.ones(dp.n), restart=2,"
+        " maxit=2)\n"
+        "assert it == 2 and bool(x.isfinite().all())\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m == 'hifir_tpu'"
         " or m.startswith('hifir_tpu.')]\n"
