@@ -69,6 +69,30 @@ Phases, in order; any failed gate raises and the script exits non-zero:
    the timing: adjoint and forward M-solves per pack, the products, and
    each driver's time to solution, device busy share (torch.profiler),
    host syncs and peak memory.
+7. Complex, on the complex nonsymmetric fixture hifir_tpu_torch/data/
+   convdiff2d_128_c_prec.npz (n=16384, two levels, a 25x25 QRCP tail) and
+   A = shift_diagonal(convdiff2d(128)), drawing from its own generator
+   (--seed + 2), each part with the launch counts and the plain-version
+   calls set to 0 just before it and read just after, each reference the
+   port's plain c128 CPU run: the complex K1 rows (level-0 E in place at
+   128, 8 and 1 RHS, level-0 U_B with sign +1 at 128) and K2 rows (level-0
+   L_B of the dense_inv=0 pack at 128 and 1) in c64 and c128 against
+   their plain versions (1e-5 / 1e-12 of max|Y|), with kernel, plain,
+   library (torch.addmm / torch.triangular_solve on a complex CSR, "none"
+   where this build has no complex CUDA path) and bound ms, a complex row
+   counting 8 real FLOP per entry and column at the SIMT rate of its real
+   type; forward and adjoint M-solves of 128 RHS on packs dense_inv "auto"
+   and 0 in c64 and c128 (1e-4 / 1e-10) with K1 and K2 launches per solve
+   from the packs' forms; the adjoint identity in c128 (1e-10) and the
+   failure of the unconjugated pairing <Y, M^-1 X> = <M^-T Y, X> (> 1e-3),
+   which shows the fixture catches a lost conjugate; the runtime rank both
+   ways; the products both ways on 8 and 128 columns and M (M^-1 B) = B,
+   M^H (M^-H B) = B (1e-9); gmres_hif, fgmres_hifir (1 RHS) and gmres_mrhs
+   (128 RHS) with a sliced-ELL A, restart 10, rtol 1e-6: flag 0, true
+   residual within 1.01 rtol, counts within one of the CPU run.  No part
+   launches K7 or calls a plain version on the card.
+8. Complex timing: 50 back-to-back forward M-solves of the 128 complex
+   columns per pack and a torch.profiler breakdown of each.
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels and, last, {"ok": true, "device": {...}}.  Without a card the
@@ -91,15 +115,20 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "benchdata", "frozen_prec.npz")
 CONVDIFF = os.path.join(ROOT, "hifir_tpu_torch", "data",
                         "convdiff2d_128_prec.npz")
+CONVDIFF_C = os.path.join(ROOT, "hifir_tpu_torch", "data",
+                          "convdiff2d_128_c_prec.npz")
 NRHS = 128
 CHAIN = 50
 # H100 SXM: 3.35 TB/s device memory; 67 TFLOP/s in f32 outside the tensor
 # cores, 67 TFLOP/s in f64 on the tensor cores and 495 TFLOP/s in TF32
 # (NVIDIA's data sheet).  K7's f32 tensor-core path does each product as
 # three TF32 products (3xTF32), so its least time for 2*m*n*k FLOP of f32
-# work counts 3 * that at the TF32 rate.
+# work counts 3 * that at the TF32 rate.  The complex K1 and K2 run on the
+# SIMT units: 67 TFLOP/s in f32 and 34 TFLOP/s in f64 outside the tensor
+# cores (the data sheet's FP64 rate), 8 real FLOP a complex multiply-add.
 MEM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
+SIMT_FLOPS = {"float32": 67e12, "float64": 34e12}
 TF32X3_FLOPS = 495e12 / 3
 
 
@@ -157,6 +186,13 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def simt_peak(dt) -> float:
+    """The SIMT peak of a torch dtype's real type (a complex row's)."""
+    from hifir_tpu_torch.device import real_dtype
+
+    return SIMT_FLOPS[str(real_dtype(dt)).removeprefix("torch.")]
+
+
 def bound(nbytes: float, flops: float, dtype: str, peak: float = None):
     tb = nbytes / MEM_BYTES_PER_S * 1e3
     tf = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
@@ -205,45 +241,167 @@ def sell_csr(A):
                          shape=(A.nrows, A.ncols))
 
 
-def kernel_phases(torch, T, M, Mc, rng):
-    """Each kernel against its plain version at main-path shapes (``M`` the
-    frozen fixture, ``Mc`` the nonsymmetric one); returns the rows and the
-    sweeps."""
-    import scipy.sparse as sp
+class Rows:
+    """The kernel rows of the report: each kernel against its plain version
+    on the same inputs, with the kernel's, the plain version's and the
+    library call's times and the least time the card could take."""
 
-    from hifir_tpu_torch.kernels.build import check, load_kernels
-    from hifir_tpu_torch.models.problems import poisson2d
-    from hifir_tpu_torch.ops import bsr_spmv, spmv, trsv
+    def __init__(self, T):
+        self.T, self.rows = T, []
 
-    rows, sweeps = [], []
-
-    def library(what, fn, ref, tol):
+    def library(self, what, fn, ref, tol, optional=False):
         """Check one PyTorch call computing the same function against the
-        kernel's result; return its time and difference."""
-        rel = rel_diff(fn(), ref)
+        kernel's result; return its time and difference.  ``optional``: a
+        call this torch build cannot run on the card (no complex CUDA path)
+        returns None with the error text instead of failing the script."""
+        try:
+            rel = rel_diff(fn(), ref)
+        except (RuntimeError, NotImplementedError) as e:
+            if not optional:
+                raise
+            note = str(e).strip().splitlines()[0][:200]
+            log(f"  {what}: none on the card ({note})")
+            return None, note
         log(f"  {what}: library call vs kernel rel diff {rel:.3e} "
             f"(tol {tol:.0e})")
         gate(rel <= tol, f"{what}: library call differs by {rel:.3e}")
-        return T.ms(fn), rel
+        return self.T.ms(fn), rel
 
-    def record(name, dtype, shape, Y, Yp, ms, plain_ms, lib, nbytes,
+    def record(self, name, dtype, shape, Y, Yp, ms, plain_ms, lib, nbytes,
                flops, tol, peak=None):
         abs_err = float((Y - Yp).abs().max())
         rel = rel_diff(Y, Yp)
         bms, by = bound(nbytes, flops, dtype, peak)
         library_ms, library_rel = lib if lib else (None, None)
+        note = None
+        if library_ms is None and isinstance(library_rel, str):
+            note, library_rel = library_rel, None
         row = dict(name=name, dtype=dtype, shape=shape, max_abs_err=abs_err,
                    rel_err=rel, tol=tol, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, library_rel_diff=library_rel,
+                   library_note=note,
                    bytes=nbytes, flops=flops, bound_ms=bms, bound_by=by,
                    share_of_bound=bms / ms,
                    vs_library=None if library_ms is None else ms / library_ms)
         log(f"  {name:9s} {dtype:7s} {shape:44s} rel_err {rel:.3e} "
             f"(tol {tol:.0e})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-            f"library {'-' if library_ms is None else f'{library_ms:.4f}'} ms"
-            f"  bound {bms:.4f} ms ({by})")
+            f"library {'none' if library_ms is None else f'{library_ms:.4f}'}"
+            f" ms  bound {bms:.4f} ms ({by})")
         gate(rel <= tol, f"{name} {dtype} {shape}: rel err {rel:.3e} > {tol}")
-        rows.append(row)
+        self.rows.append(row)
+
+
+def randn(rng, shape, dt):
+    """Seeded normal values of torch dtype ``dt`` on the card, complex with
+    independent real and imaginary parts for a complex dtype."""
+    import torch
+
+    a = rng.standard_normal(shape)
+    if dt.is_complex:
+        a = a + 1j * rng.standard_normal(shape)
+    return torch.as_tensor(a, dtype=dt, device="cuda")
+
+
+def k1_row(torch, book, rng, sweeps, name, A, nrhs, form, what, dt, tol,
+           sign=-1):
+    """K1 on operator ``A`` in ``form`` (as its call site runs it) against
+    the plain version, with the library call computing the same function;
+    ``sign=1`` computes C + A X.  A complex row counts 8 real FLOP per entry
+    and column against the SIMT rate of its real type."""
+    from hifir_tpu_torch.ops import spmv
+
+    dname = str(dt).removeprefix("torch.")
+    es = torch.empty((), dtype=dt).element_size()
+    Ah = sell_csr(A)
+    X = randn(rng, (A.ncols, nrhs), dt)
+    C = None if form == "product" else randn(rng, (A.nrows, nrhs), dt)
+    Acsr = csr_tensor(torch, Ah, dt, "cuda")
+    if form == "in-place":
+        Y = C.clone()
+        spmv.sliced_ell_sub_mrhs(A, X, Y, out=Y, sign=sign)
+        Cw = C.clone()      # timed calls keep updating it
+        run = lambda: spmv.sliced_ell_sub_mrhs(A, X, Cw, out=Cw, sign=sign)
+        plain = lambda: spmv.sliced_ell_sub_mrhs_plain(A, X, Cw, out=Cw,
+                                                       sign=sign)
+    else:
+        Y = spmv.sliced_ell_sub_mrhs(A, X, C, sign=sign)
+        run = lambda: spmv.sliced_ell_sub_mrhs(A, X, C, sign=sign)
+        plain = lambda: spmv.sliced_ell_sub_mrhs_plain(A, X, C, sign=sign)
+    Yp = spmv.sliced_ell_sub_mrhs_plain(A, X, C, sign=sign)
+    torch.cuda.synchronize()
+    if form == "product":
+        lib = (f"K1 {dname} {what} torch.sparse.mm",
+               lambda: torch.sparse.mm(Acsr, X))
+    else:
+        lib = (f"K1 {dname} {what} torch.addmm(C, A, X, alpha={sign})",
+               lambda: torch.addmm(C, Acsr, X, beta=1, alpha=sign))
+    rows_nz = int(np.count_nonzero(np.diff(Ah.indptr)))
+    shape = (f"{A.nrows}x{A.ncols} nnz={Ah.nnz} rows_nz={rows_nz} "
+             f"{what} nrhs={nrhs} form={form} sign={sign:+d}")
+    cplx = dt.is_complex
+    book.record(name, dname, shape, Y, Yp, book.T.ms(run), book.T.ms(plain),
+                book.library(lib[0], lib[1], Y, tol, optional=cplx),
+                k1_bytes(Ah, nrhs, es, form),
+                (8.0 if cplx else 2.0) * Ah.nnz * nrhs, tol,
+                simt_peak(dt) if cplx else None)
+    # the same launch after a reading flush (no dirty L2 lines)
+    ms = book.T.ms(run, clean=True)
+    sweeps.append(dict(what=f"{name} {shape}", dtype=dname, flush="read",
+                       ms=ms))
+    log(f"  {name:9s} {dname:7s} same, read flush: {ms:.4f} ms")
+
+
+def k2_row(torch, book, rng, name, li, S, Th, lower, nrhs, dt, tol, stol):
+    """K2 B to X on schedule ``S`` (host factor ``Th``) against the plain
+    version.  The library call solving the same unit triangular system is
+    torch.triangular_solve on a CSR factor (cuSPARSE SpSM), in row order
+    like the kernel's B and X."""
+    import scipy.sparse as sp
+
+    from hifir_tpu_torch.ops import trsv
+
+    dname = str(dt).removeprefix("torch.")
+    es = torch.empty((), dtype=dt).element_size()
+    nslots = S.nchunks * S.chunk
+    Ts = Th.to_scipy().tocsr()
+    Ts = (sp.tril(Ts, -1) if lower else sp.triu(Ts, 1)).tocsr()
+    Tcsr = csr_tensor(torch, (Ts + sp.eye(S.n, format="csr"))
+                      .tocsr().sorted_indices(), dt, "cuda")
+    B = randn(rng, (S.n, nrhs), dt)
+    Xk = trsv.trsv_apply_mrhs(S, B)
+    Xp = trsv.trsv_apply_plain(S, B)
+    torch.cuda.synchronize()
+    K = S.cols.shape[2]
+    cplx = dt.is_complex
+    # the function's bytes: the strict factor's entries, B and X
+    nbytes = Ts.nnz * (4 + es) + 2 * S.n * nrhs * es
+    book.record(name, dname,
+                f"level={li} slots={nslots} K={K} levels={S.nlevels} "
+                f"nrhs={nrhs} x={trsv.trsv_shape(nslots, es)}",
+                Xk, Xp, book.T.ms(lambda: trsv.trsv_apply_mrhs(S, B)),
+                book.T.ms(lambda: trsv.trsv_apply_plain(S, B)),
+                book.library(f"K2 {dname} level {li} "
+                             f"{name.removeprefix('K2_trsv_')} nrhs={nrhs} "
+                             "torch.triangular_solve (CSR)",
+                             lambda: torch.triangular_solve(
+                                 B, Tcsr, upper=not lower,
+                                 unitriangular=True)[0], Xk, stol,
+                             optional=cplx),
+                nbytes, (8.0 if cplx else 2.0) * Ts.nnz * nrhs, tol,
+                simt_peak(dt) if cplx else None)
+
+
+def kernel_phases(torch, T, M, Mc, rng):
+    """Each kernel against its plain version at main-path shapes (``M`` the
+    frozen fixture, ``Mc`` the nonsymmetric one); returns the rows and the
+    sweeps."""
+    from hifir_tpu_torch.kernels.build import check, load_kernels
+    from hifir_tpu_torch.models.problems import poisson2d
+    from hifir_tpu_torch.ops import bsr_spmv, spmv, trsv
+
+    book = Rows(T)
+    rows, sweeps = book.rows, []
+    library, record = book.library, book.record
 
     def sweep(what, dtype, fn, ref, tol):
         """Time a forced variant after checking it against ``ref``."""
@@ -343,59 +501,18 @@ def kernel_phases(torch, T, M, Mc, rng):
         lvl = dp.levels[0]
         host = M.precs[0]
 
-        def k1_row(name, A, nrhs, form, what, sign=-1):
-            """K1 in ``form`` (as its call site runs it) against the plain
-            version, with the library call computing the same function;
-            ``sign=1`` computes C + A X."""
-            Ah = sell_csr(A)
-            X = torch.as_tensor(rng.standard_normal((A.ncols, nrhs)),
-                                dtype=dt, device="cuda")
-            C = (None if form == "product" else torch.as_tensor(
-                rng.standard_normal((A.nrows, nrhs)), dtype=dt,
-                device="cuda"))
-            Acsr = csr_tensor(torch, Ah, dt, "cuda")
-            if form == "in-place":
-                Y = C.clone()
-                spmv.sliced_ell_sub_mrhs(A, X, Y, out=Y, sign=sign)
-                Cw = C.clone()      # timed calls keep updating it
-                run = lambda: spmv.sliced_ell_sub_mrhs(A, X, Cw, out=Cw,
-                                                       sign=sign)
-                plain = lambda: spmv.sliced_ell_sub_mrhs_plain(
-                    A, X, Cw, out=Cw, sign=sign)
-            else:
-                Y = spmv.sliced_ell_sub_mrhs(A, X, C, sign=sign)
-                run = lambda: spmv.sliced_ell_sub_mrhs(A, X, C, sign=sign)
-                plain = lambda: spmv.sliced_ell_sub_mrhs_plain(A, X, C,
-                                                               sign=sign)
-            Yp = spmv.sliced_ell_sub_mrhs_plain(A, X, C, sign=sign)
-            torch.cuda.synchronize()
-            if form == "product":
-                lib = (f"K1 {dname} {what} torch.sparse.mm",
-                       lambda: torch.sparse.mm(Acsr, X))
-            else:
-                lib = (f"K1 {dname} {what} torch.addmm(C, A, X, "
-                       f"alpha={sign})",
-                       lambda: torch.addmm(C, Acsr, X, beta=1, alpha=sign))
-            rows_nz = int(np.count_nonzero(np.diff(Ah.indptr)))
-            shape = (f"{A.nrows}x{A.ncols} nnz={Ah.nnz} rows_nz={rows_nz} "
-                     f"{what} nrhs={nrhs} form={form} sign={sign:+d}")
-            record(name, dname, shape, Y, Yp, T.ms(run), T.ms(plain),
-                   library(lib[0], lib[1], Y, tol),
-                   k1_bytes(Ah, nrhs, es, form), 2.0 * Ah.nnz * nrhs, tol)
-            # the same launch after a reading flush (no dirty L2 lines)
-            ms = T.ms(run, clean=True)
-            sweeps.append(dict(what=f"{name} {shape}", dtype=dname,
-                               flush="read", ms=ms))
-            log(f"  {name:9s} {dname:7s} same, read flush: {ms:.4f} ms")
+        def k1(name, A, nrhs, form, what, sign=-1):
+            k1_row(torch, book, rng, sweeps, name, A, nrhs, form, what, dt,
+                   tol, sign)
 
         # K1 on level 0's E (down-sweep) and F (up-sweep) in place, as the
         # M-solve runs them, and as the plain product at 128 RHS
         for nm, E in (("E", lvl.E), ("F", lvl.F)):
             for nrhs in (NRHS, 8, 1):
-                k1_row(f"K1_sell_{nm}", E, nrhs, "in-place",
-                       f"buckets={len(E.blocks)}")
-            k1_row(f"K1_sell_{nm}", E, NRHS, "product",
+                k1(f"K1_sell_{nm}", E, nrhs, "in-place",
                    f"buckets={len(E.blocks)}")
+            k1(f"K1_sell_{nm}", E, NRHS, "product",
+               f"buckets={len(E.blocks)}")
         # the blocked inverse's heaviest Off_b of each side, in
         # _block_dense_apply's form: out of place from B's rows into the
         # scratch, in place on it when the block is short
@@ -405,16 +522,15 @@ def kernel_phases(torch, T, M, Mc, rng):
                                              dtype=npdt)
             short = bd.n - bd.starts[b] < bd.W
             for nrhs in (NRHS, 1):
-                k1_row(f"K1_sell_{nm}off", bd.offs[b], nrhs,
-                       "in-place" if short else "out-of-place",
-                       f"block={b + 1}/{len(bd.starts)}")
+                k1(f"K1_sell_{nm}off", bd.offs[b], nrhs,
+                   "in-place" if short else "out-of-place",
+                   f"block={b + 1}/{len(bd.starts)}")
         # K1 with sign +1, the products' z + U z: level 0's strict U_B of
         # the nonsymmetric fixture, in place
         Uell = spmv.sliced_ell_from_csr(Mc.precs[0].U_B, dtype=npdt)
         for nrhs in (NRHS, 1):
-            k1_row("K1_sell_Uplus", Uell, nrhs, "in-place",
-                   f"convdiff level=0 U_B buckets={len(Uell.blocks)}",
-                   sign=1)
+            k1("K1_sell_Uplus", Uell, nrhs, "in-place",
+               f"convdiff level=0 U_B buckets={len(Uell.blocks)}", sign=1)
 
         # K1 on a uniform ELL (the form an ELL operator A takes in HIFIR)
         El = spmv.ell_from_csr(host.E, dtype=npdt)
@@ -433,42 +549,14 @@ def kernel_phases(torch, T, M, Mc, rng):
                        lambda: torch.sparse.mm(Ecsr, X), Y, tol),
                k1_bytes(Eh, NRHS, es, "product"), 2.0 * Eh.nnz * NRHS, tol)
 
-        # K2: B to X on both levels' L_B and U_B schedules.  The library
-        # call solving the same unit triangular system is
-        # torch.triangular_solve on a CSR factor (cuSPARSE SpSM), in row
-        # order like the kernel's B and X.
+        # K2: B to X on both levels' L_B and U_B schedules
         stol = 1e-4 if npdt == np.float32 else 1e-10
         for li, (lv, hp) in enumerate(zip(dp.levels, M.precs)):
             for nm, S, Th, lower in (("L", lv.L, hp.L_B, True),
                                      ("U", lv.U, hp.U_B, False)):
-                nslots = S.nchunks * S.chunk
-                Ts = Th.to_scipy().tocsr()
-                Ts = (sp.tril(Ts, -1) if lower else sp.triu(Ts, 1)).tocsr()
-                Tcsr = csr_tensor(torch, (Ts + sp.eye(S.n, format="csr"))
-                                  .tocsr().sorted_indices(), dt, "cuda")
                 for nrhs in (NRHS, 1):
-                    B = torch.as_tensor(rng.standard_normal((S.n, nrhs)),
-                                        dtype=dt, device="cuda")
-                    Xk = trsv.trsv_apply_mrhs(S, B)
-                    Xp = trsv.trsv_apply_plain(S, B)
-                    torch.cuda.synchronize()
-                    K = S.cols.shape[2]
-                    # the function's bytes: the strict factor's entries, B
-                    # and X
-                    nbytes = Ts.nnz * (4 + es) + 2 * S.n * nrhs * es
-                    record(f"K2_trsv_{nm}", dname,
-                           f"level={li} slots={nslots} K={K} "
-                           f"levels={S.nlevels} nrhs={nrhs} "
-                           f"x={trsv.trsv_shape(nslots, es)}",
-                           Xk, Xp,
-                           T.ms(lambda: trsv.trsv_apply_mrhs(S, B)),
-                           T.ms(lambda: trsv.trsv_apply_plain(S, B)),
-                           library(f"K2 {dname} level {li} {nm} nrhs={nrhs} "
-                                   "torch.triangular_solve (CSR)",
-                                   lambda: torch.triangular_solve(
-                                       B, Tcsr, upper=not lower,
-                                       unitriangular=True)[0], Xk, stol),
-                           nbytes, 2.0 * Ts.nnz * nrhs, tol)
+                    k2_row(torch, book, rng, f"K2_trsv_{nm}", li, S, Th,
+                           lower, nrhs, dt, tol, stol)
     return rows, sweeps
 
 
@@ -532,6 +620,28 @@ def want_launches(forms) -> dict:
     k1 += 2 * sum(o.nnz > 0 for L, U, _, _ in forms for f in (L, U)
                   if isinstance(f, TrsvBlockDense) for o in f.offs)
     return {"K1": k1, "K2": k2}
+
+
+def prod(p, X, trans):
+    """M X (``trans``: M^H X) on pack ``p`` through the module functions."""
+    from hifir_tpu_torch.alg.prec import prec_prod_mrhs, prec_prod_tran_mrhs
+
+    if trans:
+        return prec_prod_tran_mrhs(p.levels, p.tran, p.prod_tran, p.tail, X)
+    return prec_prod_mrhs(p.levels, p.prod, p.tail, X)
+
+
+def want_plus(dp, trans) -> int:
+    """K1 launches with sign +1 that one product must make: L and U of
+    every level with entries, and E (F^H for the adjoint) where the level
+    has tail rows."""
+    if not trans:
+        return sum((pl.Lell.nnz > 0) + (pl.Uell.nnz > 0)
+                   + (lv.n > lv.m and lv.E.nnz > 0)
+                   for lv, pl in zip(dp.levels, dp.prod))
+    return sum((pt.LellH.nnz > 0) + (pt.UellH.nnz > 0)
+               + (lv.n > lv.m and t.FT.nnz > 0)
+               for lv, t, pt in zip(dp.levels, dp.tran, dp.prod_tran))
 
 
 def main_path(torch, M, A, rng):
@@ -749,7 +859,6 @@ def surface_phase(torch, M, A, rng):
     before it and read just after; returns the report, the packs and the
     launches of each part with what each must be."""
     import hifir_tpu_torch as ht
-    from hifir_tpu_torch.alg.prec import prec_prod_mrhs, prec_prod_tran_mrhs
     from hifir_tpu_torch.ops.bsr_spmv import bsr_from_csr
     from hifir_tpu_torch.ops.spmv import sell_spmv_cuda, sliced_ell_from_csr
 
@@ -858,27 +967,13 @@ def surface_phase(torch, M, A, rng):
     cpu.pack_prod(M.precs)
     cpu.pack_prod_tran(M.precs)
 
-    def prod(p, X, trans):
-        if trans:
-            return prec_prod_tran_mrhs(p.levels, p.tran, p.prod_tran, p.tail,
-                                       X)
-        return prec_prod_mrhs(p.levels, p.prod, p.tail, X)
-
     for k in (8, NRHS):
         Xk = Bd["float64"][:, :k].contiguous()
         for trans in (False, True):
             key = f"mmultiply{' adjoint' if trans else ''} {k} columns"
             Yk = counted(key, lambda: prod(dp, Xk, trans))
             d = rel(Yk, prod(cpu, torch.as_tensor(B[:, :k]), trans))
-            # K1 with sign +1: L and U of every level with entries, and E
-            # (F^H for the adjoint) where the level has tail rows
-            want[key] = {"K1plus": sum(
-                (pl.Lell.nnz > 0) + (pl.Uell.nnz > 0)
-                + (lv.n > lv.m and lv.E.nnz > 0)
-                for lv, pl in zip(dp.levels, dp.prod)) if not trans else sum(
-                (pt.LellH.nnz > 0) + (pt.UellH.nnz > 0)
-                + (lv.n > lv.m and t.FT.nnz > 0)
-                for lv, t, pt in zip(dp.levels, dp.tran, dp.prod_tran))}
+            want[key] = {"K1plus": want_plus(dp, trans)}
             report[key] = dict(rel_diff=d)
             log(f"  {key}: rel diff vs CPU f64 {d:.3e} (tol 1e-10); "
                 f"launches {launches[key]}")
@@ -1038,6 +1133,281 @@ def time_surface(torch, packs, ops, M, B):
     return out, profiles
 
 
+CPLX = ("complex64", "complex128")
+
+
+def plain_calls() -> int:
+    """Calls of the plain kernel versions so far (every dispatch the CPU
+    path made, and every comparison against a plain version)."""
+    from hifir_tpu_torch.ops import bsr_spmv, spmv, trsv
+
+    return (spmv.sliced_ell_sub_mrhs_plain.calls
+            + trsv.trsv_apply_plain.calls
+            + bsr_spmv.bsr_matvec_mrhs_plain.calls)
+
+
+def complex_phase(torch, T, M, A, rng):
+    """complex64 and complex128 through the port's surface on the complex
+    nonsymmetric fixture ``M`` with its operator ``A``: the complex K1 and
+    K2 rows against their plain versions, forward and adjoint M-solves on
+    packs dense_inv "auto" and 0, the adjoint identity (and the failure of
+    the unconjugated pairing), the runtime rank, the products both ways and
+    the three GMRES drivers on a sliced-ELL A, each part with the launch
+    counts and the plain-version calls set to 0 just before it and read
+    just after, each reference the port's plain c128 CPU run."""
+    import hifir_tpu_torch as ht
+    from hifir_tpu_torch.ops.spmv import sell_spmv_cuda, sliced_ell_from_csr
+
+    launches, want, plain = {}, {}, {}
+
+    def counted(what, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        p0 = plain_calls()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[what] = dict(read_counts(),
+                              K1plus=sell_spmv_cuda.plus_launches)
+        plain[what] = plain_calls() - p0
+        return out
+
+    def values(a):
+        return a.cpu().resolve_conj().numpy() if torch.is_tensor(a) else a
+
+    def rel(X, ref) -> float:
+        X, ref = (values(a).astype(np.complex128) for a in (X, ref))
+        return float(np.abs(X - ref).max() / np.abs(ref).max())
+
+    n = A.nrows
+    rank = M.precs[-1].dense_solver.rank
+    B = rng.standard_normal((n, NRHS)) + 1j * rng.standard_normal((n, NRHS))
+    report = {}
+    # the references: the port's plain c128 CPU runs, level-scan form
+    cpu = M.to_device(dtype=np.complex128, device="cpu", dense_inv=0)
+    cpu.pack_transpose(M.precs)
+    ref = {t: cpu.solve_mrhs(B, trans=t).numpy() for t in (False, True)}
+    packs = {}
+    for di in ("auto", 0):
+        for dt in CPLX:
+            t0 = time.perf_counter()
+            dp = M.to_device(dtype=np.dtype(dt), dense_inv=di, device="cuda")
+            dp.pack_transpose(M.precs)
+            packs[(di, dt)] = dp
+            log(f"  pack + pack_transpose dense_inv={di!s:4s} {dt}: "
+                f"{time.perf_counter() - t0:.2f} s")
+    Bd = {dt: torch.as_tensor(B, dtype=getattr(torch, dt), device="cuda")
+          for dt in CPLX}
+
+    # 1. the complex kernel rows: K1 on level 0's E in place at 128, 8 and
+    # 1 RHS and on its strict U_B with sign +1 at 128; K2 on level 0's L_B
+    # schedule (the dense_inv=0 pack) at 128 and 1
+    book, sweeps = Rows(T), []
+    for dt in CPLX:
+        tdt = getattr(torch, dt)
+        tol = 1e-5 if dt == "complex64" else 1e-12
+        stol = 1e-4 if dt == "complex64" else 1e-10
+        lvl = packs[(0, dt)].levels[0]
+        for nrhs in (NRHS, 8, 1):
+            k1_row(torch, book, rng, sweeps, "K1_sell_E", lvl.E, nrhs,
+                   "in-place", f"complex level=0 buckets={len(lvl.E.blocks)}",
+                   tdt, tol)
+        Uell = sliced_ell_from_csr(M.precs[0].U_B, dtype=np.dtype(dt))
+        k1_row(torch, book, rng, sweeps, "K1_sell_Uplus", Uell, NRHS,
+               "in-place", f"complex level=0 U_B buckets={len(Uell.blocks)}",
+               tdt, tol, sign=1)
+        for nrhs in (NRHS, 1):
+            k2_row(torch, book, rng, "K2_trsv_L", 0, lvl.L, M.precs[0].L_B,
+                   True, nrhs, tdt, tol, stol)
+
+    # 2. forward and adjoint M-solves on every pack
+    for (di, dt), dp in packs.items():
+        for trans in (False, True):
+            key = f"{'adjoint' if trans else 'forward'} dense_inv={di} {dt}"
+            X = counted(key, lambda: dp.solve_mrhs(Bd[dt], trans=trans))
+            gate(bool(torch.isfinite(torch.view_as_real(X)).all()),
+                 f"{key}: non-finite")
+            gate(tuple(X.shape) == (n, NRHS) and X.dtype == dp.dtype,
+                 f"{key}: shape or dtype")
+            tol = 1e-4 if dt == "complex64" else 1e-10
+            d = rel(X, ref[trans])
+            forms = ([(t.LT, t.UT, t.FT, t.ET) for t in dp.tran] if trans
+                     else [(lv.L, lv.U, lv.E, lv.F) for lv in dp.levels])
+            want[key] = want_launches(forms)
+            report[key] = dict(rel_diff=d, tol=tol)
+            log(f"  M-solve {key:32s}: rel diff vs CPU c128 {d:.3e} (tol "
+                f"{tol:.0e}); launches {launches[key]} (want {want[key]})")
+            gate(d <= tol, f"{key}: {d:.3e} > {tol}")
+    # <Y, M^-1 X> = <M^-H Y, X> (<a, b> = a^H b) for every column pair, and
+    # the pairing with M^-T Y, which an adjoint that dropped the conjugate
+    # would give, fails
+    Y = torch.as_tensor(rng.standard_normal((n, NRHS))
+                        + 1j * rng.standard_normal((n, NRHS)),
+                        dtype=torch.complex128, device="cuda")
+    X = Bd["complex128"]
+    for di in ("auto", 0):
+        dp = packs[(di, "complex128")]
+
+        def pairing(Z, MX):
+            scale = (torch.linalg.vector_norm(Y, dim=0)[:, None]
+                     * torch.linalg.vector_norm(MX, dim=0)[None, :])
+            return float(((Y.mH @ MX - Z.mH @ X).abs() / scale).max())
+
+        key = f"adjoint identity dense_inv={di} complex128"
+        MX, MHY, MTY = counted(key, lambda: (
+            dp.solve_mrhs(X), dp.solve_mrhs(Y, trans=True),
+            dp.solve_mrhs(Y.conj(), trans=True).conj()))
+        worst, worst_t = pairing(MHY, MX), pairing(MTY, MX)
+        report[key] = dict(conjugated=worst, unconjugated=worst_t)
+        log(f"  {key}: max |<Y, M^-1 X> - <M^-H Y, X>| / (|Y| |M^-1 X|) = "
+            f"{worst:.3e} (tol 1e-10); with M^-T Y {worst_t:.3e} (must "
+            "exceed 1e-3)")
+        gate(worst <= 1e-10, f"{key}: {worst:.3e}")
+        gate(worst_t > 1e-3, f"{key}: the unconjugated pairing held "
+             f"({worst_t:.3e}): the fixture cannot catch a lost conjugate")
+
+    # 3. the runtime rank, forward and adjoint, on 8 columns
+    dp = packs[("auto", "complex128")]
+    B8 = Bd["complex128"][:, :8]
+    r = round(0.75 * rank)
+    for trans in (False, True):
+        side = "adjoint" if trans else "forward"
+        key = f"rank {side} complex128"
+        X, Xfull, Xr = counted(key, lambda: (
+            dp.solve_mrhs(B8, trans=trans),
+            dp.solve_mrhs(B8, trans=trans, r=rank),
+            dp.solve_mrhs(B8, trans=trans, r=r)))
+        d_full = rel(Xfull, X)
+        d_trunc = rel(Xr, cpu.solve_mrhs(B[:, :8], trans=trans, r=r))
+        moved = rel(Xr, X)
+        report[key] = dict(r_full=rank, full_vs_static=d_full, r=r,
+                           vs_cpu=d_trunc, moved=moved)
+        log(f"  {key}: r={rank} vs the pack's rank {d_full:.3e} (tol "
+            f"1e-12); r={r} vs CPU {d_trunc:.3e} (tol 1e-10), vs the full "
+            f"rank {moved:.3e}")
+        gate(d_full <= 1e-12, f"{key}: r=rank differs by {d_full:.3e}")
+        gate(d_trunc <= 1e-10, f"{key}: r={r} vs CPU {d_trunc:.3e}")
+        gate(moved > 1e-8, f"{key}: r={r} changed nothing")
+
+    # 4. the products both ways on 8 and NRHS columns
+    dp.pack_prod(M.precs)
+    dp.pack_prod_tran(M.precs)
+    cpu.pack_prod(M.precs)
+    cpu.pack_prod_tran(M.precs)
+
+    for k in (8, NRHS):
+        Xk = Bd["complex128"][:, :k].contiguous()
+        for trans in (False, True):
+            key = f"mmultiply{' adjoint' if trans else ''} {k} complex128"
+            Yk = counted(key, lambda: prod(dp, Xk, trans))
+            d = rel(Yk, prod(cpu, torch.as_tensor(B[:, :k]), trans))
+            want[key] = {"K1plus": want_plus(dp, trans)}
+            report[key] = dict(rel_diff=d)
+            log(f"  {key}: rel diff vs CPU c128 {d:.3e} (tol 1e-10); "
+                f"launches {launches[key]}")
+            gate(d <= 1e-10, f"{key}: {d:.3e} > 1e-10")
+    for trans in (False, True):
+        Bt = Bd["complex128"]
+        key = f"M{'^H' if trans else ''} (M^-{'H' if trans else '1'}) B - B"
+        err = counted(key + " complex128", lambda: float(torch.linalg.norm(
+            prod(dp, dp.solve_mrhs(Bt, trans=trans), trans) - Bt)
+            / torch.linalg.norm(Bt)))
+        report[key] = err
+        log(f"  ||{key}|| / ||B|| = {err:.3e} (tol 1e-9)")
+        gate(err <= 1e-9, f"{key}: {err:.3e}")
+
+    # 5. the GMRES drivers, c128, with a sliced-ELL A (K1 only), against the
+    # plain CPU runs; true residuals on the host from the CSR A
+    Ah = A.to_scipy()
+    cpu_auto = M.to_device(dtype=np.complex128, device="cpu")
+    ops = (sliced_ell_from_csr(A, device="cuda"),
+           sliced_ell_from_csr(A, device="cpu"))
+    rtol, restart = 1e-6, 10
+    drivers = {
+        "gmres_hif": lambda Ao, p: ht.gmres_hif(Ao, p, B[:, 0], rtol=rtol,
+                                                restart=restart),
+        "fgmres_hifir": lambda Ao, p: ht.fgmres_hifir(
+            Ao, p, B[:, 0], rtol=rtol, restart=restart, rank=rank),
+        "gmres_mrhs": lambda Ao, p: ht.gmres_mrhs(Ao, p, B, rtol=rtol,
+                                                  restart=restart),
+    }
+    for name, drive in drivers.items():
+        key = f"{name} complex128"
+        t0 = time.perf_counter()
+        x, flag, it = counted(key, lambda: drive(ops[0], dp))
+        seconds = time.perf_counter() - t0
+        _, flag_c, it_c = drive(ops[1], cpu_auto)
+        X = x.cpu().numpy().reshape(n, -1)
+        Bk = B[:, :X.shape[1]]
+        res = np.linalg.norm(Bk - Ah @ X, axis=0) / np.linalg.norm(Bk, axis=0)
+        what = "cycles" if name == "gmres_mrhs" else "iterations"
+        report[key] = dict(flag=flag, count=it, cpu_count=it_c,
+                           cpu_flag=flag_c, what=what, restart=restart,
+                           max_true_rel_residual=float(res.max()),
+                           first_run_seconds=seconds)
+        log(f"  {key} (sliced-ELL A, {X.shape[1]} RHS, restart {restart}): "
+            f"flag {flag}, {it} {what} (CPU plain run: flag {flag_c}, "
+            f"{it_c}), max true relative residual {res.max():.3e} (tol "
+            f"{1.01 * rtol:.2e}); first run {seconds:.3f} s; launches "
+            f"{launches[key]}")
+        gate(flag == 0, f"{key}: flag {flag}")
+        gate(float(res.max()) <= 1.01 * rtol, f"{key}: residual "
+             f"{res.max():.3e}")
+        gate(abs(it - it_c) <= 1, f"{key}: {it} {what} against the CPU "
+             f"run's {it_c}")
+    return report, book.rows, sweeps, packs, launches, want, plain, Bd
+
+
+def check_complex_launches(launches, want, plain):
+    """Gate each complex part: the M-solves' K1 and K2 launches and the
+    products' sign=+1 launches exactly, no K7 (complex A goes as sliced
+    ELL), no call of a plain version on the card; K1 and K2 launched in
+    each dtype.  Returns the launches of each kernel by dtype."""
+    for key, w in want.items():
+        for k, v in w.items():
+            got = launches[key][k]
+            gate(got == v, f"{key}: {got} {k} launches, expected {v}")
+    for key, c in launches.items():
+        gate(c["K7"] == 0, f"{key}: {c['K7']} K7 launches on a complex part")
+        gate(plain[key] == 0, f"{key}: {plain[key]} plain-version calls "
+             "on the card")
+    by_dtype = {dt: {k: sum(c[k] for key, c in launches.items()
+                            if key.endswith(dt))
+                     for k in ("K1", "K2", "K1plus")} for dt in CPLX}
+    for dt, c in by_dtype.items():
+        for k in ("K1", "K2"):
+            gate(c[k] > 0, f"kernel {k} was not launched in {dt}")
+    log(f"  plain-version calls in the complex parts: "
+        f"{sum(plain.values())} (must be 0)")
+    return by_dtype
+
+
+def time_complex(torch, packs, Bd, reps=CHAIN):
+    """``reps`` back-to-back forward M-solves of the 128 complex columns per
+    pack (CUDA events) and a torch.profiler breakdown of each pack's
+    solve."""
+    out, profiles, runs = {}, {}, {}
+    for (di, dt), dp in packs.items():
+        key = f"forward dense_inv={di} {dt}"
+        run = runs[key] = lambda dp=dp, dt=dt: dp.solve_mrhs(Bd[dt])
+        run()
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(reps):
+            run()
+        e.record()
+        torch.cuda.synchronize()
+        ms = s.elapsed_time(e) / reps
+        out[key] = dict(ms=ms, us_per_rhs=ms * 1e3 / NRHS, reps=reps)
+        log(f"  {key:32s}: {ms:.4f} ms/solve, {ms * 1e3 / NRHS:.4f} us/RHS")
+    log("  where the time goes (torch.profiler):")
+    for key, run in runs.items():
+        profiles[key] = device_profile(torch, run, 5)
+        log_profile(key, profiles[key], out[key]["ms"])
+    return out, profiles
+
+
 _SOURCES = {
     "K7": ("K7_bsr", "cuda", "hifir_tpu_torch/csrc/kernels.cu",
            "hifir_tpu/ops/pallas_spmv.py:133"),
@@ -1072,7 +1442,8 @@ def main(argv=None) -> int:
     import hifir_tpu_torch as ht
     from hifir_tpu_torch.kernels.build import (load_kernels, nvcc_path,
                                                nvcc_version)
-    from hifir_tpu_torch.models.problems import convdiff2d, poisson2d
+    from hifir_tpu_torch.models.problems import (convdiff2d, poisson2d,
+                                                 shift_diagonal)
 
     t_start = time.perf_counter()
     smi = power_line()
@@ -1127,6 +1498,23 @@ def main(argv=None) -> int:
     log("== surface timing")
     stiming, sprof = time_surface(torch, spacks, sops, Mc, sB)
 
+    log("== complex: c64 and c128 K1/K2 rows, solves, rank, products, GMRES "
+        "(complex fixture, A = shift_diagonal(convdiff2d(128)))")
+    Mz = ht.load_prec(CONVDIFF_C)
+    Az = shift_diagonal(convdiff2d(128))
+    log(f"  complex fixture: levels {[(p.m, p.n) for p in Mz.precs]} tail "
+        f"{Mz.precs[-1].dense_solver.kind} rank "
+        f"{Mz.precs[-1].dense_solver.rank} nnz(M)={Mz.nnz()} "
+        f"dtype {Mz.precs[0].d.dtype}")
+    # its own generator, so that its inputs do not move with the rows above
+    (cplx, crows, csweeps, cpacks, claunches, cwant, cplain,
+     cBd) = complex_phase(torch, T, Mz, Az,
+                          np.random.default_rng(args.seed + 2))
+    ctotal = check_complex_launches(claunches, cwant, cplain)
+    log(f"  launches on the complex path by dtype: {ctotal}")
+    log("== complex timing")
+    ctiming, cprof = time_complex(torch, cpacks, cBd)
+
     kernels = []
     for k, (name, route, src, repl) in _SOURCES.items():
         rname, rdt, rshape = _MAIN_ROW[k]
@@ -1140,6 +1528,21 @@ def main(argv=None) -> int:
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], dtype=rdt, shape=row["shape"]))
+    for k, (name, route, src, repl) in _SOURCES.items():
+        if k == "K7":
+            continue    # real only
+        rname, _, rshape = _MAIN_ROW[k]
+        for dt in CPLX:
+            row = next(r for r in crows if r["name"] == rname
+                       and r["dtype"] == dt
+                       and all(x in r["shape"] for x in rshape))
+            kernels.append(dict(
+                name=f"{name}_{'c64' if dt == 'complex64' else 'c128'}",
+                route=route, source=src, replaces=repl,
+                launches=ctotal[dt][k], max_abs_err=row["max_abs_err"],
+                ms=row["ms"], plain_ms=row["plain_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                library_ms=row["library_ms"], dtype=dt, shape=row["shape"]))
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -1154,6 +1557,12 @@ def main(argv=None) -> int:
                            surface=surface, surface_launches=slaunches,
                            surface_launches_total=stotal,
                            surface_timing=stiming, surface_profile=sprof,
+                           complex=cplx, complex_kernel_rows=crows,
+                           complex_sweeps=csweeps,
+                           complex_launches=claunches,
+                           complex_plain_calls=cplain,
+                           complex_launches_by_dtype=ctotal,
+                           complex_timing=ctiming, complex_profile=cprof,
                            seconds=time.perf_counter() - t_start), f,
                       indent=1)
         with open(os.path.join(args.out, "nvcc_ptxas.txt"), "w") as f:

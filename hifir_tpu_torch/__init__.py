@@ -4,9 +4,9 @@ Loads a multilevel HIF preconditioner saved by ``hifir_tpu``, packs it onto
 an NVIDIA GPU and applies it through hand-written CUDA kernels
 (``csrc/kernels.cu``): the M-solve and its adjoint, with a runtime rank and
 null-space filters, the products M x and M^H x, HIFIR refinement and the
-GMRES drivers.  Entry points run on the
-card unless the caller passes ``device="cpu"``.  The package imports torch,
-numpy and scipy, never jax or hifir_tpu.
+GMRES drivers, in float32, float64, complex64 and complex128.  Entry points
+run on the card unless the caller passes ``device="cpu"``.  The package
+imports torch, numpy and scipy, never jax or hifir_tpu.
 """
 
 from . import device

@@ -20,8 +20,15 @@ for the level scans.  The dense work (explicit inverses, tail) runs in
 ``torch.matmul`` and ``torch.linalg.solve_triangular``.  Where the JAX
 package scatters (``zeros().at[perm].set(v)``) the port gathers by the
 inverse permutation (``p_inv``, ``q_inv``, ``jpvt_inv``, packed once).
-``.conj()`` stands where the JAX package conjugates; on the port's real
-dtypes it is a no-op.
+
+Packs are float32, float64, complex64 or complex128.  ``.conj()`` and
+``.mH`` stand where the JAX package conjugates.  On a complex tensor they
+are lazy views whose memory is not conjugated, so they appear only in
+elementwise products, ``torch.matmul`` and ``torch.linalg.solve_triangular``,
+which honour the view and return plain tensors.  The sparse adjoint
+operands that K1 and K2 read (L_B^H, U_B^H, E^H, F^H) are conjugated on the
+host when they are packed (:func:`_adjoint`), and the kernels' wrapper
+refuses any operand with the conjugate bit.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..device import numpy_dtype, resolve_device, torch_dtype
+from ..device import as_values, numpy_dtype, resolve_device, torch_dtype
 from ..nsp import NspFilter, nsp_filter
 from ..ops.spmv import SlicedELL, sliced_ell_from_csr, sliced_ell_sub_mrhs
 from ..ops.trsv import (build_trsv_block_dense, build_trsv_dense,
@@ -329,6 +336,16 @@ def _adjoint(A):
     return T
 
 
+def _host_dtype(precs) -> np.dtype:
+    """The host levels' value dtype: that of the levels with rows and of the
+    dense tail together, so that a complex tail under levels with m == 0
+    (whose ``d`` is empty) still packs as complex."""
+    dts = [np.asarray(p.d).dtype for p in precs if p.m]
+    if precs[-1].dense_matrix is not None:
+        dts.append(precs[-1].dense_matrix.dtype)
+    return np.result_type(*dts) if dts else np.dtype(np.float64)
+
+
 def _dense_tail(last, dtype: torch.dtype, dev) -> Optional[DenseTail]:
     ds = last.dense_solver
     if ds is None:
@@ -386,7 +403,10 @@ class DevicePrec:
                   dense_inv="auto", device="cuda") -> "DevicePrec":
         """Pack host levels (:class:`~hifir_tpu_torch.alg.level.LevelPrec`).
 
-        ``dtype=None`` keeps the host precision.  ``dense_inv``: levels with
+        ``dtype=None`` keeps the host precision, complex128 included;
+        ``dtype=np.complex64`` casts a complex host to single precision.  A
+        complex host does not pack into a real dtype (TypeError).
+        ``dense_inv``: levels with
         0 < m <= dense_inv apply L/U through an explicit dense inverse, levels
         with m <= 8 * dense_inv through the blocked inverse, larger ones (and
         all of them with ``dense_inv=0``) through the level scan; "auto" is
@@ -394,11 +414,12 @@ class DevicePrec:
         """
         dev = resolve_device(device)
         dense_inv = _dense_inv(dense_inv)
-        if dtype is None:
-            dtype = next((np.asarray(p.d).dtype for p in precs if p.m),
-                         np.float64)
-        ndt = numpy_dtype(dtype)
+        host = _host_dtype(precs)
+        ndt = host if dtype is None else numpy_dtype(dtype)
         tdt = torch_dtype(ndt)
+        if host.kind == "c" and not tdt.is_complex:
+            raise TypeError(f"a complex preconditioner packs as complex64 "
+                            f"or complex128, not {ndt}")
 
         def vec(a, dt=tdt):
             return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
@@ -455,7 +476,7 @@ class DevicePrec:
             for hp in host_precs]
 
     def _solve(self, B, trans: bool, r) -> torch.Tensor:
-        B = torch.as_tensor(B, dtype=self.dtype, device=self.device)
+        B = as_values(B, self.dtype, self.device)
         if not trans:
             return prec_solve_mrhs(self.levels, self.tail, B, r)
         if self.tran is None:
@@ -472,14 +493,14 @@ class DevicePrec:
     def solve(self, b, trans: bool = False, r: int = 0) -> torch.Tensor:
         """x = M^{-1} b (``trans``: M^{-H} b) for one vector: the one-column
         batched solve, then the filter on the vector."""
-        b = torch.as_tensor(b, dtype=self.dtype, device=self.device)
-        x = self._solve(b[:, None], trans, r)[:, 0]
+        x = self._solve(as_values(b, self.dtype, self.device)[:, None],
+                        trans, r)[:, 0]
         return nsp_filter(self.nsp_tran if trans else self.nsp, x)
 
     def mmultiply(self, x, trans: bool = False) -> torch.Tensor:
         """y = M x (``trans``: M^H x) for one vector, on the pack's
         device."""
-        X = torch.as_tensor(x, dtype=self.dtype, device=self.device)[:, None]
+        X = as_values(x, self.dtype, self.device)[:, None]
         if trans:
             if self.prod_tran is None:
                 raise RuntimeError("call pack_prod_tran() before trans "

@@ -32,6 +32,8 @@ class HIF:
 
     def to_device(self, dtype=None, device="cuda",
                   dense_inv="auto") -> DevicePrec:
-        """Pack onto ``device`` for the batched M-solve."""
+        """Pack onto ``device`` for the batched M-solve; ``dtype`` is
+        np.float32, np.float64, np.complex64, np.complex128 or None (the
+        host's own: complex128 for a complex factorization)."""
         return DevicePrec.from_host(self.precs, dtype=dtype, device=device,
                                     dense_inv=dense_inv)

@@ -13,12 +13,127 @@
 // K2  trsv_solve   replaces hifir_tpu/ops/trsv.py:trsv_apply_mrhs
 //                  (TrsvSchedule branch: entry gather, lax.scan over chunks,
 //                  exit gather)
+//
+// K1 and K2 come in f32, f64, c64 and c128; K7 in f32 and f64 only, as the
+// TPU kernel it replaces (Mosaic has no complex type).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+// ---------------------------------------------------------------------------
+// Complex values, stored as torch stores them: the real and the imaginary
+// part interleaved, the pair aligned to its size (8 bytes for c64, 16 for
+// c128), so that a kernel reads a torch tensor's memory as it is.  The
+// kernels' arithmetic goes through madd, ldg, shfl and shfl_xor, which are
+// the plain operations for a real type: the real instances compile as
+// before.  The type lives outside the anonymous namespace: an entry point
+// whose parameters had a type of internal linkage would not be exported.
+
+namespace hifir {
+
+template <typename R>
+struct alignas(2 * sizeof(R)) Cplx {
+  R re, im;
+  Cplx() = default;
+  __host__ __device__ constexpr Cplx(R r, R i = R(0)) : re(r), im(i) {}
+};
+
+}  // namespace hifir
+
 namespace {
+
+using hifir::Cplx;
+using C64 = Cplx<float>;
+using C128 = Cplx<double>;
+
+// the real type of a value type: the sign of K1 and the parts of a complex
+template <typename T>
+struct RealOf {
+  using type = T;
+};
+template <typename R>
+struct RealOf<Cplx<R>> {
+  using type = R;
+};
+template <typename T>
+using Real = typename RealOf<T>::type;
+
+template <typename R>
+__device__ __forceinline__ Cplx<R> operator+(Cplx<R> a, Cplx<R> b) {
+  return {a.re + b.re, a.im + b.im};
+}
+template <typename R>
+__device__ __forceinline__ Cplx<R>& operator+=(Cplx<R>& a, Cplx<R> b) {
+  a.re += b.re;
+  a.im += b.im;
+  return a;
+}
+template <typename R>
+__device__ __forceinline__ Cplx<R>& operator-=(Cplx<R>& a, Cplx<R> b) {
+  a.re -= b.re;
+  a.im -= b.im;
+  return a;
+}
+template <typename R>
+__device__ __forceinline__ Cplx<R> operator*(R s, Cplx<R> a) {
+  return {s * a.re, s * a.im};
+}
+
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
+// acc += a * x: one FMA for a real type, four for a complex one
+template <typename T>
+__device__ __forceinline__ void madd(T& acc, T a, T x) {
+  acc += a * x;
+}
+template <typename R>
+__device__ __forceinline__ void madd(Cplx<R>& acc, Cplx<R> a, Cplx<R> x) {
+  acc.re = fma_rn(a.re, x.re, acc.re);
+  acc.re = fma_rn(-a.im, x.im, acc.re);
+  acc.im = fma_rn(a.re, x.im, acc.im);
+  acc.im = fma_rn(a.im, x.re, acc.im);
+}
+
+// a load through the read-only cache (a complex one as one 8- or 16-byte
+// load)
+template <typename T>
+__device__ __forceinline__ T ldg(const T* p) {
+  return __ldg(p);
+}
+__device__ __forceinline__ C64 ldg(const C64* p) {
+  const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+  return {v.x, v.y};
+}
+__device__ __forceinline__ C128 ldg(const C128* p) {
+  const double2 v = __ldg(reinterpret_cast<const double2*>(p));
+  return {v.x, v.y};
+}
+
+// full-warp shuffles; a complex value moves as its two parts
+template <typename T>
+__device__ __forceinline__ T shfl(T v, int src) {
+  return __shfl_sync(0xffffffffu, v, src);
+}
+template <typename R>
+__device__ __forceinline__ Cplx<R> shfl(Cplx<R> v, int src) {
+  return {__shfl_sync(0xffffffffu, v.re, src),
+          __shfl_sync(0xffffffffu, v.im, src)};
+}
+template <typename T>
+__device__ __forceinline__ T shfl_xor(T v, int o) {
+  return __shfl_xor_sync(0xffffffffu, v, o);
+}
+template <typename R>
+__device__ __forceinline__ Cplx<R> shfl_xor(Cplx<R> v, int o) {
+  return {__shfl_xor_sync(0xffffffffu, v.re, o),
+          __shfl_xor_sync(0xffffffffu, v.im, o)};
+}
 
 constexpr int kStaticSmem = 48 * 1024;
 constexpr int kMaxSmem = 227 * 1024;  // a block's dynamic shared memory
@@ -487,8 +602,9 @@ read_rate_kernel(const uint4* __restrict__ p, int64_t n, unsigned* out,
 // and M^H x, hifir_tpu/alg/prec.py:727-734,764-771 (z + U z, E w + y).
 //
 // Bound: bytes.  Each entry (index and value) is read once and used for
-// nrhs multiply-adds against a gathered row of X, 2 FLOP per 8 or 16 bytes
-// of X: far below the card's balance point.  The least traffic is the
+// nrhs multiply-adds against a gathered row of X, 2 FLOP per 4 or 8 bytes
+// of X (8 real FLOP per 8 or 16 bytes in c64 and c128): far below the
+// card's balance point.  The least traffic is the
 // entries, the distinct rows of X they read, and the rows of C read and of
 // out written; in place, only the rows that have entries.
 //
@@ -507,8 +623,10 @@ read_rate_kernel(const uint4* __restrict__ p, int64_t n, unsigned* out,
 // - wide (nrhs not in {1, 2, 4, 8}): one warp a row and chunk of 32 VEC
 //   columns (grid y), so that f64 at 128 right-hand sides runs two warps a
 //   row whose gathers are in flight together.  Lanes run across columns
-//   VEC at a time with 16-byte loads and stores (float4, double2; an f32 X
-//   row of 128 columns is one warp-wide load).  The row's (index, value)
+//   VEC at a time with 16-byte loads and stores (float4, double2, two
+//   complex64 values or one complex128; an f32 X row of 128 columns is one
+//   warp-wide load, and c128 at 128 right-hand sides runs four warps a
+//   row).  The row's (index, value)
 //   pairs are read once a warp, one lane an entry, and broadcast by
 //   shuffle; a lane loads the X rows of up to 32 entries (BATCH) before its
 //   first multiply-add, so that the gathers of a row are in flight
@@ -518,6 +636,10 @@ read_rate_kernel(const uint4* __restrict__ p, int64_t n, unsigned* out,
 //   warp.  Lane l of a group takes entries l, l + G, ... of its row, so that
 //   the warp's index and value loads are contiguous; it gathers its nrhs
 //   columns of X, and a shuffle reduction inside the group sums them.
+//
+// Complex operands take the same shapes with VEC = 16 / sizeof(T) (2 for
+// c64, 1 for c128); a multiply-add is four FMAs and the sign stays a real
+// +-1, so that C + sign A X is exact in the sign either way.
 //
 // C and out may be one array (in place); X never overlaps out (the wrapper
 // checks), so X alone is read through the read-only cache.  order ==
@@ -563,10 +685,29 @@ struct K1Vec<double, 2> {
     a[1] = v.y;
   }
 };
+// two complex64 values in one 16-byte line; a complex128 value is a line
+// of its own (the VEC == 1 form below, whose loads are 16 bytes wide)
+template <>
+struct K1Vec<C64, 2> {
+  __device__ __forceinline__ static void ldg(C64* a, const C64* p) {
+    set(a, __ldg(reinterpret_cast<const float4*>(p)));
+  }
+  __device__ __forceinline__ static void ld(C64* a, const C64* p) {
+    set(a, *reinterpret_cast<const float4*>(p));
+  }
+  __device__ __forceinline__ static void st(C64* p, const C64* a) {
+    *reinterpret_cast<float4*>(p) =
+        make_float4(a[0].re, a[0].im, a[1].re, a[1].im);
+  }
+  __device__ __forceinline__ static void set(C64* a, float4 v) {
+    a[0] = C64(v.x, v.y);
+    a[1] = C64(v.z, v.w);
+  }
+};
 template <typename T>
 struct K1Vec<T, 1> {
   __device__ __forceinline__ static void ldg(T* a, const T* p) {
-    a[0] = __ldg(p);
+    a[0] = ::ldg(p);
   }
   __device__ __forceinline__ static void ld(T* a, const T* p) { a[0] = *p; }
   __device__ __forceinline__ static void st(T* p, const T* a) { *p = a[0]; }
@@ -601,7 +742,7 @@ sell_wide_kernel(const int* __restrict__ idx, const T* __restrict__ val,
                  const int* __restrict__ pos_ptr,
                  const int* __restrict__ pos_nnz, int k_uniform, int first,
                  int npos, int nrhs, int ncols, const T* __restrict__ X,
-                 const T* C, T* out, T sign) {
+                 const T* C, T* out, Real<T> sign) {
   const int p = first + blockIdx.x * (kK1Threads / 32) + threadIdx.x / 32;
   if (p >= npos) return;  // the whole warp
   const int lane = threadIdx.x % 32;
@@ -621,7 +762,7 @@ sell_wide_kernel(const int* __restrict__ idx, const T* __restrict__ val,
     T mv = T(0);
     if (k0 + lane < nnz) {
       mc = __ldg(idx + ptr + k0 + lane);
-      mv = __ldg(val + ptr + k0 + lane);
+      mv = ldg(val + ptr + k0 + lane);
     }
     const int kn = min(32, nnz - k0);
     for (int kb = 0; kb < kn; kb += BATCH) {
@@ -633,7 +774,7 @@ sell_wide_kernel(const int* __restrict__ idx, const T* __restrict__ val,
         for (int v = 0; v < VEC; ++v) x[u][v] = T(0);
         if (kb + u < kn) {  // the same for the whole warp
           const int c = __shfl_sync(0xffffffffu, mc, kb + u);
-          a[u] = __shfl_sync(0xffffffffu, mv, kb + u);
+          a[u] = shfl(mv, kb + u);
           if (live && c < ncols)
             K1Vec<T, VEC>::ldg(x[u], X + c * nrhs + j);
         }
@@ -641,7 +782,7 @@ sell_wide_kernel(const int* __restrict__ idx, const T* __restrict__ val,
 #pragma unroll
       for (int u = 0; u < BATCH; ++u)
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) acc[v] += a[u] * x[u][v];
+        for (int v = 0; v < VEC; ++v) madd(acc[v], a[u], x[u][v]);
     }
   }
   if (!live) return;
@@ -662,7 +803,7 @@ __device__ __forceinline__ void k1_load_row(T* a, const T* p) {
     for (int q = 0; q < NR / V; ++q) K1Vec<T, V>::ldg(a + q * V, p + q * V);
   } else {
 #pragma unroll
-    for (int q = 0; q < NR; ++q) a[q] = __ldg(p + q);
+    for (int q = 0; q < NR; ++q) a[q] = ldg(p + q);
   }
 }
 
@@ -673,7 +814,7 @@ sell_narrow_kernel(const int* __restrict__ idx, const T* __restrict__ val,
                    const int* __restrict__ pos_ptr,
                    const int* __restrict__ pos_nnz, int k_uniform, int first,
                    int npos, int ncols, int lg, const T* __restrict__ X,
-                   const T* C, T* out, T sign) {
+                   const T* C, T* out, Real<T> sign) {
   const int lane = threadIdx.x % 32;
   const int warp = blockIdx.x * (kK1Threads / 32) + threadIdx.x / 32;
   const int p0 = first + (warp << (5 - lg));  // 2^(5 - lg) rows a warp
@@ -694,19 +835,18 @@ sell_narrow_kernel(const int* __restrict__ idx, const T* __restrict__ val,
   }
   for (int k = gl; k < nnz; k += G) {
     const int c = __ldg(idx + ptr + k);
-    const T v = __ldg(val + ptr + k);
+    const T v = ldg(val + ptr + k);
     if (c < ncols) {
       T x[NR];
       k1_load_row<T, NR>(x, X + c * NR);
 #pragma unroll
-      for (int q = 0; q < NR; ++q) acc[q] += v * x[q];
+      for (int q = 0; q < NR; ++q) madd(acc[q], v, x[q]);
     }
   }
   // every lane of the warp takes part; a group's lanes only meet each other
   for (int o = G / 2; o > 0; o /= 2)
 #pragma unroll
-    for (int q = 0; q < NR; ++q)
-      acc[q] += __shfl_xor_sync(0xffffffffu, acc[q], o);
+    for (int q = 0; q < NR; ++q) acc[q] += shfl_xor(acc[q], o);
   if (!live) return;
 #pragma unroll
   for (int q = 0; q < NR; ++q)
@@ -722,7 +862,8 @@ sell_narrow_kernel(const int* __restrict__ idx, const T* __restrict__ val,
 //   X[r] = x[out_slots[r]].
 //
 // Bound: bytes, B and X once and the strict factor's entries once (2 FLOP
-// per entry and column); what holds it back is the chain of levels, each of
+// per entry and column, 8 real FLOP in complex); what holds it back is the
+// chain of levels, each of
 // which waits for the one before.  A launch per level costs ~3.6 us
 // against ~0.05 us of bytes, so the levels are walked inside one launch,
 // and the entry and exit gathers are fused into it.
@@ -731,7 +872,8 @@ sell_narrow_kernel(const int* __restrict__ idx, const T* __restrict__ val,
 // walks every level with __syncthreads() between levels; no barrier between
 // blocks.  Its slot vector x ([nslots + 1]) lives in shared memory where it
 // fits (SMEM, chosen by ops/trsv.py:trsv_shape) and in a global scratch
-// (L2-resident) otherwise.  On the H100, one column a block beat two and
+// (L2-resident) otherwise; a complex slot is 8 or 16 bytes, so about 14.5K
+// c128 slots fit the 227 KB.  On the H100, one column a block beat two and
 // four, and beat a cooperative grid split over (slot, column) items at one
 // right-hand side on every schedule of the frozen fixture (PERF.md).
 //
@@ -801,6 +943,27 @@ struct Line<double> {
     a[1] = q0.y;
     a[2] = q1.x;
     a[3] = q1.y;
+  }
+};
+template <>
+struct Line<C64> {  // 32 bytes: two 16-byte loads
+  __device__ static void load(C64* a, const C64* p) {
+    const float4 q0 = reinterpret_cast<const float4*>(p)[0];
+    const float4 q1 = reinterpret_cast<const float4*>(p)[1];
+    a[0] = C64(q0.x, q0.y);
+    a[1] = C64(q0.z, q0.w);
+    a[2] = C64(q1.x, q1.y);
+    a[3] = C64(q1.z, q1.w);
+  }
+};
+template <>
+struct Line<C128> {  // 64 bytes: four 16-byte loads
+  __device__ static void load(C128* a, const C128* p) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const double2 q = reinterpret_cast<const double2*>(p)[u];
+      a[u] = C128(q.x, q.y);
+    }
   }
 };
 
@@ -909,7 +1072,7 @@ trsv_solve_kernel(const T* __restrict__ B, T* __restrict__ X,
           Line<int>::load(c, cs + k0);
           Line<T>::load(v, vs + k0);
 #pragma unroll
-          for (int u = 0; u < kDepsPerLane; ++u) acc += v[u] * x[c[u]];
+          for (int u = 0; u < kDepsPerLane; ++u) madd(acc, v[u], x[c[u]]);
         }
         return acc;
       }
@@ -921,7 +1084,7 @@ trsv_solve_kernel(const T* __restrict__ B, T* __restrict__ X,
           v[u] = k < K ? vs[k] : T(0);
         }
 #pragma unroll
-        for (int u = 0; u < kDepsPerLane; ++u) acc += v[u] * x[c[u]];
+        for (int u = 0; u < kDepsPerLane; ++u) madd(acc, v[u], x[c[u]]);
       }
       return acc;
     };
@@ -935,8 +1098,7 @@ trsv_solve_kernel(const T* __restrict__ B, T* __restrict__ X,
       } else if (live) {
         acc = gather(cols + (int64_t)s * K, vals + (int64_t)s * K);
       }
-      for (int o = tps / 2; o > 0; o /= 2)
-        acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      for (int o = tps / 2; o > 0; o /= 2) acc += shfl_xor(acc, o);
       if (live && lt == 0) x[s] -= acc;
     }
     __syncthreads();
@@ -1014,7 +1176,7 @@ template <typename T, int NR>
 int sell_narrow(const int* idx, const T* val, const int* order,
                 const int* pos_ptr, const int* pos_nnz, int k_uniform,
                 int first, int npos, int ncols, int lg, const T* X,
-                const T* C, T* out, T sign, cudaStream_t s) {
+                const T* C, T* out, Real<T> sign, cudaStream_t s) {
   const int64_t warps = ((int64_t)(npos - first) + (32 >> lg) - 1) >> (5 - lg);
   constexpr int kWarps = kK1Threads / 32;
   sell_narrow_kernel<T, NR>
@@ -1040,7 +1202,7 @@ int sell_spmv(const int* idx, const T* val, const int* order,
   const cudaStream_t s = (cudaStream_t)stream;
   if (sign != 1 && sign != -1) return (int)cudaErrorInvalidValue;
   if (first >= npos || nrhs <= 0) return (int)cudaSuccess;
-  const T sg = (T)sign;
+  const Real<T> sg = (Real<T>)sign;
   int lg = 0;
   while (lg < 5 && (1 << lg) < max_nnz) ++lg;
 #define SELL_NARROW(NR)                                                       \
@@ -1162,13 +1324,14 @@ int read_rate(const void* p, int64_t nbytes, unsigned* out,
   return (int)cudaGetLastError();
 }
 
-#define HIFIR_DEFINE(SUFFIX, T, M)                                            \
+#define HIFIR_DEFINE_BSR(SUFFIX, T, M)                                        \
   int bsr_spmv_##SUFFIX(const T* blocks, const int* bcols, const T* X, T* Y, \
                         int nbr, int kb, int bs, int nrhs, int path, int vec, \
                         void* stream) {                                       \
     return bsr_spmv<M>(blocks, bcols, X, Y, nbr, kb, bs, nrhs, path, vec,    \
                        stream);                                               \
-  }                                                                           \
+  }
+#define HIFIR_DEFINE(SUFFIX, T)                                               \
   int sell_spmv_##SUFFIX(const int* idx, const T* val, const int* order,     \
                          const int* pos_ptr, const int* pos_nnz,             \
                          int k_uniform, int first, int npos, int max_nnz,    \
@@ -1188,9 +1351,15 @@ int read_rate(const void* p, int64_t nbytes, unsigned* out,
                          stream);                                             \
   }
 
-HIFIR_DEFINE(f32, float, MmaTf32x3)
-HIFIR_DEFINE(f64, double, MmaF64)
+// K7 is real only, as the TPU kernel it replaces; K1 and K2 take complex
+HIFIR_DEFINE_BSR(f32, float, MmaTf32x3)
+HIFIR_DEFINE_BSR(f64, double, MmaF64)
+HIFIR_DEFINE(f32, float)
+HIFIR_DEFINE(f64, double)
+HIFIR_DEFINE(c64, C64)
+HIFIR_DEFINE(c128, C128)
 
 #undef HIFIR_DEFINE
+#undef HIFIR_DEFINE_BSR
 
 }  // extern "C"

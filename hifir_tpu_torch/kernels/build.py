@@ -20,8 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["KernelLib", "load_kernels", "check", "kernel_fn", "nvcc_path",
-           "nvcc_version", "BUILD_DIR", "SOURCE"]
+__all__ = ["KernelLib", "load_kernels", "check", "kernel_fn", "dtype_suffix",
+           "nvcc_path", "nvcc_version", "BUILD_DIR", "SOURCE", "SUFFIXES"]
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "kernels.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hifir_tpu_torch"
@@ -36,6 +36,14 @@ _SIGNATURES = {
     "trsv_solve": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P,
                    _P],
 }
+# The value dtypes each entry point is built for (its symbols are
+# ``{name}_{suffix}``): K1 and K2 real and complex, K7 real only, as the TPU
+# kernel it replaces.
+_DTYPE_SUFFIX = {"float32": "f32", "float64": "f64", "complex64": "c64",
+                 "complex128": "c128"}
+SUFFIXES = {"bsr_spmv": ("f32", "f64"),
+            "sell_spmv": ("f32", "f64", "c64", "c128"),
+            "trsv_solve": ("f32", "f64", "c64", "c128")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,7 +101,7 @@ def load_kernels() -> KernelLib:
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, args in _SIGNATURES.items():
-        for sfx in ("f32", "f64"):
+        for sfx in SUFFIXES[name]:
             f = getattr(lib, f"{name}_{sfx}")
             f.argtypes = args
             f.restype = ctypes.c_int
@@ -111,29 +119,52 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def kernel_fn(name: str, *tensors, index_dtypes=()):
-    """The ``name`` entry point for the tensors' float dtype, after checking
-    that every tensor is a contiguous CUDA tensor on one device, that the
-    float ones share one dtype and that the others have ``index_dtypes`` in
-    order; raises on anything the kernels do not take."""
-    import torch
+def dtype_suffix(name: str, dtype) -> str:
+    """The symbol suffix of entry point ``name`` for a torch value dtype;
+    raises TypeError for a dtype that ``name`` is not built for."""
+    sfx = _DTYPE_SUFFIX.get(str(dtype).removeprefix("torch."))
+    if sfx not in SUFFIXES[name]:
+        names = {v: k for k, v in _DTYPE_SUFFIX.items()}
+        raise TypeError(f"{name}: {', '.join(names[x] for x in SUFFIXES[name])}"
+                        f" required, got {dtype}")
+    return sfx
 
-    floats = [t for t in tensors if t.is_floating_point()]
-    ints = [t.dtype for t in tensors if not t.is_floating_point()]
+
+def kernel_fn(name: str, index_dtypes=(), **operands):
+    """The ``name`` entry point for the value operands' dtype.
+
+    ``operands`` are the launch's tensors by name, in the entry point's
+    order.  The value operands (float or complex) must share a dtype that
+    ``name`` is built for and carry no conjugate or negative bit: a lazy
+    ``.conj()`` view's memory is not conjugated, and the kernel would read
+    the unconjugated values.  The other operands must have ``index_dtypes``
+    in order.  These checks come first, so that they hold for CPU tensors
+    too; then every operand must be a contiguous CUDA tensor on one device.
+    Raises on anything the kernels do not take."""
+    def is_value(t):
+        return t.is_floating_point() or t.is_complex()
+
+    values = {k: t for k, t in operands.items() if is_value(t)}
+    ints = [t.dtype for t in operands.values() if not is_value(t)]
     if ints != list(index_dtypes):
         raise TypeError(f"{name}: index dtypes {ints}, expected "
                         f"{list(index_dtypes)}")
-    dtype = floats[0].dtype
-    sfx = {torch.float32: "f32", torch.float64: "f64"}.get(dtype)
-    if sfx is None:
-        raise TypeError(f"{name}: float32 or float64 required, got {dtype}")
-    dev = tensors[0].device
-    for t in tensors:
+    dtype = next(iter(values.values())).dtype
+    sfx = dtype_suffix(name, dtype)
+    for k, t in values.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: mixed dtypes: {k} is {t.dtype}, "
+                            f"expected {dtype}")
+        if t.is_conj() or t.is_neg():
+            raise ValueError(f"{name}: operand {k} has the "
+                             f"{'conjugate' if t.is_conj() else 'negative'} "
+                             "bit set (a lazy view: the kernel would read "
+                             "its memory, not its values); resolve it first")
+    dev = next(iter(operands.values())).device
+    for k, t in operands.items():
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name}: all operands must be on {dev} (CUDA), "
-                             f"got {t.device}")
+                             f"got {k} on {t.device}")
         if not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous")
-        if t.is_floating_point() and t.dtype != dtype:
-            raise TypeError(f"{name}: mixed dtypes {dtype} and {t.dtype}")
+            raise ValueError(f"{name}: operand {k} must be contiguous")
     return load_kernels().fn(name, sfx)

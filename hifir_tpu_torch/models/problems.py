@@ -6,7 +6,7 @@ import numpy as np
 
 from ..ds.csr import CSR
 
-__all__ = ["poisson2d", "convdiff2d"]
+__all__ = ["poisson2d", "convdiff2d", "shift_diagonal"]
 
 
 def poisson2d(nx: int, ny: int | None = None, dtype=np.float64) -> CSR:
@@ -55,3 +55,15 @@ def convdiff2d(nx: int, ny: int | None = None, wind=(10.0, 20.0),
         vals.append(np.full(r.size, v, dtype=dtype))
     return CSR.from_coo(n, n, np.concatenate(rows), np.concatenate(cols),
                         np.concatenate(vals))
+
+
+def shift_diagonal(A: CSR, shift: complex = -0.1 + 0.1j) -> CSR:
+    """``A + shift * diag(|a_ii|)`` in complex128: a complex nonsymmetric
+    operator from a real one (``shift_diagonal(convdiff2d(128))`` is the
+    operator of ``hifir_tpu_torch/data/convdiff2d_128_c_prec.npz``), the
+    kind that frequency-domain convection-diffusion and Helmholtz-type
+    problems give."""
+    import scipy.sparse as sp
+
+    S = A.to_scipy().astype(np.complex128)
+    return CSR.from_scipy(S + shift * sp.diags(np.abs(S.diagonal())))

@@ -3,8 +3,9 @@
 The port's own copy of ``hifir_tpu/nsp.py:NspFilter`` on tensors, which also
 stands for ``nsp_filter_device`` (``hifir_tpu/alg/prec.py:295``): after an
 M-solve the solution is filtered against a known null space, either the
-constant mode over a row range (its mean is subtracted, column by column for
-a block) or a user callback, which takes and returns a tensor.
+constant mode over a row range (its mean, complex for a complex solution,
+is subtracted, column by column for a block) or a user callback, which
+takes and returns a tensor.
 """
 
 from __future__ import annotations

@@ -6,6 +6,11 @@ and its plain PyTorch version, :func:`bsr_matvec_mrhs_plain`, on the CPU.
 K7 has three paths, chosen by :func:`bsr_path`: DMMA tensor cores (f64) and
 3xTF32 tensor cores (f32) for blocks of right-hand sides, and a streaming
 kernel bound by the blocks' bytes for one or two.
+
+K7 is real only, as the TPU kernel it replaces (Mosaic has no complex type):
+the packer, the kernel's wrapper and the plain version all refuse complex
+operands, so that the card and the CPU agree.  A complex operator goes as
+sliced ELL (kernel K1).
 """
 
 from __future__ import annotations
@@ -41,8 +46,20 @@ class BSR:
         return self.blocks.shape[1]
 
 
+def _real_only(dtype, what: str) -> None:
+    """Raise TypeError for a complex dtype (numpy or torch)."""
+    cplx = (dtype.is_complex if isinstance(dtype, torch.dtype)
+            else np.issubdtype(np.dtype(dtype), np.complexfloating))
+    if cplx:
+        raise TypeError(f"{what}: K7 (BSR SpMV) is real only, as the TPU "
+                        f"kernel it replaces; got {dtype}.  Pack a complex "
+                        "operator as sliced ELL (kernel K1)")
+
+
 def bsr_from_csr(A, bs: int = 128, dtype=None, device="cuda") -> BSR:
-    """Blockify a host CSR into uniform-KB BSR (zero-padded)."""
+    """Blockify a host CSR into uniform-KB BSR (zero-padded); real dtypes
+    only."""
+    _real_only(A.data.dtype if dtype is None else dtype, "bsr_from_csr")
     dev = resolve_device(device)
     n = A.nrows
     nb = -(-n // bs)
@@ -71,11 +88,17 @@ def bsr_from_csr(A, bs: int = 128, dtype=None, device="cuda") -> BSR:
 
 def bsr_matvec_mrhs_plain(A: BSR, X: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch Y = A X for X of shape (nbr*bs, nrhs): gather the X
-    slab of every block and contract block by block."""
+    slab of every block and contract block by block;
+    ``bsr_matvec_mrhs_plain.calls`` counts its calls."""
+    _real_only(X.dtype, "bsr_matvec_mrhs_plain")
+    bsr_matvec_mrhs_plain.calls += 1
     Xb = X.reshape(A.nbr, A.bs, -1)
     G = Xb[A.block_cols]                              # (nbr, KB, bs, nrhs)
     Y = torch.einsum("ikab,ikbj->iaj", A.blocks, G)
     return Y.reshape(A.nbr * A.bs, -1)
+
+
+bsr_matvec_mrhs_plain.calls = 0
 
 
 # Widest block of right-hand sides that the streaming kernel takes; up to
@@ -98,14 +121,15 @@ def bsr_spmv_cuda(A: BSR, X: torch.Tensor, path: str = None) -> torch.Tensor:
     chip_smoke.py, which times both sides of :func:`bsr_path`'s choice at
     1, 2 and 4 right-hand sides on every run, each checked against the
     plain version, so that ``STREAM_MAX_NRHS`` stays measured."""
+    _real_only(X.dtype, "bsr_spmv")
     if X.shape[0] != A.nbr * A.bs:
         raise ValueError(f"X has {X.shape[0]} rows, BSR needs {A.nbr * A.bs}")
     nrhs = X.shape[1]
     Y = X.new_empty((A.nbr * A.bs, nrhs))
     if A.nbr == 0 or nrhs == 0:
         return Y
-    fn = kernel_fn("bsr_spmv", A.blocks, A.block_cols, X, Y,
-                   index_dtypes=(torch.int32,))
+    fn = kernel_fn("bsr_spmv", index_dtypes=(torch.int32,), blocks=A.blocks,
+                   block_cols=A.block_cols, X=X, Y=Y)
     path = path or bsr_path(X.dtype, nrhs)
     tensor = "dmma" if X.dtype == torch.float64 else "tf32x3"
     stream = path == "stream"

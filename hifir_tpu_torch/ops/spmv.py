@@ -5,7 +5,8 @@ so the arrays equal the reference's.  The product and the subtraction every
 caller makes after it are one function, :func:`sliced_ell_sub_mrhs`
 (``out = C - A X``, ``out = C + A X`` with ``sign=1``, or ``A X`` without
 C): kernel K1 (``csrc/kernels.cu:sell_spmv``) on the card and its plain
-PyTorch version on the CPU.
+PyTorch version on the CPU, in float32, float64, complex64 and complex128
+(the sign is a real +-1 in every dtype).
 
 A :class:`SlicedELL` keeps the reference's per-bucket ELL blocks and, for
 the kernel, a table by position in the concatenation of the buckets (the
@@ -175,8 +176,10 @@ def ell_matvec_mrhs_plain(A: ELL, X: torch.Tensor) -> torch.Tensor:
 def sliced_ell_sub_mrhs_plain(A, X: torch.Tensor, C=None, out=None,
                               sign: int = -1) -> torch.Tensor:
     """Plain PyTorch ``C + sign A X`` (``A X`` when C is None), written into
-    ``out`` when it is given."""
+    ``out`` when it is given; ``sliced_ell_sub_mrhs_plain.calls`` counts its
+    calls."""
     _check_sign(sign)
+    sliced_ell_sub_mrhs_plain.calls += 1
     Y = (sliced_ell_matvec_mrhs_plain(A, X) if isinstance(A, SlicedELL)
          else ell_matvec_mrhs_plain(A, X))
     if C is not None:
@@ -184,6 +187,9 @@ def sliced_ell_sub_mrhs_plain(A, X: torch.Tensor, C=None, out=None,
     elif out is not None:
         Y = out.copy_(Y)
     return Y
+
+
+sliced_ell_sub_mrhs_plain.calls = 0
 
 
 def _check_sign(sign: int) -> None:
@@ -233,12 +239,12 @@ def sell_spmv_cuda(A, X: torch.Tensor, C=None, out=None,
     sliced = isinstance(A, SlicedELL)
     if sliced:
         idx, val, k_uni = A.flat_indices, A.flat_values, 0
-        tables = (A.order, A.pos_ptr, A.pos_nnz)
+        tables = dict(order=A.order, pos_ptr=A.pos_ptr, pos_nnz=A.pos_nnz)
         first = A.nempty if in_place else 0
         max_nnz, empty = A.max_nnz, A.nnz == 0
     else:
         idx, val, k_uni = A.indices, A.values, A.k
-        tables, first, max_nnz = (), 0, A.k
+        tables, first, max_nnz = {}, 0, A.k
         empty = A.nrows * A.k == 0
     if max(A.nrows * nrhs, A.ncols * nrhs, A.nrows * k_uni) >= 2**31:
         raise ValueError("sell_spmv: operands too large for 32-bit indexing")
@@ -246,15 +252,17 @@ def sell_spmv_cuda(A, X: torch.Tensor, C=None, out=None,
         if C is None:
             return out.zero_()
         return out if in_place else out.copy_(C)
-    lines = nrhs * X.element_size() % 16 == 0   # rows of whole 16 bytes
+    # rows of whole 16 bytes (element_size 4, 8 or 16: complex128 always)
+    lines = nrhs * X.element_size() % 16 == 0
     if lines and nrhs in NARROW_NRHS and X.data_ptr() % 16:
         X = X.clone()      # the narrow shape loads such X rows in 16 bytes
     vec = lines and all(t.data_ptr() % 16 == 0 for t in (X, out)
                         + (() if C is None else (C,)))
-    operands = (X, out) if C is None else (X, C, out)
-    fn = kernel_fn("sell_spmv", idx, val, *tables, *operands,
-                   index_dtypes=(torch.int32,) * (1 + len(tables)))
-    ptrs = [t.data_ptr() for t in tables] if sliced else [None] * 3
+    operands = dict(X=X, out=out) if C is None else dict(X=X, C=C, out=out)
+    fn = kernel_fn("sell_spmv", index_dtypes=(torch.int32,) * (1 + len(tables)),
+                   idx=idx, val=val, **tables, **operands)
+    ptrs = ([t.data_ptr() for t in tables.values()] if sliced
+            else [None] * 3)
     err = fn(idx.data_ptr(), val.data_ptr(), *ptrs, k_uni, first, A.nrows,
              max_nnz, nrhs, A.ncols, X.data_ptr(),
              None if C is None else C.data_ptr(), out.data_ptr(), sign,

@@ -12,6 +12,9 @@ layouts equal the reference's arrays:
 - :class:`TrsvDense`: an explicit dense inverse, applied by ``torch.matmul``.
 - :class:`TrsvBlockDense`: W-row blocks, each an off-diagonal sliced-ELL
   product (kernel K1) and a dense ``torch.matmul`` with the block's inverse.
+
+Every form packs real or complex factors (``dtype=None`` keeps the factor's
+own); the explicit inverses are computed in float64 or complex128 and cast.
 """
 
 from __future__ import annotations
@@ -153,7 +156,8 @@ def build_trsv_dense(T, lower: bool, dtype=None, device="cuda") -> TrsvDense:
     if n == 0:
         return TrsvDense(torch.zeros((0, 0), dtype=torch_dtype(zdt),
                                      device=dev), 0)
-    M = T.to_scipy().toarray().astype(np.float64)
+    M = T.to_scipy().toarray().astype(
+        np.complex128 if np.iscomplexobj(T.data) else np.float64)
     M = (np.tril(M, -1) if lower else np.triu(M, 1)) + np.eye(n)
     inv = sla.solve_triangular(M, np.eye(n, dtype=M.dtype), lower=lower,
                                unit_diagonal=True)
@@ -444,7 +448,9 @@ def build_trsv_schedule(T, lower: bool, chunk: int = 256, dtype=None,
 def trsv_apply_plain(sched: TrsvSchedule, B: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch solve (I + strict(T)) X = B on the schedule: gather B
     into slot order with a zero sentinel slot, then level by level
-    x[slots] -= sum_k vals * x[cols], then gather X out of slot order."""
+    x[slots] -= sum_k vals * x[cols], then gather X out of slot order;
+    ``trsv_apply_plain.calls`` counts its calls."""
+    trsv_apply_plain.calls += 1
     zero = B.new_zeros((1, B.shape[1]))
     x = torch.cat([torch.cat([B, zero])[sched.in_rows], zero])
     K = sched.cols.shape[2]
@@ -455,6 +461,9 @@ def trsv_apply_plain(sched: TrsvSchedule, B: torch.Tensor) -> torch.Tensor:
         g = x[cols[s0:s1]]                              # (S, K, nrhs)
         x[s0:s1] -= torch.einsum("sk,skj->sj", vals[s0:s1], g)
     return x[sched.out_slots]
+
+
+trsv_apply_plain.calls = 0
 
 
 # The shared memory a thread block of K2 may hold its column's slot vector
@@ -492,10 +501,12 @@ def trsv_apply_cuda(sched: TrsvSchedule, B: torch.Tensor) -> torch.Tensor:
     scratch = None
     if trsv_shape(nslots, B.element_size()) == "global":
         scratch = B.new_empty((nrhs * (nslots + 1),))
-    extra = () if scratch is None else (scratch,)
-    fn = kernel_fn("trsv_solve", B, X, sched.in_rows, sched.cols, sched.vals,
-                   sched.out_slots, sched.level_slots_dev, *extra,
-                   index_dtypes=(torch.int32,) * 3 + (torch.int64,))
+    extra = {} if scratch is None else dict(scratch=scratch)
+    fn = kernel_fn("trsv_solve", index_dtypes=(torch.int32,) * 3
+                   + (torch.int64,), B=B, X=X, in_rows=sched.in_rows,
+                   cols=sched.cols, vals=sched.vals,
+                   out_slots=sched.out_slots,
+                   level_slots=sched.level_slots_dev, **extra)
     err = fn(B.data_ptr(), X.data_ptr(), sched.in_rows.data_ptr(),
              sched.cols.data_ptr(), sched.vals.data_ptr(),
              sched.out_slots.data_ptr(), sched.level_slots_dev.data_ptr(),

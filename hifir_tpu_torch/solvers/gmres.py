@@ -17,6 +17,13 @@ final m x m back-substitution run on the host, in numpy, in the working
 dtype.  So a single-RHS Arnoldi step syncs the host once (its Hessenberg
 column and norm come back to decide the early exit), and a batched cycle
 syncs once, when its Hessenberg matrices come back after the last step.
+
+Complex packs run the same iteration: the projections conjugate the basis,
+the norms are real, and :func:`_givens` makes unitary rotations in both
+drivers.  The JAX package's single-RHS rotation
+(``hifir_tpu/solvers/gmres.py:93-101``) does not conjugate, so on complex
+input its |g[j+1]| is not the residual norm and its iteration counts differ
+from these; its batched cycle conjugates, as this one does.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import scipy.linalg as sla
 import torch
 
 from ..alg.prec import prec_solve_mrhs
-from ..device import numpy_dtype
+from ..device import as_values, numpy_dtype
 from ..ops.spmv import ell_matvec, ell_matvec_mrhs
 from .ir import ir_apply, residual_mrhs
 
@@ -80,9 +87,9 @@ def _restart_cycle(A, msolve, b: torch.Tensor, x: torch.Tensor,
         w = w - h1 @ Vj
         h2 = Vj.conj() @ w
         w = w - h2 @ Vj
-        col = torch.cat([h1 + h2, torch.linalg.vector_norm(w)[None]])
-        col = col.cpu().numpy()
-        hj1 = col[-1]
+        nrm = torch.linalg.vector_norm(w)[None].to(w.dtype)
+        col = torch.cat([h1 + h2, nrm]).cpu().numpy()
+        hj1 = float(col[-1].real)   # the norm, real in every dtype
         V[j + 1] = w / hj1 if hj1 > 0 else w
         Z[j] = z
         c = np.zeros((m + 1, 1), ndt)
@@ -101,12 +108,12 @@ def _gmres(A, msolve_of, prec, b, restart, rtol, maxit, x0):
     """The restart loop shared by :func:`gmres_hif` and
     :func:`fgmres_hifir`; ``msolve_of(cycle)`` is the preconditioner of a
     cycle."""
-    b = torch.as_tensor(b, dtype=prec.dtype, device=prec.device)
+    b = as_values(b, prec.dtype, prec.device)
     bnrm = float(torch.linalg.vector_norm(b))
     if bnrm == 0.0:
         return torch.zeros_like(b), 0, 0
     x = (torch.zeros_like(b) if x0 is None
-         else torch.as_tensor(x0, dtype=prec.dtype, device=prec.device))
+         else as_values(x0, prec.dtype, prec.device))
     it, flag, cycle = 0, 1, 0
     while it < maxit:
         x, res, j_used = _restart_cycle(A, msolve_of(cycle), b, x,
@@ -173,7 +180,7 @@ def _restart_cycle_mrhs(A, prec, B: torch.Tensor, X: torch.Tensor, m: int):
         W = torch.baddbmm(W, h1, Vj, alpha=-1)
         h2 = torch.bmm(W, Vj.mH)
         W = torch.baddbmm(W, h2, Vj, alpha=-1)
-        hj1 = torch.linalg.vector_norm(W[:, 0], dim=1)             # (R,)
+        hj1 = torch.linalg.vector_norm(W[:, 0], dim=1)       # (R,), real
         Hd[:, :j + 1, j] = (h1 + h2)[:, 0]
         Hd[:, j + 1, j] = hj1
         # a zero W (breakdown) stays zero
@@ -208,7 +215,7 @@ def gmres_mrhs(A, prec, B, restart: int = 30, rtol: float = 1e-6,
     every kernel launch shared by all columns (the M-solve is the batched
     one).  Returns (X, flag, cycles); flag 0 once every column's residual
     estimate is within ``rtol`` of its ||b||."""
-    B = torch.as_tensor(B, dtype=prec.dtype, device=prec.device)
+    B = as_values(B, prec.dtype, prec.device)
     bnrm = torch.linalg.vector_norm(B, dim=0).cpu().numpy()
     bsafe = np.where(bnrm > 0, bnrm, 1)
     X = torch.zeros_like(B)

@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from ..alg.prec import prec_solve_mrhs
+from ..device import as_values
 from ..ops.spmv import ell_matvec_mrhs, sliced_ell_sub_mrhs
 
 __all__ = ["ir_apply", "residual_mrhs"]
@@ -34,7 +35,7 @@ def ir_apply(A, prec, b, nirs: int, r: Optional[int] = None) -> torch.Tensor:
     M-solve.  As in the JAX package, the M-solves are the bare multilevel
     solve: ``prec.nsp`` is not applied.
     """
-    b = torch.as_tensor(b, dtype=prec.dtype, device=prec.device)
+    b = as_values(b, prec.dtype, prec.device)
     B = b[:, None] if b.ndim == 1 else b
     X = prec_solve_mrhs(prec.levels, prec.tail, B, r)
     for _ in range(1, nirs):

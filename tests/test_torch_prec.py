@@ -39,8 +39,18 @@ FIXTURE = os.path.join(ROOT, "benchdata", "frozen_prec.npz")
 CPU = "cpu"
 
 
+def _values(X) -> np.ndarray:
+    """A tensor's (a lazy conjugate view's resolved) or an array's values."""
+    return X.resolve_conj().numpy() if torch.is_tensor(X) else np.asarray(X)
+
+
 def _rel(X, Xref):
-    X, Xref = np.asarray(X, np.float64), np.asarray(Xref, np.float64)
+    """max |X - Xref| / max |Xref|, the magnitude of the complex difference
+    for complex values, computed in float64 or complex128 (never casting a
+    complex value to a real one)."""
+    X, Xref = _values(X), _values(Xref)
+    dt = np.result_type(X.dtype, Xref.dtype, np.float64)
+    X, Xref = X.astype(dt), Xref.astype(dt)
     return np.abs(X - Xref).max() / np.abs(Xref).max()
 
 
