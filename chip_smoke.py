@@ -93,8 +93,38 @@ Phases, in order; any failed gate raises and the script exits non-zero:
    launches K7 or calls a plain version on the card.
 8. Complex timing: 50 back-to-back forward M-solves of the 128 complex
    columns per pack and a torch.profiler breakdown of each.
+9. Factorize, drawing from its own generator (--seed + 3), each part with
+   the launch counts set to 0 just before it and read just after: the
+   port's own factorize (host numpy anchors) of convdiff2d(128) with the
+   fixture's options, gated equal to hifir_tpu_torch/data/
+   convdiff2d_128_prec.npz (patterns exactly, values 1e-12), and of
+   poisson2d(256) with bench.py's options (seconds with the host's CPU
+   model, levels, nnz(M), fill); its packs dense_inv "auto" in f32 and
+   f64 and 0 in f32 with their bytes by operand; forward and adjoint
+   M-solves of 128 seeded RHS against the port's plain f64 CPU solve
+   (1e-4 / 1e-10) with K1 and K2 launches per solve from the packs' forms
+   (the auto packs launch K2 on level 0, m = 61983); HIFIR nirs = 4, f64,
+   A = BSR(poisson2d(256), bs=128): the residual falls every step, K7 3
+   and K1, K2 four solves' worth.
+10. Factorize timing: 50 back-to-back M-solves per poisson-256 pack, both
+   directions, 5 HIFIR applies, each with a torch.profiler breakdown.
+11. K8, the device QRCP of the dense tail (a torch route), in f64 on the
+   two real fixture tails under torch.cuda.set_sync_debug_mode("error"):
+   pivots equal to scipy geqp3's, rank equal to the host's, |QR - AP| and
+   |Q^T Q - I| <= 1e-13; its ms beside geqp3's, torch.geqrf's (unpivoted)
+   and its launches from the profiler; the auto f64 M-solve of a
+   tail_on_device pack within 1e-10 of the host-tail pack on each fixture;
+   the complex tail's host fallback; the rank rule on 40x40 rank-25 QRCP
+   and SYEIG tails: r = rank + 1 equal to r = 0 (1e-12) and to the host's
+   truncated solve (1e-10), both directions.
 
-The last lines are the card's name and power limit, one JSON object with
+Every torch.profiler breakdown discards one profiled warm-up run, leaves
+PROFILE_PAD_S of idle host at each end of the window (the tracer drops
+device records whose clock-converted times fall outside it) and gates the
+K1, K2 and K7 launches in its trace equal to the launch counters over the
+same runs; a window that lost records is taken again, at most
+PROFILE_TAKES times in all.  The last lines are one JSON object with K8's rows
+("torch_routes"), the card's name and power limit, one JSON object with
 the kernels and, last, {"ok": true, "device": {...}}.  Without a card the
 script prints no result and exits with code 2.
 """
@@ -184,6 +214,21 @@ class Timer:
             pairs.append((s, e))
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def timed(torch, fn, reps: int) -> float:
+    """CUDA-event ms per call over ``reps`` back-to-back calls, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
 
 
 def simt_peak(dt) -> float:
@@ -785,36 +830,179 @@ def _kernel_name(name: str) -> str:
     return name if len(name) <= 70 else name[:67] + "..."
 
 
-def device_profile(torch, run, reps: int) -> dict:
-    """torch.profiler over ``reps`` runs of ``run``: device time and
-    operations per run, the host's synchronisations per run, and the eight
-    largest device items by name."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# seconds of idle host at each end of a profiled window.  The tracer
+# (Kineto over CUPTI) drops a device record whose start, converted to the
+# host clock, falls before the window opened, and one whose end falls
+# after it closed; in some windows that conversion puts the whole device
+# timeline milliseconds early against the launches (PERF.md section 6),
+# and without a pad the first launches' records were lost.
+PROFILE_PAD_S = 0.1
+# a window whose K1/K2/K7 records differ from the launch counters is taken
+# again, up to this many takes in all; the last take is gated
+PROFILE_TAKES = 3
+# every profiled window of the run: its clock offset (see profiled()) and
+# whether it lost records
+PROFILE_WINDOWS = []
+# the host calls that queue device work
+_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+             "cuLaunchKernelEx", "cudaMemcpyAsync")
+# the kernel names the profiler reports, by kernel
+_KERNEL_OF = {"bsr_mma_kernel": "K7", "bsr_stream_kernel": "K7",
+              "sell_wide_kernel": "K1", "sell_narrow_kernel": "K1",
+              "trsv_solve_kernel": "K2"}
 
-    run()
+
+def profiled(torch, body, warm=None, start=None, pads=None):
+    """torch.profiler around one call of ``body``: an unprofiled and a
+    profiled call of ``warm`` (default ``body``; the schedule discards the
+    second's events), then ``PROFILE_PAD_S`` of idle host, ``start()`` if
+    given, ``body``, a synchronisation and another pad before the window
+    closes (``pads``, the pads after opening and before closing, default
+    ``PROFILE_PAD_S`` each).  Returns the profiler and the window's clock
+    offset: the least (device start - host launch) over its records,
+    matched by correlation id, in ms.  The first launch after the pad
+    meets an idle device, so the offset is its launch latency (a few
+    microseconds) when the two clocks agree, and negative when the trace
+    puts the device timeline early."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    warm = warm or body
+    pad_open, pad_close = pads or (PROFILE_PAD_S, PROFILE_PAD_S)
+    warm()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        warm()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(pad_open)
+        if start is not None:
+            start()
+        body()
+        torch.cuda.synchronize()
+        time.sleep(pad_close)
+        prof.step()
+    raw = prof.profiler.kineto_results.events()
+    launched = {e.correlation_id(): e.start_ns() for e in raw
+                if e.device_type() != DeviceType.CUDA
+                and e.name() in _LAUNCHES}
+    lags = [e.start_ns() - launched[e.correlation_id()] for e in raw
+            if e.device_type() == DeviceType.CUDA
+            and e.correlation_id() in launched]
+    return prof, min(lags) / 1e6 if lags else None
+
+
+def device_profile(torch, run, reps: int) -> dict:
+    """torch.profiler over ``reps`` runs of ``run`` (:func:`profiled`):
+    device time and operations per run, the host's synchronisations per
+    run, and the eight largest device items by name.  The launches of K1,
+    K2 and K7 that the trace holds are gated equal to their launch counters
+    over the same runs, so that a trace that lost kernel records fails the
+    run instead of under-reporting; a window that lost some is taken again
+    (``PROFILE_TAKES``), and every take is logged with its clock offset."""
+    from torch.autograd import DeviceType
+
+    def body():
         for _ in range(reps):
             run()
-        torch.cuda.synchronize()
-    by, syncs = {}, 0
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            syncs += ev.name in ("cudaStreamSynchronize",
-                                 "cudaDeviceSynchronize")
-            continue
-        name = _kernel_name(ev.name)
-        us, cnt = by.get(name, (0.0, 0))
-        by[name] = (us + ev.time_range.elapsed_us(), cnt + 1)
+
+    for take in range(1, PROFILE_TAKES + 1):
+        prof, offset = profiled(torch, body, warm=run, start=reset_counts)
+        counted = read_counts()
+        events = prof.events()
+        # the warm-up's closing synchronisation may fall inside the window:
+        # count those after the window's first launch
+        first = min((ev.time_range.start for ev in events
+                     if ev.name in _LAUNCHES), default=0)
+        by, syncs, seen = {}, 0, dict.fromkeys(counted, 0)
+        for ev in events:
+            if ev.device_type != DeviceType.CUDA:
+                syncs += (ev.name in ("cudaStreamSynchronize",
+                                      "cudaDeviceSynchronize")
+                          and ev.time_range.start > first)
+                continue
+            if ev.name.startswith("ProfilerStep"):
+                continue    # the schedule's step range, not device work
+            name = _kernel_name(ev.name)
+            if name in _KERNEL_OF:
+                seen[_KERNEL_OF[name]] += 1
+            us, cnt = by.get(name, (0.0, 0))
+            by[name] = (us + ev.time_range.elapsed_us(), cnt + 1)
+        PROFILE_WINDOWS.append(dict(offset_ms=offset, take=take,
+                                    lost=seen != counted))
+        if seen == counted:
+            break
+        log(f"  profiler take {take}: saw {seen} of {counted} launches, "
+            f"clock offset {offset} ms")
+    for k, c in counted.items():
+        gate(seen[k] == c, f"the profiler saw {seen[k]} {k} launches, the "
+             f"launch counter {c}")
     top = sorted(by.items(), key=lambda kv: -kv[1][0])[:8]
     return dict(
         device_ms_per_run=sum(us for us, _ in by.values()) / reps / 1e3,
         device_ops_per_run=sum(c for _, c in by.values()) / reps,
         host_syncs_per_run=(syncs - 1) / reps,   # less the closing one
+        launches_per_run={k: c / reps for k, c in counted.items()},
+        clock_offset_ms=offset, takes=take,
         top=[dict(name=n, ms_per_run=us / reps / 1e3,
                   count_per_run=c / reps) for n, (us, c) in top])
+
+
+def profile_probe(torch, seconds: float, out_dir=None) -> dict:
+    """How often a profiled window loses device records, by pad: windows of
+    5 adjoint `auto` f32 solves on the nonsymmetric fixture (the cell that
+    lost records in PR 5 and PR 6), interleaved with no pad, a pad after
+    opening only, and a pad at both ends, for ``seconds``.  Each window
+    keeps its K1 counts (trace and counter) and its clock offset."""
+    import hifir_tpu_torch as ht
+
+    M = ht.load_prec(CONVDIFF)
+    dp = M.to_device(dtype=np.float32, dense_inv="auto")
+    dp.pack_transpose(M.precs)
+    B = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (M.precs[0].n, NRHS)), dtype=torch.float32, device="cuda")
+
+    def run():
+        dp.solve_mrhs(B, trans=True)
+
+    def body():
+        for _ in range(5):
+            run()
+
+    pads = {"none": (0.0, 0.0), "open": (PROFILE_PAD_S, 0.0),
+            "both": (PROFILE_PAD_S, PROFILE_PAD_S)}
+    rows, t0 = [], time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for kind in ("none", "open", "both", "both"):
+            prof, offset = profiled(torch, body, warm=run, start=reset_counts,
+                                   pads=pads[kind])
+            seen = sum(1 for ev in prof.events()
+                       if _kernel_name(ev.name) in ("sell_wide_kernel",
+                                                    "sell_narrow_kernel"))
+            rows.append(dict(kind=kind, k1_seen=seen,
+                             k1_counted=read_counts()["K1"],
+                             offset_ms=offset))
+    out = {}
+    for kind in pads:
+        rs = [r for r in rows if r["kind"] == kind]
+        off = [r["offset_ms"] for r in rs if r["offset_ms"] is not None]
+        out[kind] = dict(
+            windows=len(rs),
+            lost=sum(r["k1_seen"] != r["k1_counted"] for r in rs),
+            k1_seen_when_lost=[r["k1_seen"] for r in rs
+                               if r["k1_seen"] != r["k1_counted"]],
+            offset_below_0=sum(x < 0 for x in off),
+            offset_below_1ms_early=sum(x < -1.0 for x in off),
+            least_offset_ms=min(off, default=None),
+            largest_offset_ms=max(off, default=None))
+        log(f"  pad {kind}: {json.dumps(out[kind])}")
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "profile_probe.json"), "w") as f:
+            json.dump(dict(summary=out, windows=rows), f)
+    return out
 
 
 def log_profile(key: str, p: dict, wall_ms: float) -> None:
@@ -1062,18 +1250,6 @@ def time_surface(torch, packs, ops, M, B):
     import hifir_tpu_torch as ht
     from hifir_tpu_torch.alg.prec import prec_prod_mrhs, prec_prod_tran_mrhs
 
-    def events(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        for _ in range(reps):
-            fn()
-        e.record()
-        torch.cuda.synchronize()
-        return s.elapsed_time(e) / reps
-
     out, runs = {}, {}
     Bd = {dt: torch.as_tensor(B, dtype=getattr(torch, dt), device="cuda")
           for dt in ("float32", "float64")}
@@ -1082,7 +1258,7 @@ def time_surface(torch, packs, ops, M, B):
             key = f"{'adjoint' if trans else 'forward'} dense_inv={di} {dt}"
             run = runs[key] = (lambda dp=dp, dt=dt, trans=trans:
                                dp.solve_mrhs(Bd[dt], trans=trans))
-            ms = events(run, CHAIN)
+            ms = timed(torch, run, CHAIN)
             out[key] = dict(ms=ms, us_per_rhs=ms * 1e3 / NRHS)
             log(f"  {key:30s}: {ms:.4f} ms/solve, {ms * 1e3 / NRHS:.4f} "
                 "us/RHS")
@@ -1096,7 +1272,7 @@ def time_surface(torch, packs, ops, M, B):
                     dp.levels, dp.tran, dp.prod_tran, dp.tail, Xk)) if trans
                 else (lambda Xk=Xk: prec_prod_mrhs(dp.levels, dp.prod,
                                                    dp.tail, Xk)))
-            ms = events(run, 20)
+            ms = timed(torch, run, 20)
             out[key] = dict(ms=ms)
             log(f"  {key:33s}: {ms:.4f} ms")
     rank = M.precs[-1].dense_solver.rank
@@ -1389,16 +1565,7 @@ def time_complex(torch, packs, Bd, reps=CHAIN):
     for (di, dt), dp in packs.items():
         key = f"forward dense_inv={di} {dt}"
         run = runs[key] = lambda dp=dp, dt=dt: dp.solve_mrhs(Bd[dt])
-        run()
-        torch.cuda.synchronize()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        for _ in range(reps):
-            run()
-        e.record()
-        torch.cuda.synchronize()
-        ms = s.elapsed_time(e) / reps
+        ms = timed(torch, run, reps)
         out[key] = dict(ms=ms, us_per_rhs=ms * 1e3 / NRHS, reps=reps)
         log(f"  {key:32s}: {ms:.4f} ms/solve, {ms * 1e3 / NRHS:.4f} us/RHS")
     log("  where the time goes (torch.profiler):")
@@ -1406,6 +1573,483 @@ def time_complex(torch, packs, Bd, reps=CHAIN):
         profiles[key] = device_profile(torch, run, 5)
         log_profile(key, profiles[key], out[key]["ms"])
     return out, profiles
+
+
+# options of the checked-in nonsymmetric fixture (the command that wrote it
+# is in tests/test_torch_surface.py) and of bench.py's poisson2d(256) leg
+FIXTURE_OPTS = dict(tau_L=1e-2, tau_U=1e-2, alpha_L=3, alpha_U=3, kappa=3,
+                    kappa_d=3, dense_thres=600, verbose=0)
+BENCH_OPTS = dict(tau_L=1e-2, tau_U=1e-2, alpha_L=3, alpha_U=3, kappa=5,
+                  kappa_d=5, verbose=0)
+
+
+def cpu_model() -> str:
+    """The host CPU: its model name from /proc/cpuinfo, the machine type
+    and the cores this process may use."""
+    import platform
+
+    name = "model not reported"
+    try:
+        with open("/proc/cpuinfo") as f:
+            name = next((ln.split(":", 1)[1].strip() for ln in f
+                         if ln.startswith("model name")), name)
+    except OSError:
+        pass
+    return (f"{name}, {platform.machine()}, "
+            f"{len(os.sched_getaffinity(0))} cores")
+
+
+def levels_equal(P, R) -> float:
+    """Gate the port's factorization ``P`` equal to the reference ``R``
+    level by level, as tests/test_torch_factorize.py does: sizes,
+    permutations and patterns exactly, values within 1e-12 of their largest
+    magnitude, the tail's kind and rank; returns the largest relative
+    value difference."""
+    gate([(p.m, p.n) for p in P.precs] == [(p.m, p.n) for p in R.precs],
+         "factorize: level sizes differ from the reference")
+    worst = 0.0
+
+    def close(a, b, what):
+        nonlocal worst
+        a, b = np.asarray(a), np.asarray(b)
+        gate(a.shape == b.shape and a.dtype == b.dtype, f"{what}: shape")
+        if a.size:
+            d = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+            worst = max(worst, d)
+            gate(d <= 1e-12, f"{what}: rel diff {d:.3e} > 1e-12")
+
+    for i, (pp, rp) in enumerate(zip(P.precs, R.precs)):
+        for f in ("p", "q", "p_inv", "q_inv"):
+            gate(np.array_equal(getattr(pp, f), getattr(rp, f)),
+                 f"level {i} {f} differs")
+        for f in ("L_B", "U_B", "E", "F"):
+            a, b = getattr(pp, f), getattr(rp, f)
+            gate(a.shape == b.shape and np.array_equal(a.indptr, b.indptr)
+                 and np.array_equal(a.indices, b.indices),
+                 f"level {i} {f}: pattern differs")
+            close(a.data, b.data, f"level {i} {f}")
+        for f in ("d", "s", "t"):
+            close(getattr(pp, f), getattr(rp, f), f"level {i} {f}")
+    pl, rl = P.precs[-1], R.precs[-1]
+    gate((pl.dense_matrix is None) == (rl.dense_matrix is None), "tail")
+    if rl.dense_matrix is not None:
+        close(pl.dense_matrix, rl.dense_matrix, "dense tail")
+        pd, rd = pl.dense_solver, rl.dense_solver
+        gate((pd.kind, pd.rank) == (rd.kind, rd.rank), "tail kind or rank")
+    return worst
+
+
+def pack_bytes(torch, dp) -> dict:
+    """Device bytes of a pack by operand: level-scan schedules, sliced ELL
+    (E, F and the blocked inverses' Off_b), blocked inverses, dense
+    inverses, the tail and the per-level vectors; the adjoint operands
+    (``pack_transpose``) apart.  A storage shared by two tensors counts
+    once."""
+    import dataclasses
+
+    from hifir_tpu_torch.ops.trsv import TrsvBlockDense, TrsvSchedule
+
+    seen = set()
+
+    def nbytes(o) -> int:
+        if torch.is_tensor(o):
+            st = o.untyped_storage()
+            if st.data_ptr() in seen:
+                return 0
+            seen.add(st.data_ptr())
+            return st.nbytes()
+        if dataclasses.is_dataclass(o):
+            return sum(nbytes(getattr(o, f.name))
+                       for f in dataclasses.fields(o))
+        if isinstance(o, (tuple, list)):
+            return sum(nbytes(x) for x in o)
+        return 0
+
+    def forms(out, tri, ell):
+        for f in tri:
+            if isinstance(f, TrsvSchedule):
+                out["schedules"] += nbytes(f)
+            elif isinstance(f, TrsvBlockDense):
+                out["blocked_inverses"] += nbytes(f.invs)
+                out["ell"] += nbytes(f.offs)
+            else:
+                out["dense_inverses"] += nbytes(f)
+        out["ell"] += nbytes(ell)
+
+    keys = ("schedules", "ell", "blocked_inverses", "dense_inverses")
+    fwd = dict.fromkeys(keys, 0)
+    for lv in dp.levels:
+        forms(fwd, (lv.L, lv.U), (lv.E, lv.F))
+    fwd["vectors"] = sum(nbytes([lv.p, lv.q_inv, lv.s_p, lv.t, lv.d, lv.q,
+                                 lv.p_inv, lv.s, lv.t_q])
+                         for lv in dp.levels)
+    fwd["tail"] = nbytes(dp.tail)
+    out = {"forward": fwd}
+    if dp.tran is not None:
+        adj = dict.fromkeys(keys, 0)
+        for t in dp.tran:
+            forms(adj, (t.LT, t.UT), (t.ET, t.FT))
+        out["adjoint"] = adj
+    return out
+
+
+def factorize_phase(torch, rng):
+    """The port's own factorize, from a matrix A to the M-solve on the card
+    with no file that the JAX package wrote: the convdiff2d(128) factorize
+    held equal to the checked-in fixture, then poisson2d(256) (bench.py's
+    options) factorized, packed ``auto`` f32 and f64 and ``dense_inv=0``
+    f32, solved forward and adjoint at 128 RHS against the port's plain f64
+    CPU solve, and refined by HIFIR with A = BSR(bs=128).  Each part runs
+    with the launch counts set to 0 just before it and read just after;
+    returns the report, the launches of each part with what each must be,
+    the packs and the right-hand sides."""
+    import hifir_tpu_torch as ht
+    from hifir_tpu_torch.models.problems import convdiff2d, poisson2d
+    from hifir_tpu_torch.ops.bsr_spmv import bsr_from_csr
+    from hifir_tpu_torch.ops.spmv import ell_matvec_mrhs
+    from hifir_tpu_torch.ops.trsv import TrsvSchedule
+
+    launches, want, report = {}, {}, {}
+    cpu = cpu_model()
+
+    def counted(what, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[what] = read_counts()
+        return out
+
+    # 1. convdiff2d(128) with the fixture's options: the fixture itself
+    t0 = time.perf_counter()
+    Pc = ht.HIF().factorize(convdiff2d(128), ht.Options(**FIXTURE_OPTS))
+    secs = time.perf_counter() - t0
+    worst = levels_equal(Pc, ht.load_prec(CONVDIFF))
+    report["convdiff_factorize"] = dict(seconds=secs, cpu=cpu,
+                                        max_rel_diff=worst)
+    log(f"  factorize convdiff2d(128): {secs:.2f} s on the host ({cpu}); "
+        f"levels {[(p.m, p.n) for p in Pc.precs]}, equal to the fixture "
+        f"(largest value difference {worst:.1e}, tol 1e-12)")
+
+    # 2. poisson2d(256) with bench.py's options
+    A = poisson2d(256)
+    n = A.nrows
+    t0 = time.perf_counter()
+    P = ht.HIF().factorize(A, ht.Options(**BENCH_OPTS))
+    secs = time.perf_counter() - t0
+    lv = [(p.m, p.n) for p in P.precs]
+    tail = P.precs[-1].dense_matrix
+    report["poisson256_factorize"] = dict(
+        seconds=secs, cpu=cpu, levels=lv, nnz_M=P.nnz(), nnz_A=A.nnz,
+        fill=P.nnz() / A.nnz,
+        tail=None if tail is None else tail.shape[0])
+    log(f"  factorize poisson2d(256): {secs:.2f} s on the host ({cpu}); "
+        f"levels {lv}, tail {None if tail is None else tail.shape}, "
+        f"nnz(M)={P.nnz()}, fill {P.nnz() / A.nnz:.4f}")
+    gate(P.precs[0].m > 8 * 2048, "poisson2d(256): level 0 is not above "
+         "the blocked-inverse range, so K2 would not carry the auto solve")
+
+    B = rng.standard_normal((n, NRHS))
+    ref_pack = P.to_device(dtype=np.float64, device="cpu", dense_inv=0)
+    ref_pack.pack_transpose(P.precs)
+    ref = {t: ref_pack.solve_mrhs(B, trans=t).numpy() for t in (False, True)}
+    packs = {}
+    for di, npdt in (("auto", np.float32), ("auto", np.float64),
+                     (0, np.float32)):
+        t0 = time.perf_counter()
+        dp = P.to_device(dtype=npdt, dense_inv=di)
+        dp.pack_transpose(P.precs)
+        dt = np.dtype(npdt).name
+        packs[(di, dt)] = dp
+        nb = pack_bytes(torch, dp)
+        report[f"bytes dense_inv={di} {dt}"] = nb
+        log(f"  pack + pack_transpose dense_inv={di!s:4s} {dt}: "
+            f"{time.perf_counter() - t0:.2f} s (host); bytes forward "
+            f"{nb['forward']}, adjoint {nb['adjoint']}")
+    Bd = {dt: torch.as_tensor(B, dtype=getattr(torch, dt), device="cuda")
+          for dt in ("float32", "float64")}
+    for (di, dt), dp in packs.items():
+        for trans in (False, True):
+            key = (f"poisson256 {'adjoint' if trans else 'forward'} "
+                   f"dense_inv={di} {dt}")
+            X = counted(key, lambda: dp.solve_mrhs(Bd[dt], trans=trans))
+            gate(bool(torch.isfinite(X).all()), f"{key}: non-finite")
+            gate(tuple(X.shape) == (n, NRHS), f"{key}: shape")
+            d = float(np.abs(X.double().cpu().numpy() - ref[trans]).max()
+                      / np.abs(ref[trans]).max())
+            tol = 1e-4 if dt == "float32" else 1e-10
+            forms = ([(t.LT, t.UT, t.FT, t.ET) for t in dp.tran] if trans
+                     else [(v.L, v.U, v.E, v.F) for v in dp.levels])
+            want[key] = want_launches(forms)
+            report[key] = dict(rel_diff=d, tol=tol)
+            log(f"  M-solve {key:42s}: rel diff vs CPU f64 {d:.3e} (tol "
+                f"{tol:.0e}); launches {launches[key]}, by the pack's forms "
+                f"{want[key]}")
+            gate(d <= tol, f"{key}: {d:.3e} > {tol}")
+    for dt in ("float32", "float64"):
+        lv0 = packs[("auto", dt)].levels[0]
+        gate(isinstance(lv0.L, TrsvSchedule) and lv0.L.nchunks > 0
+             and launches[f"poisson256 forward dense_inv=auto {dt}"]["K2"]
+             >= 2, f"the auto {dt} pack did not launch K2 on level 0")
+
+    # 3. HIFIR, f64, A = BSR(poisson2d(256), bs=128): the residual falls
+    # every step for every column; K7 3 times and K1 4 solves' worth
+    dp = packs[("auto", "float64")]
+    Ab = bsr_from_csr(A, bs=128, dtype=np.float64)
+    Bt = Bd["float64"]
+    Xs = [ht.ir_apply(Ab, dp, Bt, k) for k in range(1, 4)]
+    Xs.append(counted("poisson256 hifir nirs=4 float64",
+                      lambda: ht.ir_apply(Ab, dp, Bt, 4)))
+    per = want_launches([(v.L, v.U, v.E, v.F) for v in dp.levels])
+    want["poisson256 hifir nirs=4 float64"] = dict(
+        K7=3, K1=4 * per["K1"], K2=4 * per["K2"])
+    res = np.array([torch.linalg.vector_norm(
+        Bt - ell_matvec_mrhs(Ab, Xk), dim=0).cpu().numpy() for Xk in Xs])
+    rel_res = res / np.linalg.norm(B, axis=0)
+    report["poisson256 hifir rel residual"] = list(
+        map(float, rel_res.max(axis=1)))
+    log("  HIFIR poisson2d(256) (BSR A, f64) max relative residual per "
+        "step: " + ", ".join(f"{v:.3e}" for v in rel_res.max(axis=1))
+        + f"; launches {launches['poisson256 hifir nirs=4 float64']}")
+    gate(bool(np.all(res[1:] < res[:-1])), "poisson2d(256) HIFIR residual "
+         "did not fall at every step for every column")
+    for key, w in want.items():
+        for k, v in w.items():
+            got = launches[key][k]
+            gate(got == v, f"{key}: {got} {k} launches, expected {v}")
+    return report, launches, want, packs, Bd, Ab
+
+
+def time_factorize(torch, packs, Bd, Ab, reps=CHAIN):
+    """``reps`` back-to-back M-solves per poisson-256 pack, forward and
+    adjoint, and the nirs=4 HIFIR apply (CUDA events), each with a
+    torch.profiler breakdown."""
+    import hifir_tpu_torch as ht
+
+    out, profiles = {}, {}
+    runs = {}
+    for (di, dt), dp in packs.items():
+        for trans in (False, True):
+            key = (f"poisson256 {'adjoint' if trans else 'forward'} "
+                   f"dense_inv={di} {dt}")
+            runs[key] = (lambda dp=dp, dt=dt, trans=trans:
+                         dp.solve_mrhs(Bd[dt], trans=trans))
+    runs["poisson256 hifir nirs=4 float64"] = lambda: ht.ir_apply(
+        Ab, packs[("auto", "float64")], Bd["float64"], 4)
+    for key, run in runs.items():
+        ms = timed(torch, run, 5 if "hifir" in key else reps)
+        out[key] = dict(ms=ms, us_per_rhs=ms * 1e3 / NRHS)
+        log(f"  {key:44s}: {ms:.4f} ms, {ms * 1e3 / NRHS:.4f} us/RHS")
+    log("  where the time goes (torch.profiler):")
+    for key, run in runs.items():
+        profiles[key] = device_profile(torch, run, 3 if "hifir" in key
+                                       else 5)
+        log_profile(key, profiles[key], out[key]["ms"])
+    return out, profiles
+
+
+def k8_phase(torch, rng):
+    """K8, the device QRCP (a torch route), on the card in f64 on the two
+    real fixture tails: under torch.cuda.set_sync_debug_mode("error"), so a
+    host sync inside its loop fails the run; pivots equal to scipy
+    geqp3's, the rank equal to the host QRCP's, |QR - A[:, piv]| <= 1e-13
+    |A| and |Q^T Q - I| <= 1e-13 (largest entries); its time beside the
+    host geqp3's, torch.geqrf's on the card (an unpivoted QR: the same
+    FLOP, not the same function) and the same code on the host CPU (its
+    plain version), its launches per factorization from the profiler.
+    Then the auto f64 M-solve of a tail_on_device pack against the
+    host-tail pack (1e-10), the complex tail's host fallback, and the rank
+    rule on the card (:func:`rank_rule_phase`).  Returns the rows and the
+    report."""
+    import scipy.linalg as sla
+    from torch.autograd import DeviceType
+
+    import hifir_tpu_torch as ht
+    from hifir_tpu_torch.small_scale.dense import DeviceQRCP
+    from hifir_tpu_torch.small_scale.qrcp_device import (qrcp_device,
+                                                         qrcp_rank)
+
+    rows, report = [], {}
+    for name, path in (("frozen", FIXTURE), ("convdiff", CONVDIFF)):
+        M = ht.load_prec(path)
+        host = M.precs[-1].dense_solver
+        D = M.precs[-1].dense_matrix
+        n = D.shape[0]
+        Ad = torch.as_tensor(D, dtype=torch.float64, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            Q, R, piv = qrcp_device(Ad)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        rank = qrcp_rank(R)
+        _, _, lpiv = sla.qr(D, pivoting=True, mode="economic")
+        err = float((Q @ R - Ad[:, piv]).abs().max() / Ad.abs().max())
+        orth = float((Q.T @ Q - torch.eye(n, dtype=torch.float64,
+                                          device="cuda")).abs().max())
+        p = piv.cpu().numpy()
+        log(f"  K8 {name} {n}x{n} f64: pivots equal to geqp3's "
+            f"{np.array_equal(p, lpiv)}, rank {rank} (host {host.rank}), "
+            f"|QR - A P| {err:.2e}, |Q^T Q - I| {orth:.2e} (tol 1e-13)")
+        gate(np.array_equal(p, lpiv), f"K8 {name}: pivots differ from "
+             "geqp3's")
+        gate(rank == host.rank, f"K8 {name}: rank {rank} != {host.rank}")
+        gate(err <= 1e-13 and orth <= 1e-13, f"K8 {name}: residual "
+             f"{err:.2e} or orthogonality {orth:.2e} above 1e-13")
+        ms = timed(torch, lambda: qrcp_device(Ad), 3)
+        geqrf_ms = timed(torch, lambda: torch.geqrf(Ad), 10)
+        host_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            sla.qr(D, pivoting=True, mode="economic", check_finite=False)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        Dc = torch.as_tensor(D)
+        t0 = time.perf_counter()
+        qrcp_device(Dc)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        prof, offset = profiled(torch, lambda: qrcp_device(Ad))
+        kinds = {}
+        for ev in prof.events():
+            if ev.device_type != DeviceType.CUDA:
+                kinds["host"] = kinds.get("host", 0) + (ev.name in _LAUNCHES)
+            elif not ev.name.startswith("ProfilerStep"):
+                kind = ("copies" if ev.name.startswith(("Memcpy", "Memset"))
+                        else "kernels")
+                kinds[kind] = kinds.get(kind, 0) + 1
+        # K8's bound: A read once, Q and R written once (and piv), against
+        # (8/3) n^3 FLOP (R's reflections (4/3) n^3, Q's accumulation as
+        # many) at the f64 peak.  The eager route's own traffic, 2 n^2
+        # elements of R and Q read and written at each of the n steps, is
+        # kept beside it as a separate number, not as the bound.
+        bms, by = bound(3 * n * n * 8 + n * 8, 8 / 3 * n ** 3, "float64")
+        eager_ms = 2 * 2 * n * n * 8 * n / MEM_BYTES_PER_S * 1e3
+        row = dict(name=f"K8_qrcp_{name}", route="torch",
+                   source="hifir_tpu_torch/small_scale/qrcp_device.py",
+                   replaces="hifir_tpu/small_scale/qrcp_device.py:27",
+                   shape=f"{n}x{n} float64", launches=kinds.get("kernels", 0),
+                   copies=kinds.get("copies", 0),
+                   host_launch_calls=kinds.get("host", 0), rank=rank,
+                   max_abs_err=float((Q @ R - Ad[:, piv]).abs().max()),
+                   ms=ms, plain_ms=plain_ms, geqp3_ms=statistics.median(
+                       host_ms), library_ms=geqrf_ms, bound_ms=bms,
+                   bound_by=by, eager_traffic_ms=eager_ms,
+                   profile_clock_offset_ms=offset)
+        rows.append(row)
+        log(f"  K8 {name}: {ms:.3f} ms on the card ({row['launches']} "
+            f"kernel launches, {row['copies']} copies a factorization; "
+            f"{row['host_launch_calls']} host launch calls, clock offset "
+            f"{offset} ms), "
+            f"plain (the same code on the host CPU) {plain_ms:.3f} ms, "
+            f"host geqp3 {row['geqp3_ms']:.3f} ms, torch.geqrf on the card "
+            f"{geqrf_ms:.3f} ms (unpivoted), bound {bms:.4f} ms ({by}); "
+            f"the eager route's own traffic at the HBM rate {eager_ms:.4f} "
+            "ms")
+        # the auto f64 M-solve of a tail_on_device pack
+        B = torch.as_tensor(rng.standard_normal((M.precs[0].n, NRHS)),
+                            device="cuda")
+        calls = qrcp_device.calls
+        Xd = M.to_device(dtype=np.float64, tail_on_device=True).solve_mrhs(B)
+        gate(qrcp_device.calls == calls + 1, "tail_on_device did not run K8")
+        dp = M.to_device(dtype=np.float64)
+        Xh = dp.solve_mrhs(B)
+        d = rel_diff(Xd, Xh)
+        log(f"  tail_on_device auto f64 M-solve on {name}: rel diff vs the "
+            f"host-tail pack {d:.3e} (tol 1e-10)")
+        gate(d <= 1e-10, f"tail_on_device {name}: {d:.3e} > 1e-10")
+        report[f"tail_on_device {name}"] = d
+    report.update(rank_rule_phase(torch, rng))
+    # the complex fixture's 25x25 tail takes the host QRCP
+    Dz = ht.load_prec(CONVDIFF_C).precs[-1].dense_matrix
+    calls = qrcp_device.calls
+    dz = DeviceQRCP("cuda")
+    dz.factorize(Dz)
+    gate(qrcp_device.calls == calls and dz.rank == Dz.shape[0],
+         "the complex tail did not take the host QRCP")
+    log(f"  complex {Dz.shape[0]}x{Dz.shape[0]} tail: host QRCP fallback, "
+        f"rank {dz.rank}")
+    return rows, report
+
+
+def deficient_tail(kind: str, n: int = 40, rank: int = 25, seed: int = 0):
+    """A one-level preconditioner that is all dense tail (m = 0): an n x n
+    matrix of rank ``rank`` (``tests/test_device.py``'s 40x40 rank-25 one
+    for QRCP, a symmetric one of that rank for SYEIG)."""
+    import hifir_tpu_torch as ht
+
+    rng = np.random.default_rng(seed)
+    U = rng.standard_normal((n, rank))
+    D = (U @ np.diag(rng.uniform(1.0, 2.0, rank)) @ U.T if kind == "syeig"
+         else U @ rng.standard_normal((rank, n)))
+    pay = {"nlevels": np.int64(1), "stats": np.zeros(1),
+           "l0_mn": np.array([0, n]), "l0_dense": D,
+           "l0_dense_kind": np.array(kind), "l0_d": np.empty(0),
+           "l0_s": np.ones(n), "l0_t": np.ones(n)}
+    for f, rows, cols in (("L_B", 0, 0), ("U_B", 0, 0), ("E", n, 0),
+                          ("F", 0, n)):
+        pay.update({f"l0_{f}_indptr": np.zeros(rows + 1, np.int64),
+                    f"l0_{f}_indices": np.empty(0, np.int32),
+                    f"l0_{f}_data": np.empty(0),
+                    f"l0_{f}_shape": np.array([rows, cols])})
+    for f in ("p", "p_inv", "q", "q_inv"):
+        pay[f"l0_{f}"] = np.arange(n)
+    return ht.HIF(ht.prec_from_arrays(pay))
+
+
+def truncated_host_solve(ds, B, k: int) -> np.ndarray:
+    """The dense tail's solve on the host keeping k columns (QRCP) or the
+    k largest eigenvalues (SYEIG): what a rank rule that keeps k computes."""
+    if ds.kind == "qrcp":
+        X = np.zeros_like(B)
+        X[ds.jpvt[:k]] = np.linalg.solve(ds.R[:k, :k], ds.Q[:, :k].T @ B)
+        return X
+    idx = np.argsort(-np.abs(ds.w))[:k]
+    V = ds.V[:, idx]
+    return V @ ((V.T @ B) / ds.w[idx][:, None])
+
+
+def rank_rule_phase(torch, rng) -> dict:
+    """The tail's rank rule on the card, on rank-deficient tails (40x40,
+    rank 25, QRCP and SYEIG; r = rank + 1 < nm, where the rule that kept
+    min(r, nm) columns differs): r = rank + 1 must give r = 0's solve
+    (1e-12) and the host's truncated solve at the rank (1e-10), forward and
+    adjoint, 128 RHS, f64.  Prints what keeping rank + 1 columns would
+    give, so that the gate is seen to tell the two rules apart."""
+    out = {}
+    for kind in ("qrcp", "syeig"):
+        H = deficient_tail(kind)
+        ds = H.precs[-1].dense_solver
+        dp = H.to_device(dtype=np.float64)
+        dp.pack_transpose(H.precs)
+        r, nm = dp.tail.rank, dp.tail.Q.shape[0]
+        gate(r + 1 < nm, f"rank rule: the {kind} tail is not deficient "
+             f"(rank {r} of {nm})")
+        B = rng.standard_normal((nm, NRHS))
+        Bd = torch.as_tensor(B, device="cuda")
+        for trans in (False, True):
+            X = dp.solve_mrhs(Bd, trans=trans, r=r + 1)
+            d0 = rel_diff(X, dp.solve_mrhs(Bd, trans=trans, r=0))
+            # the adjoint of a QRCP tail solves with A^T = P R^T Q^T
+            if trans and kind == "qrcp":
+                Z = np.linalg.solve(ds.R[:r, :r].T, B[ds.jpvt[:r]])
+                ref = ds.Q[:, :r] @ Z
+                old = np.abs(ds.Q[:, :r + 1] @ np.linalg.solve(
+                    ds.R[:r + 1, :r + 1].T, B[ds.jpvt[:r + 1]])).max()
+            else:
+                ref = truncated_host_solve(ds, B, r)
+                old = np.abs(truncated_host_solve(ds, B, r + 1)).max()
+            dh = rel_diff(X, torch.as_tensor(ref, device="cuda"))
+            what = f"{kind} {'adjoint' if trans else 'forward'}"
+            xmax = float(X.abs().max())
+            log(f"  rank rule {what}, rank {r} of {nm}: r = {r + 1} against "
+                f"r = 0 {d0:.3e} (tol 1e-12), against the host's rank-{r} "
+                f"solve {dh:.3e} (tol 1e-10); max|X| {xmax:.3e}, keeping "
+                f"{r + 1} columns would give {old:.3e}")
+            gate(d0 <= 1e-12 and dh <= 1e-10, f"rank rule {what}: {d0:.3e} "
+                 f"/ {dh:.3e}")
+            out[f"rank rule {what}"] = dict(vs_r0=d0, vs_host=dh, max_x=xmax,
+                                            rank_plus_one_columns=float(old))
+    return out
 
 
 _SOURCES = {
@@ -1430,6 +2074,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="directory for the full JSON report and nvcc log")
+    ap.add_argument("--profile-probe", type=float, default=0.0,
+                    metavar="SECONDS",
+                    help="only measure, for SECONDS, how often a profiled "
+                    "window loses device records with and without its pads")
     args = ap.parse_args(argv)
 
     import torch
@@ -1458,6 +2106,12 @@ def main(argv=None) -> int:
     log("== build")
     kl = load_kernels()
     log(f"  {kl.path.name}: nvcc {kl.build_seconds:.2f} s")
+    if args.profile_probe:
+        log(f"== profiler probe, {args.profile_probe:.0f} s")
+        print(json.dumps({"profile_probe": profile_probe(
+            torch, args.profile_probe, args.out)}))
+        print(smi)
+        return 0
 
     rng = np.random.default_rng(args.seed)
     M = ht.load_prec(FIXTURE)
@@ -1515,6 +2169,33 @@ def main(argv=None) -> int:
     log("== complex timing")
     ctiming, cprof = time_complex(torch, cpacks, cBd)
 
+    log("== factorize: the port's own factorize, convdiff2d(128) against the "
+        "fixture, poisson2d(256) to the M-solve and HIFIR on the card")
+    # its own generator, so that its inputs do not move with the rows above
+    t_phase = time.perf_counter()
+    frng = np.random.default_rng(args.seed + 3)
+    freport, flaunches, fwant, fpacks, fBd, fAb = factorize_phase(torch,
+                                                                 frng)
+    ftotal = {k: sum(c[k] for c in flaunches.values())
+              for k in ("K7", "K1", "K2")}
+    log(f"  launches on the factorize path: {ftotal}")
+    for k, c in ftotal.items():
+        gate(c > 0, f"kernel {k} was not launched on the factorize path")
+    log("== factorize timing")
+    ftiming, fprof = time_factorize(torch, fpacks, fBd, fAb)
+    log("== K8: device QRCP of the dense tail")
+    k8rows, k8report = k8_phase(torch, frng)
+    freport["seconds_factorize_timing_k8"] = time.perf_counter() - t_phase
+    log(f"  factorize, its timing and K8: "
+        f"{freport['seconds_factorize_timing_k8']:.1f} s")
+
+    offs = [w["offset_ms"] for w in PROFILE_WINDOWS
+            if w["offset_ms"] is not None]
+    log(f"== profiler: {len(PROFILE_WINDOWS)} windows, "
+        f"{sum(w['lost'] for w in PROFILE_WINDOWS)} lost records and were "
+        f"taken again; clock offsets {min(offs, default=0):.4f} to "
+        f"{max(offs, default=0):.4f} ms (pad {PROFILE_PAD_S * 1e3:.0f} ms)")
+
     kernels = []
     for k, (name, route, src, repl) in _SOURCES.items():
         rname, rdt, rshape = _MAIN_ROW[k]
@@ -1524,6 +2205,7 @@ def main(argv=None) -> int:
         kernels.append(dict(
             name=name, route=route, source=src, replaces=repl,
             launches=launches[k], launches_surface=stotal[k],
+            launches_factorize=ftotal[k],
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
@@ -1563,11 +2245,18 @@ def main(argv=None) -> int:
                            complex_plain_calls=cplain,
                            complex_launches_by_dtype=ctotal,
                            complex_timing=ctiming, complex_profile=cprof,
+                           factorize=freport, factorize_launches=flaunches,
+                           factorize_timing=ftiming,
+                           factorize_profile=fprof, k8=k8rows,
+                           k8_report=k8report,
+                           profile_windows=PROFILE_WINDOWS,
                            seconds=time.perf_counter() - t_start), f,
                       indent=1)
         with open(os.path.join(args.out, "nvcc_ptxas.txt"), "w") as f:
             f.write(kl.ptxas_log)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
+    # K8 is a torch route, not a hand-written kernel: its own line
+    print(json.dumps({"torch_routes": k8rows}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
-"""hifir_tpu_torch: the PyTorch/CUDA port of hifir_tpu's device half.
+"""hifir_tpu_torch: the PyTorch/CUDA port of hifir_tpu.
 
-Loads a multilevel HIF preconditioner saved by ``hifir_tpu``, packs it onto
-an NVIDIA GPU and applies it through hand-written CUDA kernels
+Factorizes a multilevel HIF preconditioner on the host
+(``HIF().factorize(A, Options(...))``, the numpy anchors; the dense tail's
+QRCP optionally on the GPU) or loads one saved by ``hifir_tpu``, packs it
+onto an NVIDIA GPU and applies it through hand-written CUDA kernels
 (``csrc/kernels.cu``): the M-solve and its adjoint, with a runtime rank and
 null-space filters, the products M x and M^H x, HIFIR refinement and the
 GMRES drivers, in float32, float64, complex64 and complex128.  Entry points
@@ -13,9 +15,10 @@ from . import device
 from .alg.prec import DevicePrec
 from .api import HIF, load_prec, prec_from_arrays
 from .nsp import NspFilter
+from .options import Options
 from .solvers.gmres import fgmres_hifir, gmres_hif, gmres_mrhs
 from .solvers.ir import ir_apply
 
 __all__ = ["device", "DevicePrec", "HIF", "load_prec", "prec_from_arrays",
-           "NspFilter", "ir_apply", "gmres_hif", "fgmres_hifir",
+           "NspFilter", "Options", "ir_apply", "gmres_hif", "fgmres_hifir",
            "gmres_mrhs"]

@@ -44,6 +44,7 @@ from ..nsp import NspFilter, nsp_filter
 from ..ops.spmv import SlicedELL, sliced_ell_from_csr, sliced_ell_sub_mrhs
 from ..ops.trsv import (build_trsv_block_dense, build_trsv_dense,
                         build_trsv_schedule, trsv_apply_mrhs)
+from ..small_scale.dense import solve_rank
 
 __all__ = ["DeviceLevel", "DenseTail", "TranLevel", "ProdLevel",
            "ProdTranLevel", "DevicePrec", "prec_solve_mrhs",
@@ -116,18 +117,16 @@ class ProdTranLevel:
 # ---------------------------------------------------------------------------
 # the dense tail
 
-def _tail_rank(tail: DenseTail, r: Optional[int]) -> int:
-    """The rank a solve keeps: ``r`` when it is > 0, else the pack's."""
-    return min(int(r), tail.Q.shape[0]) if r and r > 0 else tail.rank
-
-
 def tail_solve_mrhs(tail: Optional[DenseTail], Y: torch.Tensor,
                     trans: bool = False, r: Optional[int] = None
                     ) -> torch.Tensor:
     """Truncated-rank dense backsolve of Y (nm, nrhs), or its adjoint.
 
-    ``r > 0`` overrides the pack's rank (the port of ``tail_solve_rank``,
-    whose masks become slices); LUP ignores it, as the JAX package does."""
+    ``0 < r <= rank`` overrides the pack's rank; r <= 0, None and r above
+    the pack's rank keep the pack's (the host QRCP's and SYEIG's rule,
+    :func:`~hifir_tpu_torch.small_scale.dense.solve_rank`; the JAX device
+    tail keeps r columns there).  The masks of the JAX ``tail_solve_rank``
+    become slices.  LUP ignores r, as the JAX package does."""
     if tail is None:
         return Y
     solve = torch.linalg.solve_triangular
@@ -139,7 +138,7 @@ def tail_solve_mrhs(tail: Optional[DenseTail], Y: torch.Tensor,
         Z = solve(U.mH, Y, upper=False)
         Z = solve(L.mH, Z, upper=True, unitriangular=True)
         return Z[tail.jpvt_inv]
-    r = _tail_rank(tail, r)
+    r = solve_rank(r, tail.rank)
     if r == 0:
         return torch.zeros_like(Y)
     if tail.kind == "syeig":
@@ -346,6 +345,21 @@ def _host_dtype(precs) -> np.dtype:
     return np.result_type(*dts) if dts else np.dtype(np.float64)
 
 
+def _device_tail(dense: np.ndarray, dtype: torch.dtype, dev) -> DenseTail:
+    """The dense tail factorized again on ``dev`` in ``dtype`` by K8
+    (``qrcp_factor``), its rank at the default ``rrqr_cond`` (the JAX
+    package's ``from_host(tail_on_device=True)``).  A complex tail raises
+    TypeError (the sweep is real only)."""
+    from ..small_scale.qrcp_device import qrcp_factor
+
+    Q, R, piv, rank = qrcp_factor(torch.as_tensor(dense, dtype=dtype,
+                                                  device=dev))
+    inv = torch.empty_like(piv).scatter_(0, piv, torch.arange(
+        piv.numel(), device=dev))
+    return DenseTail(Q, R, piv, inv, torch.zeros(piv.numel(), dtype=dtype,
+                                                 device=dev), rank, "qrcp")
+
+
 def _dense_tail(last, dtype: torch.dtype, dev) -> Optional[DenseTail]:
     ds = last.dense_solver
     if ds is None:
@@ -400,7 +414,8 @@ class DevicePrec:
 
     @classmethod
     def from_host(cls, precs, dtype=None, chunk="auto", k_cap="auto",
-                  dense_inv="auto", device="cuda") -> "DevicePrec":
+                  dense_inv="auto", device="cuda",
+                  tail_on_device=False) -> "DevicePrec":
         """Pack host levels (:class:`~hifir_tpu_torch.alg.level.LevelPrec`).
 
         ``dtype=None`` keeps the host precision, complex128 included;
@@ -411,6 +426,10 @@ class DevicePrec:
         with m <= 8 * dense_inv through the blocked inverse, larger ones (and
         all of them with ``dense_inv=0``) through the level scan; "auto" is
         2048.  A level with m == 0 packs an empty schedule.
+        ``tail_on_device``: when the last level has a dense matrix, factorize
+        it again on ``device`` in the pack's dtype with K8 (QRCP, the rank at
+        the default ``rrqr_cond``) instead of packing the host's factors; a
+        complex tail raises TypeError.
         """
         dev = resolve_device(device)
         dense_inv = _dense_inv(dense_inv)
@@ -435,7 +454,12 @@ class DevicePrec:
             m=prec.m, n=prec.n, q=vec(prec.q, i64),
             p_inv=vec(prec.p_inv, i64), s=vec(prec.s),
             t_q=vec(prec.t[prec.q])) for prec in precs]
-        return cls(levels=levels, tail=_dense_tail(precs[-1], tdt, dev),
+        last = precs[-1]
+        if tail_on_device and last.dense_matrix is not None:
+            tail = _device_tail(last.dense_matrix, tdt, dev)
+        else:
+            tail = _dense_tail(last, tdt, dev)
+        return cls(levels=levels, tail=tail,
                    n=precs[0].n, dtype=tdt, device=dev, dense_inv=dense_inv,
                    chunk=chunk, k_cap=k_cap)
 

@@ -1,23 +1,27 @@
-"""Minimal host CSR container.
+"""Host CSR container.
 
-The port's own copy of the parts of ``hifir_tpu/ds/csr.py`` that packing and
-loading use: construction (``from_coo``), scipy round trips and the explicit
-transpose that the adjoint solves and products pack.
+The port's copy of the parts of ``hifir_tpu/ds/csr.py`` that loading,
+packing and the host factorize use: construction (``from_coo``,
+``csr_from_dense``), scipy round trips, validation, the explicit transpose
+(and its cached CSC view), row and column scalings, the leading block, the
+diagonal, the pattern-symmetry ratio and the product.  Only the numpy paths
+are copied: the port has no native host library yet.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["CSR"]
+__all__ = ["CSR", "csr_from_dense"]
 
 
 class CSR:
-    """Compressed sparse row matrix on host (numpy); indices sorted per row."""
+    """Compressed sparse row matrix on host (numpy); indices sorted and
+    unique per row."""
 
-    __slots__ = ("nrows", "ncols", "indptr", "indices", "data")
+    __slots__ = ("nrows", "ncols", "indptr", "indices", "data", "_csc")
 
     def __init__(self, nrows: int, ncols: int, indptr, indices, data):
         self.nrows = int(nrows)
@@ -25,7 +29,9 @@ class CSR:
         self.indptr = np.ascontiguousarray(indptr, dtype=np.int64)
         self.indices = np.ascontiguousarray(indices, dtype=np.int32)
         self.data = np.ascontiguousarray(data)
+        self._csc: Optional["CSR"] = None
 
+    # -- construction -------------------------------------------------------
     @classmethod
     def from_coo(cls, nrows, ncols, rows, cols, vals) -> "CSR":
         """Build from coordinate triplets; duplicates are summed."""
@@ -60,13 +66,7 @@ class CSR:
         return sp.csr_matrix((self.data, self.indices, self.indptr),
                              shape=(self.nrows, self.ncols))
 
-    def transpose(self) -> "CSR":
-        """Explicit transpose (a counting sort, scipy's CSR to CSC)."""
-        T = self.to_scipy().tocsc()
-        T.sort_indices()
-        return CSR(self.ncols, self.nrows, T.indptr.astype(np.int64),
-                   T.indices, T.data)
-
+    # -- basics -------------------------------------------------------------
     @property
     def nnz(self) -> int:
         return int(self.indptr[-1])
@@ -74,3 +74,123 @@ class CSR:
     @property
     def shape(self) -> Tuple[int, int]:
         return (self.nrows, self.ncols)
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    def row_nnz(self) -> np.ndarray:
+        return np.diff(self.indptr)
+
+    def astype(self, dtype) -> "CSR":
+        return CSR(self.nrows, self.ncols, self.indptr, self.indices,
+                   self.data.astype(dtype))
+
+    def check_validity(self) -> None:
+        """Structural validation (ref ``CompressedStorage.hpp:193``)."""
+        from ..utils.log import hif_error
+
+        if self.indptr.shape[0] != self.nrows + 1:
+            hif_error("indptr size %d != nrows+1 %d", self.indptr.shape[0],
+                      self.nrows + 1)
+        if self.indptr[0] != 0 or self.indptr[-1] != self.indices.shape[0]:
+            hif_error("corrupted indptr bounds")
+        if np.any(np.diff(self.indptr) < 0):
+            hif_error("negative row counts in indptr")
+        if self.indices.size:
+            if self.indices.min() < 0 or self.indices.max() >= self.ncols:
+                hif_error("column index out of bounds")
+            # adjacent pairs must strictly increase except across row
+            # boundaries
+            d = np.diff(self.indices.astype(np.int64))
+            boundary = np.zeros(max(self.indices.size - 1, 0), dtype=bool)
+            ends = self.indptr[1:-1]
+            ends = ends[(ends > 0) & (ends < self.indices.size)]
+            boundary[ends - 1] = True
+            if np.any((d <= 0) & ~boundary):
+                hif_error("row indices not sorted/unique")
+
+    def todense(self) -> np.ndarray:
+        out = np.zeros((self.nrows, self.ncols), dtype=self.data.dtype)
+        rows = np.repeat(np.arange(self.nrows), self.row_nnz())
+        out[rows, self.indices] = self.data
+        return out
+
+    # -- transpose / CSC view ----------------------------------------------
+    def transpose(self) -> "CSR":
+        """Explicit transpose (a counting sort, scipy's CSR to CSC)."""
+        T = self.to_scipy().tocsc()
+        T.sort_indices()
+        return CSR(self.ncols, self.nrows, T.indptr.astype(np.int64),
+                   T.indices, T.data)
+
+    def tocsc(self) -> "CSR":
+        """CSR holding the transpose; (indptr, indices) read as CSC of self.
+        Computed once and cached."""
+        if self._csc is None:
+            self._csc = self.transpose()
+        return self._csc
+
+    # -- products, scalings, blocks ----------------------------------------
+    def matvec(self, x: np.ndarray) -> np.ndarray:
+        """y = A x; ``x`` may be (ncols,) or an (ncols, k) block."""
+        x = np.asarray(x)
+        data = self.data if x.ndim == 1 else self.data[:, None]
+        prod = data * x[self.indices]
+        shape = (self.nrows,) if x.ndim == 1 else (self.nrows, x.shape[1])
+        y = np.zeros(shape, dtype=np.result_type(self.data, x))
+        if prod.size:
+            nz = np.flatnonzero(np.diff(self.indptr))
+            y[nz] = np.add.reduceat(prod, self.indptr[nz], axis=0)
+        return y
+
+    def scale_diag_left(self, s: np.ndarray) -> "CSR":
+        """Row scaling diag(s) @ A (ref ``scale_diag_left``, ``:1045``)."""
+        rows = np.repeat(np.arange(self.nrows), self.row_nnz())
+        return CSR(self.nrows, self.ncols, self.indptr, self.indices,
+                   self.data * s[rows])
+
+    def scale_diag_right(self, t: np.ndarray) -> "CSR":
+        return CSR(self.nrows, self.ncols, self.indptr, self.indices,
+                   self.data * t[self.indices])
+
+    def extract_leading(self, m: int) -> "CSR":
+        """Leading m-by-m block (ref ``extract_leading``, ``:1712``)."""
+        end = int(self.indptr[m])
+        rows = np.repeat(np.arange(m, dtype=np.int64), self.row_nnz()[:m])
+        keep = self.indices[:end] < m
+        indptr = np.zeros(m + 1, dtype=np.int64)
+        np.cumsum(np.bincount(rows[keep], minlength=m), out=indptr[1:])
+        return CSR(m, m, indptr, self.indices[:end][keep],
+                   self.data[:end][keep])
+
+    def diagonal(self) -> np.ndarray:
+        nd = min(self.nrows, self.ncols)
+        d = np.zeros(nd, dtype=self.data.dtype)
+        rows = np.repeat(np.arange(self.nrows, dtype=np.int64),
+                         self.row_nnz())
+        on_diag = rows == self.indices
+        if nd < self.nrows:
+            on_diag &= rows < nd
+        d[rows[on_diag]] = self.data[on_diag]
+        return d
+
+    def pattern_symm_ratio(self) -> float:
+        """Fraction of entries whose transpose position is also present
+        (ref ``compute_pattern_symm_ratio``, ``alg/factor.hpp:507``)."""
+        if self.nnz == 0:
+            return 1.0
+        # membership of transposed positions in the (globally sorted)
+        # row-major key sequence
+        rows = np.repeat(np.arange(self.nrows, dtype=np.int64),
+                         self.row_nnz())
+        keys = rows * np.int64(self.ncols) + self.indices.astype(np.int64)
+        tkeys = self.indices.astype(np.int64) * np.int64(self.ncols) + rows
+        pos = np.minimum(np.searchsorted(keys, tkeys), keys.size - 1)
+        return float((keys[pos] == tkeys).sum()) / float(self.nnz)
+
+
+def csr_from_dense(M: np.ndarray, tol: float = 0.0) -> CSR:
+    """The entries of a dense M with magnitude above ``tol``."""
+    rows, cols = np.nonzero(np.abs(M) > tol)
+    return CSR.from_coo(M.shape[0], M.shape[1], rows, cols, M[rows, cols])

@@ -1,9 +1,10 @@
-"""Host factorization of the dense last level: LUP, rank-revealing QRCP, SYEIG.
+"""Factorization of the dense last level: LUP, rank-revealing QRCP, SYEIG.
 
 The port's copy of the factorize half of ``hifir_tpu/small_scale/dense.py``
-(scipy LAPACK: ``getrf``/``geqp3``/``syev``).  The factors are plain arrays
-that :class:`hifir_tpu_torch.alg.prec.DenseTail` moves to the device; the
-solves run there.
+(scipy LAPACK: ``getrf``/``geqp3``/``syev``), and :class:`DeviceQRCP`, whose
+QRCP runs on the GPU (K8, :mod:`.qrcp_device`).  The factors are plain
+arrays that :class:`hifir_tpu_torch.alg.prec.DenseTail` moves to the device;
+the solves run there.
 """
 
 from __future__ import annotations
@@ -13,9 +14,17 @@ import warnings
 import numpy as np
 import scipy.linalg as sla
 
-__all__ = ["QRCP", "LUP", "SYEIG", "DENSE_SOLVERS"]
+__all__ = ["QRCP", "DeviceQRCP", "LUP", "SYEIG", "DENSE_SOLVERS",
+           "make_dense_solver", "solve_rank"]
 
 _EPS = float(np.finfo(np.float64).eps)
+
+
+def solve_rank(r, rank: int) -> int:
+    """The rank a truncated solve keeps: ``r`` when 0 < r <= ``rank``, else
+    ``rank`` (r <= 0, None and r above the factorization's rank all mean its
+    own rank: the host QRCP's and SYEIG's rule)."""
+    return int(r) if r is not None and 0 < r <= rank else int(rank)
 
 
 class LUP:
@@ -101,6 +110,47 @@ class SYEIG:
         self.w, self.V = w, V
         amax = np.abs(w).max() if w.size else 0.0
         self.rank = int((np.abs(w) > self.n * _EPS * amax).sum())
+
+
+class DeviceQRCP(QRCP):
+    """QRCP whose factorization runs on a GPU (K8, :func:`.qrcp_device`)
+    during ``HIF.factorize`` (``Options.device_tail=1``); Q, R and piv come
+    back to the host, so packing and solves are those of :class:`QRCP`.  A
+    complex M takes the host QRCP: the device sweep is real only.  The
+    rank uses ``opts.rrqr_cond``.  ``device`` defaults to "cuda"."""
+
+    def __init__(self, device="cuda"):
+        super().__init__()
+        self.device = device
+
+    def factorize(self, M: np.ndarray, opts=None) -> None:
+        self.n = M.shape[0]
+        if self.n == 0:
+            self.rank = 0
+            return
+        if np.iscomplexobj(M):
+            return QRCP.factorize(self, M, opts)
+        import torch
+
+        from ..device import resolve_device
+        from .qrcp_device import qrcp_factor
+
+        Q, R, piv, self.rank = qrcp_factor(
+            torch.as_tensor(M, device=resolve_device(self.device)),
+            getattr(opts, "rrqr_cond", 0.0) if opts is not None else 0.0)
+        self.Q = Q.cpu().numpy()
+        self.R = R.cpu().numpy()
+        self.jpvt = piv.cpu().numpy()
+
+
+def make_dense_solver(symm: bool, spd: int = 0, device: bool = False,
+                      torch_device="cuda"):
+    """Solver selection (ref ``small_scale/solver.hpp:42`` and
+    ``Prec.hpp:104-127``): QRCP by default, SYEIG for symmetric systems;
+    ``device`` runs the QRCP factorization on ``torch_device`` (K8)."""
+    if symm:
+        return SYEIG()
+    return DeviceQRCP(torch_device) if device else QRCP()
 
 
 DENSE_SOLVERS = {"qrcp": QRCP, "syeig": SYEIG, "lup": LUP}

@@ -215,6 +215,12 @@ def test_port_imports_no_jax():
         "x, flag, it = ht.gmres_hif(A, dp, np.ones(dp.n), restart=2,"
         " maxit=2)\n"
         "assert it == 2 and bool(x.isfinite().all())\n"
+        "from hifir_tpu_torch.models.problems import convdiff2d\n"
+        "H = ht.HIF().factorize(convdiff2d(16), ht.Options(verbose=0,"
+        " dense_thres=30, device_tail=1), device='cpu')\n"
+        "assert H.precs[-1].dense_solver.kind == 'qrcp'\n"
+        "dq = H.to_device(device='cpu', tail_on_device=True)\n"
+        "assert bool(dq.solve(np.ones(dq.n)).isfinite().all())\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m == 'hifir_tpu'"
         " or m.startswith('hifir_tpu.')]\n"
