@@ -8,7 +8,9 @@ Run from the root of a checkout, on a machine with a card and nvcc:
 Phases, in order; any failed gate raises and the script exits non-zero:
 
 1. Toolchain: torch, CUDA, nvcc, the card's name and power limit.
-2. Build the hand-written kernels (csrc/kernels.cu) with nvcc.
+2. Build the hand-written kernels (csrc/kernels.cu) with nvcc and, at the
+   same time, the native host library (native/src/*.cpp) with g++; the
+   seconds of each and the library's name.
 3. Kernel phases: each kernel (K7 BSR SpMV, K1 sliced-ELL SpMV with its
    fused C - A X epilogue, K2 triangular solve on a level schedule) against
    its plain PyTorch version on the card, at the main path's shapes, in f32
@@ -95,11 +97,13 @@ Phases, in order; any failed gate raises and the script exits non-zero:
    columns per pack and a torch.profiler breakdown of each.
 9. Factorize, drawing from its own generator (--seed + 3), each part with
    the launch counts set to 0 just before it and read just after: the
-   port's own factorize (host numpy anchors) of convdiff2d(128) with the
+   port's own factorize on its numpy anchors (native library switched off,
+   as the JAX package wrote the fixtures) of convdiff2d(128) with the
    fixture's options, gated equal to hifir_tpu_torch/data/
    convdiff2d_128_prec.npz (patterns exactly, values 1e-12), and of
    poisson2d(256) with bench.py's options (seconds with the host's CPU
-   model, levels, nnz(M), fill); its packs dense_inv "auto" in f32 and
+   model, levels, nnz(M), fill; its native factorize's seconds beside
+   them); the anchors' packs dense_inv "auto" in f32 and
    f64 and 0 in f32 with their bytes by operand; forward and adjoint
    M-solves of 128 seeded RHS against the port's plain f64 CPU solve
    (1e-4 / 1e-10) with K1 and K2 launches per solve from the packs' forms
@@ -117,21 +121,42 @@ Phases, in order; any failed gate raises and the script exits non-zero:
    the complex tail's host fallback; the rank rule on 40x40 rank-25 QRCP
    and SYEIG tails: r = rank + 1 equal to r = 0 (1e-12) and to the host's
    truncated solve (1e-10), both directions.
+12. 1M (BASELINE config 2), generator --seed + 4, each part counted: the
+   native factorize of poisson2d(1024) with bench.py's robust options
+   (seconds with the host CPU, levels, nnz(M), fill), packs "auto" in f32
+   and f64 (seconds, bytes by operand, each level's schedule counts), the
+   device M-solve at 64 and at 1 RHS against the host native f64 solve
+   (1e-4 / 1e-10 of max|X|; K1 and K2 launches from the packs' forms),
+   their CUDA-event times beside the host single-RHS solve (bench.py's
+   baseline), a torch.profiler breakdown of the 64-RHS f32 solve (K1/K2
+   launches in the trace gated equal to the counters), gmres_hif with a
+   sliced-ELL A and the device M against the host gmres_np with the host M
+   (restart 30, rtol 1e-6, one RHS: flag 0, true residual within 1.01
+   rtol, counts within one), and HIFIR nirs = 4 in f64 with A as sliced
+   ELL (the residual falls every step for every column).
+13. Saddle point (bench.py's correctness leg), generator --seed + 5: the
+   native factorize of saddle_point_stokes(64), packed in f32, 10
+   Richardson steps with the f64 residual on the host and the M-solve on
+   the card; the median contraction of the first 5 steps must be < 0.5.
 
 Every torch.profiler breakdown discards one profiled warm-up run, leaves
 PROFILE_PAD_S of idle host at each end of the window (the tracer drops
 device records whose clock-converted times fall outside it) and gates the
 K1, K2 and K7 launches in its trace equal to the launch counters over the
 same runs; a window that lost records is taken again, at most
-PROFILE_TAKES times in all.  The last lines are one JSON object with K8's rows
-("torch_routes"), the card's name and power limit, one JSON object with
-the kernels and, last, {"ok": true, "device": {...}}.  Without a card the
+PROFILE_TAKES times in all.  Lines with a time, a size or a share carry the
+card's name and power limit in brackets.  The last lines are one JSON
+object with K8's rows ("torch_routes"), the card's name and power limit,
+one JSON object with the kernels and, last, {"ok": true, "device":
+{...}}.  Without a card the
 script prints no result and exits with code 2.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import contextlib
 import json
 import os
 import statistics
@@ -1693,16 +1718,43 @@ def pack_bytes(torch, dp) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def anchors():
+    """The port's factorize on its numpy anchors (RCM, the numpy MC64, the
+    Crout anchors), its native host library switched off: how the JAX
+    package wrote the checked-in fixtures, without its library."""
+    from hifir_tpu_torch.pre import _native
+
+    load = _native._load
+    _native._load = lambda: None
+    try:
+        yield
+    finally:
+        _native._load = load
+
+
+def count_launches(torch, launches, what, fn):
+    """``fn()`` with the launch counts set to 0 just before it and read into
+    ``launches[what]`` just after."""
+    torch.cuda.synchronize()
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches[what] = read_counts()
+    return out
+
+
 def factorize_phase(torch, rng):
     """The port's own factorize, from a matrix A to the M-solve on the card
     with no file that the JAX package wrote: the convdiff2d(128) factorize
-    held equal to the checked-in fixture, then poisson2d(256) (bench.py's
-    options) factorized, packed ``auto`` f32 and f64 and ``dense_inv=0``
-    f32, solved forward and adjoint at 128 RHS against the port's plain f64
-    CPU solve, and refined by HIFIR with A = BSR(bs=128).  Each part runs
-    with the launch counts set to 0 just before it and read just after;
-    returns the report, the launches of each part with what each must be,
-    the packs and the right-hand sides."""
+    on the numpy anchors held equal to the checked-in fixture, then
+    poisson2d(256) (bench.py's options) factorized on the anchors (its
+    native factorize timed beside it), packed ``auto`` f32 and f64 and
+    ``dense_inv=0`` f32, solved forward and adjoint at 128 RHS against the
+    port's plain f64 CPU solve, and refined by HIFIR with A = BSR(bs=128).
+    Each part runs with the launch counts set to 0 just before it and read
+    just after; returns the report, the launches of each part with what
+    each must be, the packs and the right-hand sides."""
     import hifir_tpu_torch as ht
     from hifir_tpu_torch.models.problems import convdiff2d, poisson2d
     from hifir_tpu_torch.ops.bsr_spmv import bsr_from_csr
@@ -1712,17 +1764,10 @@ def factorize_phase(torch, rng):
     launches, want, report = {}, {}, {}
     cpu = cpu_model()
 
-    def counted(what, fn):
-        torch.cuda.synchronize()
-        reset_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        launches[what] = read_counts()
-        return out
-
     # 1. convdiff2d(128) with the fixture's options: the fixture itself
     t0 = time.perf_counter()
-    Pc = ht.HIF().factorize(convdiff2d(128), ht.Options(**FIXTURE_OPTS))
+    with anchors():
+        Pc = ht.HIF().factorize(convdiff2d(128), ht.Options(**FIXTURE_OPTS))
     secs = time.perf_counter() - t0
     worst = levels_equal(Pc, ht.load_prec(CONVDIFF))
     report["convdiff_factorize"] = dict(seconds=secs, cpu=cpu,
@@ -1731,21 +1776,30 @@ def factorize_phase(torch, rng):
         f"levels {[(p.m, p.n) for p in Pc.precs]}, equal to the fixture "
         f"(largest value difference {worst:.1e}, tol 1e-12)")
 
-    # 2. poisson2d(256) with bench.py's options
+    # 2. poisson2d(256) with bench.py's options, on the anchors (its rows
+    # stay comparable with the earlier runs'); its native factorize timed
     A = poisson2d(256)
     n = A.nrows
     t0 = time.perf_counter()
-    P = ht.HIF().factorize(A, ht.Options(**BENCH_OPTS))
+    with anchors():
+        P = ht.HIF().factorize(A, ht.Options(**BENCH_OPTS))
     secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Pn = ht.HIF().factorize(A, ht.Options(**BENCH_OPTS))
+    nsecs = time.perf_counter() - t0
     lv = [(p.m, p.n) for p in P.precs]
     tail = P.precs[-1].dense_matrix
     report["poisson256_factorize"] = dict(
         seconds=secs, cpu=cpu, levels=lv, nnz_M=P.nnz(), nnz_A=A.nnz,
         fill=P.nnz() / A.nnz,
-        tail=None if tail is None else tail.shape[0])
-    log(f"  factorize poisson2d(256): {secs:.2f} s on the host ({cpu}); "
-        f"levels {lv}, tail {None if tail is None else tail.shape}, "
-        f"nnz(M)={P.nnz()}, fill {P.nnz() / A.nnz:.4f}")
+        tail=None if tail is None else tail.shape[0],
+        native_seconds=nsecs, native_levels=[(p.m, p.n) for p in Pn.precs],
+        native_nnz_M=Pn.nnz())
+    log(f"  factorize poisson2d(256): {secs:.2f} s on the anchors, "
+        f"{nsecs:.2f} s native, on the host ({cpu}); anchors' levels {lv}, "
+        f"tail {None if tail is None else tail.shape}, nnz(M)={P.nnz()}, "
+        f"fill {P.nnz() / A.nnz:.4f}; native levels "
+        f"{[(p.m, p.n) for p in Pn.precs]}, fill {Pn.nnz() / A.nnz:.4f}")
     gate(P.precs[0].m > 8 * 2048, "poisson2d(256): level 0 is not above "
          "the blocked-inverse range, so K2 would not carry the auto solve")
 
@@ -1772,7 +1826,8 @@ def factorize_phase(torch, rng):
         for trans in (False, True):
             key = (f"poisson256 {'adjoint' if trans else 'forward'} "
                    f"dense_inv={di} {dt}")
-            X = counted(key, lambda: dp.solve_mrhs(Bd[dt], trans=trans))
+            X = count_launches(torch, launches, key,
+                               lambda: dp.solve_mrhs(Bd[dt], trans=trans))
             gate(bool(torch.isfinite(X).all()), f"{key}: non-finite")
             gate(tuple(X.shape) == (n, NRHS), f"{key}: shape")
             d = float(np.abs(X.double().cpu().numpy() - ref[trans]).max()
@@ -1798,8 +1853,9 @@ def factorize_phase(torch, rng):
     Ab = bsr_from_csr(A, bs=128, dtype=np.float64)
     Bt = Bd["float64"]
     Xs = [ht.ir_apply(Ab, dp, Bt, k) for k in range(1, 4)]
-    Xs.append(counted("poisson256 hifir nirs=4 float64",
-                      lambda: ht.ir_apply(Ab, dp, Bt, 4)))
+    Xs.append(count_launches(torch, launches,
+                             "poisson256 hifir nirs=4 float64",
+                             lambda: ht.ir_apply(Ab, dp, Bt, 4)))
     per = want_launches([(v.L, v.U, v.E, v.F) for v in dp.levels])
     want["poisson256 hifir nirs=4 float64"] = dict(
         K7=3, K1=4 * per["K1"], K2=4 * per["K2"])
@@ -2052,6 +2108,291 @@ def rank_rule_phase(torch, rng) -> dict:
     return out
 
 
+# BASELINE config 2: poisson2d(1024), n = 1,048,576, at BASELINE's batch
+MILLION_NX = 1024
+MILLION_NRHS = 64
+
+
+def schedule_counts(dp) -> list:
+    """Per level of a pack: each triangular factor's form and, for a level
+    schedule, its levels, slots (rows and partial sums), chunk, dependency
+    width K and stored entries (slots x K); the E and F entries."""
+    from hifir_tpu_torch.ops.trsv import TrsvBlockDense, TrsvSchedule
+
+    out = []
+    for lv in dp.levels:
+        row = dict(E_nnz=int(lv.E.nnz), F_nnz=int(lv.F.nnz))
+        for name, f in (("L", lv.L), ("U", lv.U)):
+            if isinstance(f, TrsvSchedule):
+                K = int(f.cols.shape[2])
+                row[name] = dict(form="schedule", n=f.n, levels=f.nlevels,
+                                 slots=f.nchunks * f.chunk, chunk=f.chunk,
+                                 K=K, entries=f.nchunks * f.chunk * K)
+            elif isinstance(f, TrsvBlockDense):
+                row[name] = dict(form="blocked_inverse", n=f.n,
+                                 blocks=len(f.invs), W=f.W)
+            else:
+                row[name] = dict(form="dense_inverse", n=f.n)
+        out.append(row)
+    return out
+
+
+def k2_breakdown(torch, dp, B, smi) -> list:
+    """K2 alone on each level schedule of pack ``dp`` (CUDA events, 5
+    back-to-back launches after a warm-up) at the block's width and at one
+    column: ms, µs a level step and ns a stored dependency."""
+    from hifir_tpu_torch.ops import trsv
+
+    out = []
+    for i, lv in enumerate(dp.levels):
+        for name, S in (("L", lv.L), ("U", lv.U)):
+            if not isinstance(S, trsv.TrsvSchedule) or not S.nchunks:
+                continue
+            K = int(S.cols.shape[2])
+            entries = S.nchunks * S.chunk * K
+            row = dict(level=i, factor=name, levels=S.nlevels,
+                       slots=S.nchunks * S.chunk, K=K, entries=entries)
+            for nrhs in (B.shape[1], 1):
+                Bs = B[:S.n, :nrhs].contiguous()
+                ms = timed(torch, lambda: trsv.trsv_apply_mrhs(S, Bs), 5)
+                row[f"ms_nrhs{nrhs}"] = ms
+                row[f"us_per_level_nrhs{nrhs}"] = ms * 1e3 / S.nlevels
+                row[f"ns_per_dep_nrhs{nrhs}"] = ms * 1e6 / entries
+            out.append(row)
+            log(f"  K2 alone, level {i} {name} ({S.nlevels} levels, "
+                f"{row['slots']} slots, K {K}): "
+                + ", ".join(f"{row[f'ms_nrhs{r}']:.4f} ms "
+                            f"({row[f'us_per_level_nrhs{r}']:.2f} us a "
+                            f"level, {row[f'ns_per_dep_nrhs{r}']:.3f} ns a "
+                            f"dependency) at {r} RHS"
+                            for r in (B.shape[1], 1)) + f" [{smi}]")
+    return out
+
+
+def million_phase(torch, rng, smi):
+    """BASELINE config 2 on the card, from the matrix: the port's native
+    factorize of poisson2d(1024) with bench.py's robust options
+    (``Options(verbose=0)``), packs ``auto`` in f32 and f64 with their
+    seconds, bytes and schedule counts, the device M-solve at 64 RHS and at
+    1 RHS against the host native f64 solve (1e-4 / 1e-10 of max|X|) with
+    K1 and K2 launches per solve from the packs' forms, their times beside
+    the host single-RHS solve (bench.py's baseline), a torch.profiler
+    breakdown of the 64-RHS f32 solve, gmres_hif with the device M against
+    the host gmres_np with the host M (flag 0, true residual within 1.01
+    rtol, counts within one), and HIFIR nirs = 4 in f64 with A as sliced
+    ELL (the residual falls every step for every column).  Returns the
+    report, the launches of each part and what each must be."""
+    import hifir_tpu_torch as ht
+    from hifir_tpu_torch.models.problems import poisson2d
+    from hifir_tpu_torch.ops.spmv import (sliced_ell_from_csr,
+                                          sliced_ell_sub_mrhs)
+    from hifir_tpu_torch.solvers.gmres_np import gmres_hif as host_gmres
+
+    launches, want, report = {}, {}, {}
+    cpu = cpu_model()
+    A = poisson2d(MILLION_NX)
+    n = A.nrows
+    t0 = time.perf_counter()
+    P = ht.HIF().factorize(A, ht.Options(verbose=0))
+    secs = time.perf_counter() - t0
+    lv = [(p.m, p.n) for p in P.precs]
+    tail = P.precs[-1].dense_matrix
+    report["factorize"] = dict(
+        seconds=secs, cpu=cpu, levels=lv, nnz_M=P.nnz(), nnz_A=A.nnz,
+        fill=P.nnz() / A.nnz, nnz_A_per_s=A.nnz / secs,
+        tail=None if tail is None else tail.shape[0])
+    log(f"  factorize poisson2d({MILLION_NX}) (native, Options(verbose=0)): "
+        f"{secs:.2f} s ({A.nnz / secs / 1e6:.3f} Mnnz(A)/s) on the host "
+        f"({cpu}); levels {lv}, tail {None if tail is None else tail.shape}, "
+        f"nnz(M)={P.nnz()}, fill {P.nnz() / A.nnz:.4f} [{smi}]")
+
+    # the host reference: single-RHS native solves of 8 columns spread
+    # over the block (the host's 64-column solve_mrhs takes ~50 s in
+    # numpy's 2-D products), each timed: bench.py's baseline
+    B = rng.standard_normal((n, MILLION_NRHS))
+    cols = np.linspace(0, MILLION_NRHS - 1, 8).astype(int)
+    ref, host = [], []
+    for c in cols:
+        t0 = time.perf_counter()
+        ref.append(P.solve(B[:, c]))
+        host.append(time.perf_counter() - t0)
+    ref = np.stack(ref, axis=1)
+    report["host_solve_ms"] = [t * 1e3 for t in host]
+    log(f"  host native f64 M-solve at 1 RHS (bench.py's baseline): "
+        f"{min(host) * 1e3:.2f} ms, min of {len(host)} "
+        f"({', '.join(f'{t * 1e3:.1f}' for t in host)}), on the host "
+        f"({cpu}) [{smi}]")
+
+    packs = {}
+    for npdt in (np.float32, np.float64):
+        dt = np.dtype(npdt).name
+        t0 = time.perf_counter()
+        packs[dt] = dp = P.to_device(dtype=npdt)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        nb = pack_bytes(torch, dp)["forward"]
+        report[f"pack {dt}"] = dict(seconds=secs, bytes=nb,
+                                    total_bytes=sum(nb.values()))
+        log(f"  pack dense_inv=auto {dt}: {secs:.2f} s (host); "
+            f"{sum(nb.values())} bytes on the card, by operand {nb} "
+            f"[{smi}]")
+    report["schedules"] = schedule_counts(packs["float32"])
+    for i, row in enumerate(report["schedules"]):
+        log(f"  level {i}: L {row['L']}, U {row['U']}, nnz(E) "
+            f"{row['E_nnz']}, nnz(F) {row['F_nnz']}")
+
+    Bd = {dt: torch.as_tensor(B, dtype=getattr(torch, dt), device="cuda")
+          for dt in packs}
+    bd = {dt: X[:, 0].contiguous() for dt, X in Bd.items()}
+    runs = {}
+    for dt, dp in packs.items():
+        runs[f"1M {dt} nrhs={MILLION_NRHS}"] = (
+            lambda dp=dp, dt=dt: dp.solve_mrhs(Bd[dt]), ref, cols)
+        runs[f"1M {dt} nrhs=1"] = (
+            lambda dp=dp, dt=dt: dp.solve(bd[dt]), ref[:, 0], None)
+    for key, (run, r, cs) in runs.items():
+        dp = packs[key.split()[1]]
+        X = count_launches(torch, launches, key, run)
+        gate(bool(torch.isfinite(X).all()), f"{key}: non-finite")
+        shape = (n,) if cs is None else (n, MILLION_NRHS)
+        gate(tuple(X.shape) == shape, f"{key}: shape {tuple(X.shape)}")
+        X = X if cs is None else X[:, torch.as_tensor(cs, device=X.device)]
+        d = float(np.abs(X.double().cpu().numpy() - r).max()
+                  / np.abs(r).max())
+        tol = 1e-4 if "float32" in key else 1e-10
+        want[key] = want_launches([(v.L, v.U, v.E, v.F) for v in dp.levels])
+        report[key] = dict(rel_diff=d, tol=tol)
+        log(f"  M-solve {key:22s}: rel diff vs host native f64 {d:.3e} "
+            f"({'column 0' if cs is None else f'columns {cs.tolist()}'}) "
+            f"(tol {tol:.0e}); launches {launches[key]}, by the pack's "
+            f"forms {want[key]}")
+        gate(d <= tol, f"{key}: {d:.3e} > {tol}")
+    for key, (run, _, _) in runs.items():
+        nrhs = int(key.rsplit("=", 1)[1])
+        ms = timed(torch, run, 5)
+        report[key].update(ms=ms, us_per_rhs=ms * 1e3 / nrhs)
+        log(f"  {key:22s}: {ms:.4f} ms, {ms * 1e3 / nrhs:.2f} us/RHS "
+            f"[{smi}]")
+    report["k2_schedules"] = k2_breakdown(torch, packs["float32"],
+                                          Bd["float32"], smi)
+    key = f"1M float32 nrhs={MILLION_NRHS}"
+    report["profile"] = device_profile(torch, runs[key][0], 3)
+    log_profile(key, report["profile"], report[key]["ms"])
+    log(f"  device busy share of the {key} solve: "
+        f"{report['profile']['busy_share']} [{smi}]")
+
+    # gmres_hif with the device M (f64) against the host gmres_np with the
+    # host M, on the same A and b
+    As = sliced_ell_from_csr(A, device="cuda")
+    b = B[:, 0]
+    t0 = time.perf_counter()
+    x, flag, it = count_launches(
+        torch, launches, "1M gmres_hif", lambda: ht.gmres_hif(
+            As, packs["float64"], b, restart=30, rtol=1e-6))
+    secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, flag_h, it_h = host_gmres(A, P, b, restart=30, rtol=1e-6)
+    secs_h = time.perf_counter() - t0
+    res = float(np.linalg.norm(b - A.matvec(x.cpu().numpy()))
+                / np.linalg.norm(b))
+    report["gmres"] = dict(flag=flag, iterations=it, seconds=secs,
+                           host_flag=flag_h, host_iterations=it_h,
+                           host_seconds=secs_h, true_rel_residual=res)
+    log(f"  gmres_hif (sliced-ELL A, device M f64, restart 30, rtol 1e-6): "
+        f"flag {flag}, {it} iterations, {secs:.2f} s, true relative "
+        f"residual {res:.3e}; host gmres_np with the host M: flag {flag_h}, "
+        f"{it_h} iterations, {secs_h:.2f} s; launches "
+        f"{launches['1M gmres_hif']} [{smi}]")
+    gate(flag == 0 and flag_h == 0, f"1M gmres: flags {flag} / {flag_h}")
+    gate(res <= 1.01e-6, f"1M gmres: true residual {res:.3e}")
+    gate(abs(it - it_h) <= 1, f"1M gmres: {it} iterations against the "
+         f"host's {it_h}")
+    gate(launches["1M gmres_hif"]["K1"] > 0
+         and launches["1M gmres_hif"]["K2"] > 0,
+         f"1M gmres: launches {launches['1M gmres_hif']}")
+    per = want_launches([(v.L, v.U, v.E, v.F) for v in
+                         packs["float64"].levels])
+
+    # HIFIR nirs = 4, f64, A = sliced ELL: K1 carries the residuals
+    dp, Bt = packs["float64"], Bd["float64"]
+    Xs = [ht.ir_apply(As, dp, Bt, k) for k in range(1, 4)]
+    Xs.append(count_launches(torch, launches, "1M hifir nirs=4 float64",
+                             lambda: ht.ir_apply(As, dp, Bt, 4)))
+    want["1M hifir nirs=4 float64"] = dict(K7=0, K1=4 * per["K1"] + 3,
+                                           K2=4 * per["K2"])
+    rn = np.array([torch.linalg.vector_norm(sliced_ell_sub_mrhs(As, Xk, Bt),
+                                            dim=0).cpu().numpy()
+                   for Xk in Xs])
+    rel = rn / np.linalg.norm(B, axis=0)
+    report["hifir rel residual"] = list(map(float, rel.max(axis=1)))
+    log(f"  HIFIR poisson2d({MILLION_NX}) (sliced-ELL A, f64, "
+        f"{MILLION_NRHS} RHS) max relative "
+        "residual per step: " + ", ".join(f"{v:.3e}" for v in
+                                          rel.max(axis=1))
+        + f"; launches {launches['1M hifir nirs=4 float64']}")
+    gate(bool(np.all(rn[1:] < rn[:-1])), "1M HIFIR residual did not fall "
+         "at every step for every column")
+    ms = timed(torch, lambda: ht.ir_apply(As, dp, Bt, 4), 2)
+    report["hifir_ms"] = ms
+    log(f"  HIFIR nirs=4 f64, {MILLION_NRHS} RHS: {ms:.4f} ms an apply "
+        f"[{smi}]")
+    for key, w in want.items():
+        for k, v in w.items():
+            gate(launches[key][k] == v, f"{key}: {launches[key][k]} {k} "
+                 f"launches, expected {v}")
+    return report, launches, want
+
+
+def saddle_phase(torch, rng, smi):
+    """bench.py's correctness leg on the card: the port's native factorize
+    of saddle_point_stokes(64) (n = 5120, robust options), packed in f32,
+    then 10 Richardson steps x += M^{-1}(b - A x) with the residual in f64
+    on the host and the M-solve on the card; the median contraction of the
+    first 5 steps must be below 0.5 (bench.py's threshold, a gate here).
+    Returns the report, the launches of the 10 steps and what they must
+    be."""
+    import hifir_tpu_torch as ht
+    from hifir_tpu_torch.models.problems import saddle_point_stokes
+
+    A = saddle_point_stokes(64)
+    n = A.nrows
+    t0 = time.perf_counter()
+    P = ht.HIF().factorize(A, ht.Options(verbose=0))
+    secs = time.perf_counter() - t0
+    dp = P.to_device(dtype=np.float32)
+    b = rng.standard_normal(n)
+    rn = [float(np.linalg.norm(b))]
+
+    def steps():
+        x = np.zeros(n)
+        for _ in range(10):
+            r = torch.as_tensor((b - A.matvec(x))[:, None],
+                                dtype=torch.float32, device="cuda")
+            x = x + dp.solve_mrhs(r)[:, 0].double().cpu().numpy()
+            rn.append(float(np.linalg.norm(b - A.matvec(x))))
+        return x
+
+    launches = {}
+    count_launches(torch, launches, "saddle IR", steps)
+    per = want_launches([(v.L, v.U, v.E, v.F) for v in dp.levels])
+    want = {"saddle IR": {k: 10 * v for k, v in per.items()}}
+    ratios = [rn[i + 1] / rn[i] for i in range(10) if rn[i] > 0]
+    contraction = float(np.median(ratios[:5]))
+    report = dict(seconds=secs, levels=[(p.m, p.n) for p in P.precs],
+                  nnz_M=P.nnz(), residuals=rn, contraction=contraction)
+    log(f"  saddle_point_stokes(64): factorize {secs:.2f} s (native), "
+        f"levels {report['levels']}; mixed f32-M / f64-residual IR: "
+        f"residual {rn[-1] / rn[0]:.3e} of |b| after 10 steps, median "
+        f"contraction of the first 5 {contraction:.4f} (gate < 0.5); "
+        f"launches {launches['saddle IR']}, by the pack's forms "
+        f"{want['saddle IR']}")
+    gate(contraction < 0.5, f"saddle-point IR contraction {contraction:.3f}")
+    for k, v in want["saddle IR"].items():
+        gate(launches["saddle IR"][k] == v, f"saddle IR: "
+             f"{launches['saddle IR'][k]} {k} launches, expected {v}")
+    return report, launches, want
+
+
 _SOURCES = {
     "K7": ("K7_bsr", "cuda", "hifir_tpu_torch/csrc/kernels.cu",
            "hifir_tpu/ops/pallas_spmv.py:133"),
@@ -2090,6 +2431,7 @@ def main(argv=None) -> int:
     import hifir_tpu_torch as ht
     from hifir_tpu_torch.kernels.build import (load_kernels, nvcc_path,
                                                nvcc_version)
+    from hifir_tpu_torch.native.build import load_native
     from hifir_tpu_torch.models.problems import (convdiff2d, poisson2d,
                                                  shift_diagonal)
 
@@ -2104,8 +2446,18 @@ def main(argv=None) -> int:
                     "nvidia_smi": smi}))
 
     log("== build")
-    kl = load_kernels()
+    # nvcc for the kernels and g++ for the native host library, together
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        fk, fn = ex.submit(load_kernels), ex.submit(load_native)
+        kl, nl = fk.result(), fn.result()
     log(f"  {kl.path.name}: nvcc {kl.build_seconds:.2f} s")
+    native_build = dict(name=nl.path.name, seconds=nl.build_seconds,
+                        nvcc_seconds=kl.build_seconds,
+                        both_seconds=time.perf_counter() - t0)
+    log(f"  native host library {nl.path.name}: g++ {nl.build_seconds:.2f} s "
+        f"({cpu_model()}); both built in {time.perf_counter() - t0:.2f} s "
+        f"[{smi}]")
     if args.profile_probe:
         log(f"== profiler probe, {args.profile_probe:.0f} s")
         print(json.dumps({"profile_probe": profile_probe(
@@ -2189,6 +2541,29 @@ def main(argv=None) -> int:
     log(f"  factorize, its timing and K8: "
         f"{freport['seconds_factorize_timing_k8']:.1f} s")
 
+    log(f"== 1M: poisson2d({MILLION_NX}) from the matrix, native factorize, "
+        f"M-solve at {MILLION_NRHS} and 1 RHS, GMRES and HIFIR on the card")
+    # its own generator, so that its inputs do not move with the rows above
+    t_phase = time.perf_counter()
+    mreport, mlaunches, mwant = million_phase(
+        torch, np.random.default_rng(args.seed + 4), smi)
+    mtotal = {k: sum(c[k] for c in mlaunches.values())
+              for k in ("K7", "K1", "K2")}
+    mreport["seconds"] = time.perf_counter() - t_phase
+    log(f"  launches on the 1M path: {mtotal}; phase "
+        f"{mreport['seconds']:.1f} s")
+    for k in ("K1", "K2"):
+        gate(mtotal[k] > 0, f"kernel {k} was not launched on the 1M path")
+
+    log("== saddle point: saddle_point_stokes(64), mixed-precision IR "
+        "(bench.py's correctness leg)")
+    sreport_ir, sir_launches, _ = saddle_phase(
+        torch, np.random.default_rng(args.seed + 5), smi)
+    sir_total = sir_launches["saddle IR"]
+    # its levels are all within the blocked-inverse range: no K2 there
+    gate(sir_total["K1"] > 0, "kernel K1 was not launched on the "
+         "saddle-point path")
+
     offs = [w["offset_ms"] for w in PROFILE_WINDOWS
             if w["offset_ms"] is not None]
     log(f"== profiler: {len(PROFILE_WINDOWS)} windows, "
@@ -2205,7 +2580,8 @@ def main(argv=None) -> int:
         kernels.append(dict(
             name=name, route=route, source=src, replaces=repl,
             launches=launches[k], launches_surface=stotal[k],
-            launches_factorize=ftotal[k],
+            launches_factorize=ftotal[k], launches_1m=mtotal[k],
+            launches_saddle=sir_total[k],
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
@@ -2229,7 +2605,8 @@ def main(argv=None) -> int:
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-            json.dump(dict(nvidia_smi=smi, kernel_rows=rows,
+            json.dump(dict(nvidia_smi=smi, native_build=native_build,
+                           kernel_rows=rows,
                            sweeps=sweeps,
                            ptxas=ptxas_report(kl.ptxas_log),
                            main_path_launches=launches,
@@ -2248,13 +2625,16 @@ def main(argv=None) -> int:
                            factorize=freport, factorize_launches=flaunches,
                            factorize_timing=ftiming,
                            factorize_profile=fprof, k8=k8rows,
-                           k8_report=k8report,
+                           k8_report=k8report, million=mreport,
+                           million_launches=mlaunches,
+                           million_want=mwant, saddle=sreport_ir,
+                           saddle_launches=sir_launches,
                            profile_windows=PROFILE_WINDOWS,
                            seconds=time.perf_counter() - t_start), f,
                       indent=1)
         with open(os.path.join(args.out, "nvcc_ptxas.txt"), "w") as f:
             f.write(kl.ptxas_log)
-    log(f"== done in {time.perf_counter() - t_start:.1f} s")
+    log(f"== done in {time.perf_counter() - t_start:.1f} s [{smi}]")
     # K8 is a torch route, not a hand-written kernel: its own line
     print(json.dumps({"torch_routes": k8rows}))
     print(smi)

@@ -14,9 +14,10 @@ ordering and never move; deferral only affects the final ordering, computed at
 the end.  Dual adjacency (``rows_of_L``/``cols_of_U``) provides the cross-major
 traversals that the reference gets from linked lists.
 
-The port's copy of ``hifir_tpu/alg/crout_np.py``, which is the JAX
-package's correctness anchor (its native C++ kernel mirrors it); the port
-has no native host library yet, so this anchor runs every level.
+The port's copy of ``hifir_tpu/alg/crout_np.py``, the correctness anchor:
+the native host library's C++ kernel (``native/src/crout.cpp``) mirrors it
+and runs instead whenever the library is loaded and ``Options.use_native``
+is set.
 """
 
 from __future__ import annotations

@@ -1,13 +1,13 @@
 """Per-level factorization driver.
 
 Behavioral port target: ``src/hif/alg/factor.hpp:561-1307``
-(``level_factorize``).  The port's copy of the anchor branch of
-``hifir_tpu/alg/factor.py``: preprocessing and the sequential Crout kernel
-run on the host in numpy (:mod:`.crout_np`, :mod:`.crout_pivot_np`), the
-Schur complement in scipy.  The JAX package's native C++ branches and its
-fused permute-and-scale are not ported (the port has no native host library
-yet), nor is its distributed Schur.  The per-level operands are later packed
-onto the GPU by :class:`~hifir_tpu_torch.alg.prec.DevicePrec`.
+(``level_factorize``).  The port's copy of ``hifir_tpu/alg/factor.py``:
+preprocessing and the sequential Crout kernel run on the host, in the
+native host library (``native/src``, through :mod:`..pre._native`) when it
+is loaded and in numpy otherwise (:mod:`.crout_np`,
+:mod:`.crout_pivot_np`).  The JAX package's distributed Schur is not
+ported.  The per-level operands are later packed onto the GPU by
+:class:`~hifir_tpu_torch.alg.prec.DevicePrec`.
 """
 
 from __future__ import annotations
@@ -18,10 +18,12 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..ds.csr import CSR
-from ..options import PIVOTING_AUTO, PIVOTING_ON, Options
+from ..options import (PIVOTING_AUTO, PIVOTING_ON, VERBOSE_FAC,
+                       Options, determine_fac_pars)
+from ..pre import _native
 from ..pre.driver import do_preprocessing
 from ..utils.log import hif_info
-from .crout_np import crout_level_np
+from .crout_np import CroutResult, crout_level_np
 from .crout_pivot_np import pivot_crout_level_np
 from .level import LevelPrec
 
@@ -32,7 +34,8 @@ MIN_LOCAL_SIZE_RATIO = 0.85
 
 
 def _symm_kernel_mode(opts: Options, Ahat: CSR, sym_block: bool) -> int:
-    """Crout kernel mode for this level: 0 general LDU; 1 LDL^T (real or complex-symmetric is_symm);
+    """Crout kernel mode for this level (shared by the native and anchor
+    branches): 0 general LDU; 1 LDL^T (real or complex-symmetric is_symm);
     3 Hermitian LDL^H (complex is_symm classified as A == A^H by
     ``api.factorize`` via ``opts.symm_kind == 2``); 2 declared symmetric
     leading block (m0 > 0, ref builder.hpp:534,546-567)."""
@@ -80,7 +83,7 @@ def _drop_offsets(M: CSR, ref_sizes: np.ndarray, alpha: float) -> CSR:
 
 def _compute_schur(C_tail, L_E: CSR, d: np.ndarray, U_F: CSR) -> CSR:
     """Schur complement S = C - L_E diag(d) U_F (ref ``alg/Schur.hpp:214``
-    compute_Schur_simple)."""
+    compute_Schur_simple; the native path accumulates in extended precision)."""
     import scipy.sparse as sp
 
     LD = L_E.to_scipy().copy()
@@ -152,41 +155,106 @@ def level_factorize(A: CSR, m0: int, N: int, level: int, opts: Options,
     m2 = m
 
     # --- permuted scaled level matrix in id space ---------------------------
-    Ahat_s = (sp.diags(s) @ A.to_scipy() @ sp.diags(t)
-              ).tocsr()[p, :][:, q].tocsr()
-    Ahat_s.sort_indices()
-    if Ahat_s.data.dtype != A.data.dtype:
-        # the f64 diag scalings upcast single-precision values; the
-        # level matrix keeps the working precision
-        Ahat_s.data = Ahat_s.data.astype(A.data.dtype)
-    Ahat = CSR(n, n, Ahat_s.indptr.astype(np.int64), Ahat_s.indices,
-               Ahat_s.data)
+    q_inv_ids = np.empty(n, dtype=np.int64)
+    q_inv_ids[q] = np.arange(n)
+    trip = (_native.permute_scale(A, s, t, p, q_inv_ids)
+            if A.data.dtype in (np.float64, np.float32) else None)
+    if trip is not None:
+        Ahat = CSR(n, n, *trip)
+        Ahat_s = None
+    else:
+        S_scipy = A.to_scipy()
+        Ahat_s = (sp.diags(s) @ S_scipy @ sp.diags(t)
+                  ).tocsr()[p, :][:, q].tocsr()
+        Ahat_s.sort_indices()
+        if Ahat_s.data.dtype != A.data.dtype:
+            # the f64 diag scalings upcast single-precision values; the
+            # level matrix keeps the working precision
+            Ahat_s.data = Ahat_s.data.astype(A.data.dtype)
+        Ahat = CSR(n, n, Ahat_s.indptr.astype(np.int64), Ahat_s.indices,
+                   Ahat_s.data)
     d0 = Ahat.diagonal()[:m2] if m2 else np.empty(0, dtype=A.dtype)
 
     row_ref = row_sizes[p]
     col_ref = col_sizes[q]
 
-    # --- Crout loop (numpy anchors) ------------------------------------------
+    # --- Crout loop (native C++ fast path, numpy anchor fallback) -----------
     a_L, a_U = opts.alpha_L, opts.alpha_U
     if level == 1 and opts.fat_schur_1st:
         a_L *= 2
         a_U *= 2
     use_pivot = force_pivot or opts.pivot == PIVOTING_ON
-    if use_pivot:
+    # VERBOSE_FAC (per-Crout-step streaming, ref builder.hpp:266-267) also
+    # runs the anchor, whose loop streams each step -- matching the
+    # reference, where the streamer costs the factorization its speed too
+    stream_fac = bool(opts.verbose & VERBOSE_FAC)
+    use_native = (not use_pivot and opts.use_native and not stream_fac
+                  and _native.has_crout_dtype(Ahat.data.dtype))
+    S_native = None
+    EF_native = None
+    native_pivot_ok = (opts.use_native
+                       and _native.has_pivot_dtype(Ahat.data.dtype))
+    if use_pivot and native_pivot_ok:
+        pars = determine_fac_pars(opts, level)
+        (m, Ltrip, Utrip, Strip, Etrip, Ftrip, dvec_n, ordf,
+         nstats, kmm) = _native.crout_pivot(Ahat, m2, pars, row_ref, col_ref,
+                                       a_L, a_U, opts.gamma)
+        res = CroutResult(
+            m=m, n=n,
+            L_B=CSR(m, m, *Ltrip), d=dvec_n, U_B=CSR(m, m, *Utrip),
+            L_E=None, U_F=None, ord_final=ordf,
+            defers=int(nstats[0]), diag_defers=int(nstats[1]),
+            cond_defers=int(nstats[2]), space_drops=int(nstats[3]),
+            total_drops=int(nstats[4]), kappa_u=None, kappa_l=None)
+        S_native = CSR(n - m, n - m, *Strip)
+        EF_native = (CSR(n - m, m, *Etrip), CSR(m, n - m, *Ftrip))
+    elif use_pivot:
         res = pivot_crout_level_np(Ahat, m2, level, opts, row_ref, col_ref)
+        kmm = None
+    elif use_native:
+        pars = determine_fac_pars(opts, level)
+        # kernel mode: 1 = LDL^T mirror (U = L^T), for real or
+        # complex-symmetric input under opts.is_symm; 3 = Hermitian LDL^H
+        # (U = conj(L)^T) when api.factorize classified the complex input as
+        # A == A^H (opts.symm_kind == 2) — a correctness improvement over
+        # the reference, whose own is_symm on complex input is broken
+        # (BASELINE.md round-5 measurement); 2 = symmetric leading-block
+        # mirror matching the reference's level_factorize<IsSymm=true>
+        # dispatch (builder.hpp:534,546-567, taken only when the user
+        # declares a symmetric leading block with m0 > 0 at level 1);
+        # 0 = general LDU
+        symm_kernel = _symm_kernel_mode(opts, Ahat, sym_block)
+        (m, Ltrip, Utrip, Strip, Etrip, Ftrip, dvec_n, ordf,
+         nstats, kmm) = _native.crout(Ahat, d0, m2, pars, row_ref, col_ref,
+                                 a_L, a_U, symmetric=symm_kernel)
+        res = CroutResult(
+            m=m, n=n,
+            L_B=CSR(m, m, *Ltrip), d=dvec_n, U_B=CSR(m, m, *Utrip),
+            L_E=None, U_F=None, ord_final=ordf,
+            defers=int(nstats[0]), diag_defers=int(nstats[1]),
+            cond_defers=int(nstats[2]), space_drops=int(nstats[3]),
+            total_drops=int(nstats[4]), kappa_u=None, kappa_l=None)
+        S_native = CSR(n - m, n - m, *Strip)
+        EF_native = (CSR(n - m, m, *Etrip), CSR(m, n - m, *Ftrip))
     else:
+        # same mode dispatch as the native branch above
+        anchor_mode = _symm_kernel_mode(opts, Ahat, sym_block)
         res = crout_level_np(Ahat, d0, m2, level, opts, row_ref, col_ref,
-                             symm_mode=_symm_kernel_mode(opts, Ahat,
-                                                         sym_block))
+                             symm_mode=anchor_mode)
+        kmm = None
     m = res.m
 
     # INFO2 per-level |kappa| dump (ref factor.hpp:1063-1110)
-    if len(res.kappa_u):
+    if kmm is None and getattr(res, "kappa_u", None) is not None \
+            and len(res.kappa_u):
         ku = np.abs(res.kappa_u)
-        kl = np.abs(res.kappa_l)
+        kl = np.abs(getattr(res, "kappa_l", res.kappa_u))
+        kmm = (ku.min(), ku.max(),
+               (kl.min() if len(kl) else 0.0),
+               (kl.max() if len(kl) else 0.0))
+    if kmm is not None:
         hif_info(opts, "  |kappa_u| in [%.4g, %.4g], |kappa_l| in "
-                       "[%.4g, %.4g]", ku.min(), ku.max(),
-                 kl.min() if len(kl) else 0.0, kl.max() if len(kl) else 0.0,
+                       "[%.4g, %.4g]", kmm[0], kmm[1], kmm[2], kmm[3],
                  tag="info2")
 
     # --- post-flag analysis (ref factor.hpp:1032-1050) ----------------------
@@ -221,19 +289,26 @@ def level_factorize(A: CSR, m0: int, N: int, level: int, opts: Options,
     q_out = q[ord_cols]
 
     if m and post_flag <= 0:
-        # permuted-by-final-order view of Ahat
-        Ah2 = Ahat_s[ord_rows, :][:, ord_cols].tocsr()
-        # L_E / U_F dropping (ref factor.hpp:1152-1181)
-        L_E = _drop_offsets(res.L_E, row_sizes[p_out[m:]], a_L)
-        U_F_t = _drop_offsets(res.U_F.transpose(), col_sizes[q_out[m:]],
-                              a_U)
-        U_F = U_F_t.transpose()
-        C_tail = Ah2[m:, :][:, m:].tocsr()
-        S = _compute_schur(C_tail, L_E, res.d, U_F)
-        E = Ah2[m:, :][:, :m].tocsr()
-        F = Ah2[:m, :][:, m:].tocsr()
-        E = CSR(n - m, m, E.indptr.astype(np.int64), E.indices, E.data)
-        F = CSR(m, n - m, F.indptr.astype(np.int64), F.indices, F.data)
+        if S_native is not None:
+            S = S_native
+            E, F = EF_native
+        else:
+            # permuted-by-final-order view of Ahat
+            if Ahat_s is None:
+                Ahat_s = Ahat.to_scipy()
+                Ahat_s.sort_indices()  # native permute_scale emits unsorted
+            Ah2 = Ahat_s[ord_rows, :][:, ord_cols].tocsr()
+            # L_E / U_F dropping (ref factor.hpp:1152-1181)
+            L_E = _drop_offsets(res.L_E, row_sizes[p_out[m:]], a_L)
+            U_F_t = _drop_offsets(res.U_F.transpose(), col_sizes[q_out[m:]],
+                                  a_U)
+            U_F = U_F_t.transpose()
+            C_tail = Ah2[m:, :][:, m:].tocsr()
+            S = _compute_schur(C_tail, L_E, res.d, U_F)
+            E = Ah2[m:, :][:, :m].tocsr()
+            F = Ah2[:m, :][:, m:].tocsr()
+            E = CSR(n - m, m, E.indptr.astype(np.int64), E.indices, E.data)
+            F = CSR(m, n - m, F.indptr.astype(np.int64), F.indices, F.data)
         L_B, dvec, U_B = res.L_B, res.d, res.U_B
     else:
         # too many deferrals: S = A, trivial level (ref factor.hpp:1200-1207)

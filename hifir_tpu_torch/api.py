@@ -1,26 +1,29 @@
 """User-facing preconditioner object of the port.
 
 The counterpart of ``hifir_tpu.api.HIF`` (ref ``src/hif/builder.hpp:109-601``):
-:meth:`HIF.factorize` builds the multilevel preconditioner on the host (the
-numpy anchors of :mod:`.alg.factor`: matching, RCM ordering, the Crout
-levels and the dense tail, whose QRCP runs on the GPU with
-``Options.device_tail=1``), or :func:`load_prec` reads one that
-``save_prec`` wrote; :meth:`HIF.to_device` packs it onto a device.  The
-pack's ``pack_transpose``, ``pack_prod`` and ``pack_prod_tran`` take
-``HIF.precs``.  The GMRES drivers and the null-space filter are exported
-here too.  The host solves of the JAX package are not ported: solves run on
-the pack.
+:meth:`HIF.factorize` builds the multilevel preconditioner on the host
+(:mod:`.alg.factor`: matching, ordering, the Crout levels in the native
+host library or the numpy anchors, and the dense tail, whose QRCP runs on
+the GPU with ``Options.device_tail=1``), or :func:`load_prec` reads one
+that ``save_prec`` wrote.  ``solve``/``solve_mrhs``/``hifir``/``mmultiply``
+apply it on the host, as the JAX package does; :meth:`HIF.to_device` packs
+it onto a device, whose ``pack_transpose``, ``pack_prod`` and
+``pack_prod_tran`` take ``HIF.precs``.  The device GMRES drivers and the
+null-space filter are exported here too; the host drivers are
+:mod:`.solvers.gmres_np`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from .alg.factor import level_factorize
+from .alg.iter_refine import iter_refine
 from .alg.level import LevelPrec
+from .alg.prec_solve_np import prec_prod_np, prec_prod_tran_np, prec_solve_np
 from .alg.prec import DevicePrec
 from .ds.csr import CSR
 from .nsp import NspFilter
@@ -28,20 +31,28 @@ from .options import Options, get_default_options
 from .small_scale.dense import make_dense_solver
 from .solvers.gmres import fgmres_hifir, gmres_hif, gmres_mrhs
 from .utils.log import hif_error, hif_info, hif_warning
-from .utils.serialize import load_prec, prec_from_arrays
+from .utils.serialize import load_prec, prec_from_arrays, save_prec
 from .utils.timer import Timer
 
-__all__ = ["HIF", "load_prec", "prec_from_arrays", "NspFilter", "gmres_hif",
-           "fgmres_hifir", "gmres_mrhs"]
+__all__ = ["HIF", "load_prec", "save_prec", "prec_from_arrays", "NspFilter",
+           "gmres_hif", "fgmres_hifir", "gmres_mrhs"]
 
 
 def _classify_symmetry(A: CSR) -> int:
     """0 = neither; 1 = exactly A == A^T (values); 2 = exactly A == A^H
-    (complex only), by comparing the sorted CSR of A with its transpose
-    (the scipy branch of the JAX package's test; real input is
-    fail-closed on structure)."""
+    (complex only).  Real input takes the native O(nnz) test
+    (``ht_value_symm``) when the library is loaded; otherwise, and for
+    complex input, the sorted CSR of A is compared with its transpose
+    (fail-closed on structure, like the native test)."""
     if A.data.dtype.kind not in "fc":
         return 0
+    if A.data.dtype in (np.float64, np.float32):
+        from .pre import _native
+
+        vs = _native.value_symm(A.nrows, A.indptr, A.indices,
+                                A.data.astype(np.float64, copy=False))
+        if vs is not None:
+            return int(vs)
     As = A.to_scipy().tocsr()
     As.sort_indices()
     AT = As.T.tocsr()
@@ -62,6 +73,8 @@ class HIF:
     def __init__(self, precs: List[LevelPrec] = ()):
         self.precs = list(precs)
         self.stats_ = np.zeros(6, dtype=np.int64)
+        self.nsp = None        # null-space filter (NspFilter) of solve
+        self.nsp_tran = None   # left null-space filter of solve(trans=True)
 
     # -- state accessors (ref builder.hpp:141-234) --------------------------
     def empty(self) -> bool:
@@ -209,6 +222,53 @@ class HIF:
             hif_error("only {0,1}-based compressed matrices are supported")
         return self.factorize(CSR(n, n, indptr, indices, np.asarray(vals)),
                               params, m0, device)
+
+    # -- host applications (ref builder.hpp:410-556) -------------------------
+    def solve(self, b: np.ndarray, trans: bool = False, r: int = 0
+              ) -> np.ndarray:
+        """x = M^{-1} b on the host (``trans``: M^{-H} b); ``r`` > 0
+        truncates the dense tail's rank.  ``nsp`` (``nsp_tran``) filters
+        the result (ref builder.hpp:410-424)."""
+        if self.empty():
+            hif_error("the preconditioner is empty")
+        x = prec_solve_np(self.precs, np.asarray(b), r, trans=trans)
+        nsp = self.nsp_tran if trans else self.nsp
+        return x if nsp is None else nsp.filter(x)
+
+    def solve_mrhs(self, B: np.ndarray, r: int = 0, trans: bool = False
+                   ) -> np.ndarray:
+        """X = M^{-1} B for an (n, k) block, all columns in one multilevel
+        sweep (ref ``prec_solve_mrhs``, prec_solve.hpp:428); no null-space
+        filter, as in the reference."""
+        if self.empty():
+            hif_error("the preconditioner is empty")
+        if self.nsp is not None:
+            hif_error("multiple RHS does not support null-space filters")
+        B = np.asarray(B)
+        if B.ndim != 2:
+            hif_error("solve_mrhs expects an (n, k) right-hand-side block")
+        return prec_solve_np(self.precs, B, r, trans=trans)
+
+    def hifir(self, A, b: np.ndarray, N: int,
+              betas: Optional[Tuple[float, float]] = None,
+              trans: bool = False, r: int = 0, boost: bool = False):
+        """M^{-1} with N steps of iterative refinement on the host (ref
+        builder.hpp:459-505).  With ``betas`` returns ``(x, iters, flag)``,
+        otherwise x; ``boost`` accumulates in long double (the reference's
+        HIF_HIGH_PRECISION_SOLVE)."""
+        x, iters, flag = iter_refine(self, A, b, N, betas, trans, r,
+                                     boost=boost)
+        return x if betas is None else (x, iters, flag)
+
+    def mmultiply(self, x: np.ndarray, trans: bool = False, r: int = 0
+                  ) -> np.ndarray:
+        """y = M x (``trans``: M^H x) on the host (ref builder.hpp:540-556,
+        ``prec_prod``)."""
+        if self.empty():
+            hif_error("the preconditioner is empty")
+        if trans:
+            return prec_prod_tran_np(self.precs, np.asarray(x), r)
+        return prec_prod_np(self.precs, np.asarray(x), r)
 
     # -- device export ------------------------------------------------------
     def to_device(self, dtype=None, device="cuda", dense_inv="auto",

@@ -1,11 +1,13 @@
 """Host CSR container.
 
 The port's copy of the parts of ``hifir_tpu/ds/csr.py`` that loading,
-packing and the host factorize use: construction (``from_coo``,
-``csr_from_dense``), scipy round trips, validation, the explicit transpose
-(and its cached CSC view), row and column scalings, the leading block, the
-diagonal, the pattern-symmetry ratio and the product.  Only the numpy paths
-are copied: the port has no native host library yet.
+packing, the host factorize and the host solves use: construction
+(``from_coo``, ``csr_from_dense``), scipy round trips, validation, the
+explicit transpose (and its cached CSC view), row and column scalings, the
+leading block, the diagonal, the pattern-symmetry ratio, the products
+``A x`` and ``A^T x`` / ``A^H x`` and the unit strict-triangular solves.
+The diagonal, the ratio and the solves run in the native host library
+(:mod:`..pre._native`) when it is loaded, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -144,6 +146,20 @@ class CSR:
             y[nz] = np.add.reduceat(prod, self.indptr[nz], axis=0)
         return y
 
+    def matvec_tran(self, x: np.ndarray, conj: bool = False) -> np.ndarray:
+        """y = A^T x (``conj``: A^H x); ``x`` may be (nrows,) or a block."""
+        x = np.asarray(x)
+        data = np.conj(self.data) if conj else self.data
+        if x.ndim == 2:
+            data = data[:, None]
+            y = np.zeros((self.ncols, x.shape[1]),
+                         dtype=np.result_type(self.data, x))
+        else:
+            y = np.zeros(self.ncols, dtype=np.result_type(self.data, x))
+        rows = np.repeat(np.arange(self.nrows), self.row_nnz())
+        np.add.at(y, self.indices, data * x[rows])
+        return y
+
     def scale_diag_left(self, s: np.ndarray) -> "CSR":
         """Row scaling diag(s) @ A (ref ``scale_diag_left``, ``:1045``)."""
         rows = np.repeat(np.arange(self.nrows), self.row_nnz())
@@ -166,6 +182,12 @@ class CSR:
 
     def diagonal(self) -> np.ndarray:
         nd = min(self.nrows, self.ncols)
+        if self.data.dtype == np.float64:
+            from ..pre import _native
+
+            out = _native.diagonal(self, nd)
+            if out is not None:
+                return out
         d = np.zeros(nd, dtype=self.data.dtype)
         rows = np.repeat(np.arange(self.nrows, dtype=np.int64),
                          self.row_nnz())
@@ -180,6 +202,12 @@ class CSR:
         (ref ``compute_pattern_symm_ratio``, ``alg/factor.hpp:507``)."""
         if self.nnz == 0:
             return 1.0
+        if self.nrows == self.ncols:
+            from ..pre import _native
+
+            r = _native.pattern_symm(self.nrows, self.indptr, self.indices)
+            if r is not None:
+                return r
         # membership of transposed positions in the (globally sorted)
         # row-major key sequence
         rows = np.repeat(np.arange(self.nrows, dtype=np.int64),
@@ -188,6 +216,36 @@ class CSR:
         tkeys = self.indices.astype(np.int64) * np.int64(self.ncols) + rows
         pos = np.minimum(np.searchsorted(keys, tkeys), keys.size - 1)
         return float((keys[pos] == tkeys).sum()) / float(self.nnz)
+
+    # -- unit strict-triangular solves (host) ------------------------------
+    def solve_as_strict_lower(self, b: np.ndarray) -> np.ndarray:
+        """x = (I + strict_lower(A))^{-1} b (ref ``solve_as_strict_lower``,
+        ``:1358``); ``b`` may be (n,) or an (n, k) block.  The native
+        kernel for real f32/f64, a row loop otherwise."""
+        return self._solve_strict(b, lower=True)
+
+    def solve_as_strict_upper(self, b: np.ndarray) -> np.ndarray:
+        """x = (I + strict_upper(A))^{-1} b (ref ``:1451``)."""
+        return self._solve_strict(b, lower=False)
+
+    def _solve_strict(self, b, lower: bool) -> np.ndarray:
+        from ..pre import _native
+
+        if (self.data.dtype in (np.float64, np.float32)
+                and not np.iscomplexobj(b)):
+            x = _native.trsv(self, np.asarray(b, dtype=self.data.dtype),
+                             lower)
+            if x is not None:
+                return x
+        x = np.array(b, copy=True)
+        rng = range(self.nrows) if lower else range(self.nrows - 1, -1, -1)
+        for i in rng:
+            s, e = self.indptr[i], self.indptr[i + 1]
+            cols = self.indices[s:e]
+            mask = cols < i if lower else cols > i
+            if mask.any():
+                x[i] -= self.data[s:e][mask] @ x[cols[mask]]
+        return x
 
 
 def csr_from_dense(M: np.ndarray, tol: float = 0.0) -> CSR:

@@ -1,4 +1,8 @@
-"""Model problem generators (the port's copy of ``hifir_tpu/models``)."""
+"""Model problem generators (the port's copy of ``hifir_tpu/models``):
+2-D/3-D Poisson, convection-diffusion (5/7-point FDM), a saddle-point
+Stokes-like system with a zero (2,2) block, which exercises the static
+deferral, random sparse and strict-triangular test matrices, and a complex
+diagonal shift."""
 
 from __future__ import annotations
 
@@ -6,7 +10,8 @@ import numpy as np
 
 from ..ds.csr import CSR
 
-__all__ = ["poisson2d", "convdiff2d", "shift_diagonal"]
+__all__ = ["poisson2d", "poisson3d", "convdiff2d", "saddle_point_stokes",
+           "random_sparse", "random_strict_triangular", "shift_diagonal"]
 
 
 def poisson2d(nx: int, ny: int | None = None, dtype=np.float64) -> CSR:
@@ -19,6 +24,30 @@ def poisson2d(nx: int, ny: int | None = None, dtype=np.float64) -> CSR:
     vals = [np.full(n, 4.0, dtype=dtype)]
     for r, c in ((idx[:, :-1].ravel(), idx[:, 1:].ravel()),
                  (idx[:-1, :].ravel(), idx[1:, :].ravel())):
+        for a, b in ((r, c), (c, r)):
+            rows.append(a)
+            cols.append(b)
+            vals.append(np.full(a.size, -1.0, dtype=dtype))
+    return CSR.from_coo(n, n, np.concatenate(rows), np.concatenate(cols),
+                        np.concatenate(vals))
+
+
+def poisson3d(nx: int, ny: int | None = None, nz: int | None = None,
+              dtype=np.float64) -> CSR:
+    """7-point 3-D Poisson (SPD, n = nx*ny*nz)."""
+    ny = ny or nx
+    nz = nz or nx
+    n = nx * ny * nz
+    idx = np.arange(n).reshape(nz, ny, nx)
+    rows = [np.arange(n)]
+    cols = [np.arange(n)]
+    vals = [np.full(n, 6.0, dtype=dtype)]
+    pairs = [
+        (idx[:, :, :-1].ravel(), idx[:, :, 1:].ravel()),
+        (idx[:, :-1, :].ravel(), idx[:, 1:, :].ravel()),
+        (idx[:-1, :, :].ravel(), idx[1:, :, :].ravel()),
+    ]
+    for r, c in pairs:
         for a, b in ((r, c), (c, r)):
             rows.append(a)
             cols.append(b)
@@ -55,6 +84,73 @@ def convdiff2d(nx: int, ny: int | None = None, wind=(10.0, 20.0),
         vals.append(np.full(r.size, v, dtype=dtype))
     return CSR.from_coo(n, n, np.concatenate(rows), np.concatenate(cols),
                         np.concatenate(vals))
+
+
+def saddle_point_stokes(nx: int, dtype=np.float64, seed: int = 0) -> CSR:
+    """Small saddle-point system [[A, B^T], [B, 0]] with Poisson A.
+
+    The zero (2,2) block produces structurally zero diagonals exercising the
+    static-deferral machinery (ref ``pre/matching_scaling.hpp:99-183``).
+    """
+    A = poisson2d(nx, dtype=dtype)
+    n = A.nrows
+    m = n // 4
+    rng = np.random.default_rng(seed)
+    # simple random sparse divergence-like operator B (m x n)
+    nnz_per_row = 3
+    rows = np.repeat(np.arange(m), nnz_per_row)
+    cols = rng.integers(0, n, size=m * nnz_per_row)
+    vals = rng.standard_normal(m * nnz_per_row).astype(dtype)
+    B = CSR.from_coo(m, n, rows, cols, vals)
+    import scipy.sparse as sp
+
+    S = sp.bmat([[A.to_scipy(), B.to_scipy().T], [B.to_scipy(), None]],
+                format="csr")
+    return CSR.from_scipy(S)
+
+
+def random_sparse(n: int, nnz_per_row: int = 8, diag: bool = True,
+                  dtype=np.float64, seed: int = 0, ncols: int | None = None) -> CSR:
+    """Random sparse test matrix (analog of ``tests/common.hpp:393``)."""
+    ncols = ncols or n
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, max(2, nnz_per_row + 1), size=n)
+    rows = np.repeat(np.arange(n), counts)
+    cols = rng.integers(0, ncols, size=counts.sum())
+    vals = rng.standard_normal(counts.sum()).astype(dtype)
+    if np.issubdtype(np.dtype(dtype), np.complexfloating):
+        vals = vals + 1j * rng.standard_normal(counts.sum())
+    A = CSR.from_coo(n, ncols, rows, cols, vals)
+    if diag and n == ncols:
+        # add a dominant-ish diagonal to keep factorization well-posed
+        D = CSR(n, n, np.arange(n + 1), np.arange(n, dtype=np.int32),
+                (nnz_per_row + rng.random(n)).astype(A.data.dtype))
+        A = CSR.from_scipy(A.to_scipy() + D.to_scipy())
+    return A
+
+
+def random_strict_triangular(n: int, lower: bool, nnz_per_row: int = 4,
+                             dtype=np.float64, seed: int = 0) -> CSR:
+    """Random strict triangular pattern (analog of ``tests/common.hpp:507``)."""
+    rng = np.random.default_rng(seed)
+    rows_l, cols_l, vals_l = [], [], []
+    for i in range(n):
+        lim = i if lower else n - i - 1
+        if lim <= 0:
+            continue
+        k = min(lim, rng.integers(0, nnz_per_row + 1))
+        if k == 0:
+            continue
+        base = rng.choice(lim, size=k, replace=False)
+        c = base if lower else i + 1 + base
+        rows_l.append(np.full(k, i))
+        cols_l.append(c)
+        vals_l.append(rng.standard_normal(k).astype(dtype))
+    if rows_l:
+        return CSR.from_coo(n, n, np.concatenate(rows_l),
+                            np.concatenate(cols_l), np.concatenate(vals_l))
+    return CSR(n, n, np.zeros(n + 1, dtype=np.int64),
+               np.empty(0, dtype=np.int32), np.empty(0, dtype=dtype))
 
 
 def shift_diagonal(A: CSR, shift: complex = -0.1 + 0.1j) -> CSR:

@@ -101,9 +101,7 @@ class Options:
 
     # --- extensions (not in the reference struct) ---------------------------
     dtype: str = "float64"    # factorization/solve precision
-    use_native: int = 1       # accepted and without effect: the port has no
-                              # native host library yet, so the numpy
-                              # anchors always run
+    use_native: int = 1       # use the native host library's Crout kernels
     dist_schur: int = 0       # distributed Schur complement; 1 raises
                               # NotImplementedError (distribution is not
                               # ported yet: ROADMAP.md, queue 1, item 4)

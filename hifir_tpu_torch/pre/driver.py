@@ -6,9 +6,9 @@ scaling, (2) scaling safeguard (beta), (3) static deferral of tiny/zero
 diagonals to the tail, (4) fill-reducing reordering (AMD/RCM) of the leading
 block, composed into the row/column permutations.
 
-The port's copy of the numpy branches of ``hifir_tpu/pre/driver.py``: the
-JAX package's native defer probe and fused leading-pattern ordering are not
-ported (the port has no native host library yet).
+The port's copy of ``hifir_tpu/pre/driver.py``: the defer probe and the
+fused leading-block pattern run in the native host library when it is
+loaded, the numpy paths otherwise.
 """
 
 from __future__ import annotations
@@ -56,21 +56,36 @@ def defer_tiny_diags(A: CSR, m0: int, p: np.ndarray, q: np.ndarray
     n = A.nrows
     if m0 == 0:
         return 0, p, q
-    absS = A.to_scipy().copy()
-    absS.data = np.abs(absS.data)
-    rowmax = np.asarray(absS.max(axis=1).todense()).ravel()
-    colmax = np.asarray(absS.max(axis=0).todense()).ravel()
-    rows = np.repeat(np.arange(n), np.diff(A.indptr))
-    # vectorized lookup of A[p_i, q_i]: CSR entries in row-major key order
-    # are globally sorted, so one searchsorted answers all m0 queries
-    keys = rows * np.int64(A.ncols) + A.indices.astype(np.int64)
-    queries = p[:m0] * np.int64(A.ncols) + q[:m0]
-    pos = np.searchsorted(keys, queries)
-    pos_c = np.minimum(pos, keys.size - 1)
-    hit = (keys.size > 0) & (keys[pos_c] == queries)
-    diag = np.where(hit, A.data[pos_c], 0.0)
-    mx = np.maximum(rowmax[p[:m0]], colmax[q[:m0]])
-    mx[mx == 0.0] = 1.0
+    from . import _native
+
+    # the probe consumes magnitudes only: non-f64 working precisions (native
+    # f32/c64 factorization, complex) convert |data| once per level (~ms)
+    # instead of falling into the scipy max(axis)/searchsorted path (seconds
+    # per level at 1M rows)
+    if A.data.dtype == np.float64:
+        probe = _native.defer_probe(A, m0, p, q)
+    else:
+        Aabs = CSR(A.nrows, A.ncols, A.indptr, A.indices,
+                   np.abs(A.data).astype(np.float64))
+        probe = _native.defer_probe(Aabs, m0, p, q)
+    if probe is not None:
+        diag, mx = probe
+    else:
+        absS = A.to_scipy().copy()
+        absS.data = np.abs(absS.data)
+        rowmax = np.asarray(absS.max(axis=1).todense()).ravel()
+        colmax = np.asarray(absS.max(axis=0).todense()).ravel()
+        rows = np.repeat(np.arange(n), np.diff(A.indptr))
+        # vectorized lookup of A[p_i, q_i]: CSR entries in row-major key order
+        # are globally sorted, so one searchsorted answers all m0 queries
+        keys = rows * np.int64(A.ncols) + A.indices.astype(np.int64)
+        queries = p[:m0] * np.int64(A.ncols) + q[:m0]
+        pos = np.searchsorted(keys, queries)
+        pos_c = np.minimum(pos, keys.size - 1)
+        hit = (keys.size > 0) & (keys[pos_c] == queries)
+        diag = np.where(hit, A.data[pos_c], 0.0)
+        mx = np.maximum(rowmax[p[:m0]], colmax[q[:m0]])
+        mx[mx == 0.0] = 1.0
     good = np.abs(diag) > mx * _EPS
     m = int(good.sum())
     order = np.concatenate([np.flatnonzero(good), np.flatnonzero(~good)])
@@ -122,12 +137,21 @@ def do_preprocessing(A: CSR, m0: int, level: int, opts: Options,
                        and level == 1 and m != m0))
         # leading-block pattern B_m = A[p_{1:m}, q_{1:m}] (ref
         # ``compute_leading_block``, pre/matching_scaling.hpp:199),
-        # symmetrized for the ordering graph
-        S = A.to_scipy()
-        Bm = S[p[:m], :][:, q[:m]].tocsr()
-        Bm.data = np.ones_like(Bm.data)
-        Bm_csr = CSR(m, m, Bm.indptr.astype(np.int64), Bm.indices, Bm.data)
-        P = run_rcm(Bm_csr) if use_rcm else run_amd(Bm_csr)
+        # symmetrized for the ordering graph; native fused path builds
+        # (B | B^T) in one O(nnz) pass
+        from . import _native
+
+        P = None
+        trip = _native.sym_leading_pattern(A, p, q, m)
+        if trip is not None:
+            P = _native.rcm(m, *trip) if use_rcm else _native.amd(m, *trip)
+        if P is None:
+            S = A.to_scipy()
+            Bm = S[p[:m], :][:, q[:m]].tocsr()
+            Bm.data = np.ones_like(Bm.data)
+            Bm_csr = CSR(m, m, Bm.indptr.astype(np.int64), Bm.indices,
+                         Bm.data)
+            P = run_rcm(Bm_csr) if use_rcm else run_amd(Bm_csr)
         p[:m] = p[:m][P]
         q[:m] = q[:m][P]
 

@@ -8,9 +8,9 @@ successive shortest augmenting paths (Dijkstra with dual potentials), whose
 dual variables yield row/column scalings making matched entries +-1 and all
 entries <= 1 in magnitude.
 
-The port's copy of the numpy anchor of ``hifir_tpu/pre/matching.py``.  The
-JAX package prefers its native C++ MC64 when that library is built; the port
-has no native host library yet, so this anchor always runs.
+The port's copy of ``hifir_tpu/pre/matching.py``.  This Python version is
+the correctness anchor; the native host library's C++ MC64, with the same
+semantics, runs whenever the library is loaded.
 """
 
 from __future__ import annotations
@@ -182,7 +182,12 @@ def do_matching(B: CSR, is_symm: bool, pre_scale: int = 0):
     else:
         B2, s, t = iterative_scale(B, is_symm=is_symm)
 
-    p, ms, mt, info = mc64_matching(B2)
+    from . import _native
+
+    if _native.available():
+        p, ms, mt, info = _native.mc64(B2)
+    else:
+        p, ms, mt, info = mc64_matching(B2)
     s = s * ms
     t = t * mt
     if is_symm:

@@ -1,12 +1,11 @@
 """Fill-reducing orderings (ref ``src/hif/pre/reordering.hpp``,
-``pre/amd.hpp``, ``pre/rcm.hpp``).
+``pre/amd.hpp``, ``pre/rcm.hpp``): the port's copy of
+``hifir_tpu/pre/ordering.py``.
 
-The port's copy of the numpy paths of ``hifir_tpu/pre/ordering.py``.  The
-JAX package runs AMD (approximate minimum degree) in its native C++ library
-and falls back to scipy's reverse Cuthill-McKee without it; the port has no
-native host library yet, so its ``run_amd`` is RCM until the native kernels
-are ported, exactly as the JAX package is without its library.  Input is the
-(sorted, symmetric-pattern) leading-block graph.
+AMD (approximate minimum degree, Amestoy-Davis-Duff) and RCM run in the
+native host library; without it (:func:`._native._load` gives ``None``)
+both are scipy's reverse Cuthill-McKee, as in the JAX package.  Input is
+the (sorted, symmetric-pattern) leading-block graph.
 """
 
 from __future__ import annotations
@@ -14,12 +13,15 @@ from __future__ import annotations
 import numpy as np
 
 from ..ds.csr import CSR
+from . import _native
 
 __all__ = ["run_amd", "run_rcm", "symmetrize_pattern"]
 
 
 def symmetrize_pattern(B: CSR) -> CSR:
     """Pattern of B + B^T with unit values (orderings need symmetric graphs)."""
+    import scipy.sparse as sp
+
     S = B.to_scipy()
     P = (S + S.T).tocsr()
     P.data = np.ones_like(P.data)
@@ -28,18 +30,24 @@ def symmetrize_pattern(B: CSR) -> CSR:
 
 
 def run_rcm(B: CSR) -> np.ndarray:
-    """Reverse Cuthill-McKee on the symmetrized pattern (scipy's
-    ``reverse_cuthill_mckee``)."""
+    """Reverse Cuthill-McKee on the symmetrized pattern
+    (ref ``pre/rcm.hpp`` George-Liu BFS with pseudo-peripheral root)."""
+    P = symmetrize_pattern(B)
+    perm = _native.rcm(P.nrows, P.indptr, P.indices)
+    if perm is not None:
+        return perm
     from scipy.sparse.csgraph import reverse_cuthill_mckee
 
-    P = symmetrize_pattern(B)
     return np.asarray(
         reverse_cuthill_mckee(P.to_scipy(), symmetric_mode=True),
         dtype=np.int64)
 
 
 def run_amd(B: CSR) -> np.ndarray:
-    """The ``REORDER_AMD`` ordering: reverse Cuthill-McKee until the native
-    AMD kernel is ported (the JAX package's fallback without its native
-    library)."""
+    """Approximate minimum degree ordering (ref ``pre/amd.hpp``: templated port
+    of AMD TOMS 837); RCM without the native library."""
+    P = symmetrize_pattern(B)
+    perm = _native.amd(P.nrows, P.indptr, P.indices)
+    if perm is not None:
+        return perm
     return run_rcm(B)

@@ -1,10 +1,11 @@
 """Factorization of the dense last level: LUP, rank-revealing QRCP, SYEIG.
 
-The port's copy of the factorize half of ``hifir_tpu/small_scale/dense.py``
-(scipy LAPACK: ``getrf``/``geqp3``/``syev``), and :class:`DeviceQRCP`, whose
-QRCP runs on the GPU (K8, :mod:`.qrcp_device`).  The factors are plain
-arrays that :class:`hifir_tpu_torch.alg.prec.DenseTail` moves to the device;
-the solves run there.
+The port's copy of ``hifir_tpu/small_scale/dense.py`` (scipy LAPACK:
+``getrf``/``geqp3``/``syev``), and :class:`DeviceQRCP`, whose QRCP runs on
+the GPU (K8, :mod:`.qrcp_device`).  The factors are plain arrays that
+:class:`hifir_tpu_torch.alg.prec.DenseTail` moves to the device for the
+device solve; ``solve`` and ``multiply`` are the host solve's
+(:mod:`hifir_tpu_torch.alg.prec_solve_np`).
 """
 
 from __future__ import annotations
@@ -45,6 +46,18 @@ class LUP:
         if self.n and (d.min() <= _EPS * max(d.max(), 1.0)):
             warnings.warn("dense LU appears singular; consider QRCP")
         self.rank = self.n
+
+    def solve(self, y: np.ndarray, rank: int = 0, trans: bool = False
+              ) -> np.ndarray:
+        return sla.lu_solve((self.lu, self.piv), y, trans=1 if trans else 0,
+                            check_finite=False)
+
+    def multiply(self, x: np.ndarray, trans: bool = False) -> np.ndarray:
+        L = np.tril(self.lu, -1) + np.eye(self.n, dtype=self.lu.dtype)
+        U = np.triu(self.lu)
+        P = np.eye(self.n)[self.piv_perm()]
+        M = P.T @ L @ U
+        return (M.conj().T if trans else M) @ x
 
     def piv_perm(self) -> np.ndarray:
         """LAPACK's sequential row swaps as one permutation."""
@@ -89,6 +102,33 @@ class QRCP:
         good = d > d[0] / rrqr_cond
         self.rank = int(np.flatnonzero(good)[-1] + 1) if good.any() else 0
 
+    def solve(self, y: np.ndarray, rank: int = 0, trans: bool = False
+              ) -> np.ndarray:
+        """x = (Q R P^T)^{-1} y truncated to rank ``solve_rank(rank)``
+        (``trans``: the adjoint); ``y`` may be (n,) or (n, k)."""
+        r = solve_rank(rank, self.rank)
+        shape = (self.n,) if y.ndim == 1 else (self.n, y.shape[1])
+        x = np.zeros(shape, dtype=np.result_type(self.Q, y))
+        if r == 0:
+            return x
+        if not trans:
+            w = self.Q[:, :r].conj().T @ y
+            z = sla.solve_triangular(self.R[:r, :r], w, check_finite=False)
+            x[self.jpvt[:r]] = z
+        else:
+            w = y[self.jpvt[:r]]
+            z = sla.solve_triangular(self.R[:r, :r], w, trans="C",
+                                     check_finite=False)
+            x = self.Q[:, :r] @ z
+        return x
+
+    def multiply(self, x: np.ndarray, trans: bool = False) -> np.ndarray:
+        if not trans:
+            return self.Q @ (self.R @ x[self.jpvt])
+        y = np.zeros_like(x)
+        y[self.jpvt] = self.R.conj().T @ (self.Q.conj().T @ x)
+        return y
+
 
 class SYEIG:
     """Symmetric eigen-decomposition with an ``n eps max|w|`` rank cut."""
@@ -110,6 +150,22 @@ class SYEIG:
         self.w, self.V = w, V
         amax = np.abs(w).max() if w.size else 0.0
         self.rank = int((np.abs(w) > self.n * _EPS * amax).sum())
+
+    def solve(self, y: np.ndarray, rank: int = 0, trans: bool = False
+              ) -> np.ndarray:
+        """The pseudo-inverse on the ``solve_rank(rank)`` eigenpairs of
+        largest magnitude (Hermitian: ``trans`` changes nothing)."""
+        r = solve_rank(rank, self.rank)
+        if r == 0:
+            return np.zeros_like(y)
+        order = np.argsort(-np.abs(self.w))[:r]
+        Vr = self.V[:, order]
+        wr = self.w[order] if y.ndim == 1 else self.w[order][:, None]
+        return Vr @ ((Vr.conj().T @ y) / wr)
+
+    def multiply(self, x: np.ndarray, trans: bool = False) -> np.ndarray:
+        w = self.w if x.ndim == 1 else self.w[:, None]
+        return self.V @ (w * (self.V.conj().T @ x))
 
 
 class DeviceQRCP(QRCP):

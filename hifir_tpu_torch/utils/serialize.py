@@ -1,6 +1,8 @@
-"""Load a multilevel preconditioner saved by ``hifir_tpu.utils.serialize``.
+"""Save and load a multilevel preconditioner as one ``.npz``.
 
-The key layout is the one ``save_prec`` writes: ``nlevels``; per level ``i``
+The port's copy of ``hifir_tpu/utils/serialize.py``: a file that either
+package's ``save_prec`` writes loads in the other.  The key layout:
+``nlevels``, ``stats``; per level ``i``
 ``l{i}_mn``, ``l{i}_{L_B,U_B,E,F}_{indptr,indices,data,shape}``,
 ``l{i}_{d,s,t,p,p_inv,q,q_inv}`` and, on the last level, ``l{i}_dense`` with
 ``l{i}_dense_kind``.  The dense tail is factorized again on load, as the
@@ -17,7 +19,7 @@ from ..alg.level import LevelPrec
 from ..ds.csr import CSR
 from ..small_scale.dense import DENSE_SOLVERS
 
-__all__ = ["prec_from_arrays", "load_prec"]
+__all__ = ["prec_from_arrays", "load_prec", "save_prec"]
 
 _MAT_FIELDS = ("L_B", "U_B", "E", "F")
 _VEC_FIELDS = ("d", "s", "t", "p", "p_inv", "q", "q_inv")
@@ -47,10 +49,34 @@ def prec_from_arrays(d: Mapping[str, np.ndarray]) -> List[LevelPrec]:
     return precs
 
 
+def save_prec(fname, M) -> None:
+    """Write the levels (and deferral counters) of a factorized
+    :class:`~hifir_tpu_torch.api.HIF` to ``fname`` (``.npz``)."""
+    payload = {"nlevels": np.int64(len(M.precs)), "stats": M.stats_}
+    for i, prec in enumerate(M.precs):
+        payload[f"l{i}_mn"] = np.array([prec.m, prec.n], dtype=np.int64)
+        for f in _MAT_FIELDS:
+            mat = getattr(prec, f)
+            payload[f"l{i}_{f}_indptr"] = mat.indptr
+            payload[f"l{i}_{f}_indices"] = mat.indices
+            payload[f"l{i}_{f}_data"] = mat.data
+            payload[f"l{i}_{f}_shape"] = np.array(mat.shape, dtype=np.int64)
+        for f in _VEC_FIELDS:
+            payload[f"l{i}_{f}"] = getattr(prec, f)
+        if prec.dense_matrix is not None:
+            payload[f"l{i}_dense"] = prec.dense_matrix
+            if prec.dense_solver is not None:
+                payload[f"l{i}_dense_kind"] = np.array(prec.dense_solver.kind)
+    np.savez_compressed(fname, **payload)
+
+
 def load_prec(path):
     """Read a ``.npz`` written by ``save_prec`` into a
     :class:`~hifir_tpu_torch.api.HIF`."""
     from ..api import HIF
 
     with np.load(path, allow_pickle=False) as z:
-        return HIF(prec_from_arrays(z))
+        M = HIF(prec_from_arrays(z))
+        if "stats" in z:
+            M.stats_ = z["stats"].copy()
+    return M

@@ -1,11 +1,12 @@
 """The port's own factorize against the JAX package's, level by level.
 
-Every JAX factorize here runs with the JAX package's native host library
-switched off (``hifir_tpu.pre._native._load`` returns None), so that both
-packages run the same numpy anchors: MC64 matching, RCM in place of AMD, the
-Crout anchors and scipy's Schur complement.  With the library built the
-JAX side would take AMD, the native MC64 and the C++ Crout, and the
-comparison would no longer be like for like.  Tolerances: permutations and
+Every factorize here runs with both packages' native host libraries
+switched off (``hifir_tpu.pre._native._load`` and
+``hifir_tpu_torch.pre._native._load`` return None), so that both run the
+same numpy anchors: MC64 matching, RCM in place of AMD, the Crout anchors
+and scipy's Schur complement, as the checked-in fixtures were written.
+With a library the package takes AMD, the native MC64 and the C++ Crout;
+``tests/test_torch_native.py`` holds the two libraries against each other.  Tolerances: permutations and
 sparsity patterns exactly, values (L_B, U_B, E, F, d, s, t, the dense Schur)
 within 1e-12 relative to their largest magnitude; f64 solves within 1e-10
 relative to max|X| (``tests/test_device.py``'s tolerance).
@@ -31,6 +32,7 @@ from hifir_tpu.options import PIVOTING_ON
 from hifir_tpu.options import Options as JOptions
 
 import hifir_tpu_torch as ht
+import hifir_tpu_torch.pre._native as tnative
 from hifir_tpu_torch import options as toptions
 
 from test_torch_prec import _port, _rel
@@ -56,9 +58,13 @@ def jax_factorize(A, opts: JOptions, m0: int = 0):
 
 
 def port_factorize(A, opts: JOptions, m0: int = 0, **kw):
-    """The port's factorize of the same operator with the same options."""
-    return ht.HIF().factorize(_port(A), ht.Options(**dataclasses.asdict(opts)),
-                              m0, **kw)
+    """The port's factorize of the same operator with the same options, on
+    its numpy anchors (native library switched off for the call)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tnative, "_load", lambda: None)
+        return ht.HIF().factorize(_port(A),
+                                  ht.Options(**dataclasses.asdict(opts)),
+                                  m0, **kw)
 
 
 def _shifted(A) -> JCSR:
@@ -169,12 +175,13 @@ def test_factorize_takes_the_ldlt_path_on_symmetric_input():
     assert P.precs[-1].dense_solver.kind == "syeig"
 
 
-def test_convdiff_fixture_reproduced():
+def test_convdiff_fixture_reproduced(monkeypatch):
     """The port's factorize of convdiff2d(128) with the fixture's options
     equals ``hifir_tpu_torch/data/convdiff2d_128_prec.npz``, which the JAX
-    package wrote."""
+    package wrote without its native library."""
     from hifir_tpu_torch.models.problems import convdiff2d as tconvdiff2d
 
+    monkeypatch.setattr(tnative, "_load", lambda: None)
     P = ht.HIF().factorize(tconvdiff2d(128), ht.Options(**FIXTURE_OPTS))
     assert [(p.m, p.n) for p in P.precs] == [(13883, 16384), (2298, 2501)]
     assert P.nnz() == 220815
@@ -240,7 +247,8 @@ def test_dist_schur_is_not_ported():
         port_factorize(convdiff2d(8), JOptions(verbose=0, dist_schur=1))
 
 
-def test_factorize_raw_and_clear():
+def test_factorize_raw_and_clear(monkeypatch):
+    monkeypatch.setattr(tnative, "_load", lambda: None)
     A = convdiff2d(10)
     jo = JOptions(**dict(OPTS, dense_thres=30))
     P = ht.HIF().factorize_raw(A.nrows, A.indptr + 1, A.indices + 1, A.data,
