@@ -849,7 +849,8 @@ def time_main_path(torch, packs, Bd, Ab, nnz):
 
 def _kernel_name(name: str) -> str:
     for k in ("bsr_mma_kernel", "bsr_stream_kernel", "sell_wide_kernel",
-              "sell_narrow_kernel", "trsv_solve_kernel"):
+              "sell_narrow_kernel", "trsv_solve_kernel", "chunk_fma_kernel",
+              "schur_partial_kernel"):
         if k in name:
             return k
     return name if len(name) <= 70 else name[:67] + "..."
@@ -874,7 +875,8 @@ _LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 # the kernel names the profiler reports, by kernel
 _KERNEL_OF = {"bsr_mma_kernel": "K7", "bsr_stream_kernel": "K7",
               "sell_wide_kernel": "K1", "sell_narrow_kernel": "K1",
-              "trsv_solve_kernel": "K2"}
+              "trsv_solve_kernel": "K2", "chunk_fma_kernel": "K10a",
+              "schur_partial_kernel": "K10b"}
 
 
 def profiled(torch, body, warm=None, start=None, pads=None):
@@ -919,23 +921,27 @@ def profiled(torch, body, warm=None, start=None, pads=None):
     return prof, min(lags) / 1e6 if lags else None
 
 
-def device_profile(torch, run, reps: int) -> dict:
+def device_profile(torch, run, reps: int, reset=None, read=None) -> dict:
     """torch.profiler over ``reps`` runs of ``run`` (:func:`profiled`):
     device time and operations per run, the host's synchronisations per
     run, and the eight largest device items by name.  The launches of K1,
     K2 and K7 that the trace holds are gated equal to their launch counters
     over the same runs, so that a trace that lost kernel records fails the
     run instead of under-reporting; a window that lost some is taken again
-    (``PROFILE_TAKES``), and every take is logged with its clock offset."""
+    (``PROFILE_TAKES``), and every take is logged with its clock offset.
+    ``reset``/``read`` replace the counters' reset and read (the
+    distribution phase's take K10a and K10b too)."""
     from torch.autograd import DeviceType
+
+    reset, read = reset or reset_counts, read or read_counts
 
     def body():
         for _ in range(reps):
             run()
 
     for take in range(1, PROFILE_TAKES + 1):
-        prof, offset = profiled(torch, body, warm=run, start=reset_counts)
-        counted = read_counts()
+        prof, offset = profiled(torch, body, warm=run, start=reset)
+        counted = read()
         events = prof.events()
         # the warm-up's closing synchronisation may fall inside the window:
         # count those after the window's first launch
@@ -2393,6 +2399,462 @@ def saddle_phase(torch, rng, smi):
     return report, launches, want
 
 
+# ---------------------------------------------------------------------------
+# distribution: eight ranks on one card
+
+DIST_NX = 512          # the JAX package's DistPrec scale leg
+DIST_CHUNK = 1024
+DIST_RANKS = 8
+RED_OPTS = dict(tau_L=1e-2, tau_U=1e-2, alpha_L=3, alpha_U=3, kappa=5,
+                kappa_d=5, verbose=0, dense_thres=50)
+
+
+def dist_counters():
+    from hifir_tpu_torch.ops import chunk
+    from hifir_tpu_torch.parallel import schur
+
+    return {"K10a": chunk.ChunkSweep, "K10b": schur.schur_partial_cuda}
+
+
+def dist_reset():
+    reset_counts()
+    for f in dist_counters().values():
+        f.launches = 0
+
+
+def dist_read():
+    out = read_counts()
+    out.update({k: f.launches for k, f in dist_counters().items()})
+    return out
+
+
+def dist_plain_calls() -> int:
+    from hifir_tpu_torch.ops import chunk
+    from hifir_tpu_torch.parallel import schur
+
+    return (plain_calls() + chunk.chunk_fma_plain.calls
+            + schur.schur_partial_plain.calls)
+
+
+def dist_count(torch, launches, what, fn):
+    """``fn()`` with every launch count (K10a and K10b too) and the plain
+    versions' calls set to 0 just before it and read just after; a plain
+    call on the card fails the run."""
+    from hifir_tpu_torch.ops import chunk, spmv, trsv
+    from hifir_tpu_torch.ops.bsr_spmv import bsr_matvec_mrhs_plain
+    from hifir_tpu_torch.parallel import schur
+
+    for f in (chunk.chunk_fma_plain, schur.schur_partial_plain,
+              spmv.sliced_ell_sub_mrhs_plain, trsv.trsv_apply_plain,
+              bsr_matvec_mrhs_plain):
+        f.calls = 0
+    torch.cuda.synchronize()
+    dist_reset()
+    out = fn()
+    torch.cuda.synchronize()
+    launches[what] = dist_read()
+    plain = dist_plain_calls()
+    gate(plain == 0, f"{what}: {plain} plain-version calls on the card")
+    return out
+
+
+def dist_solve_factors(dp) -> dict:
+    """What carries each factor of a DistPrec and the chunks of one solve
+    (each factor runs twice, down and up)."""
+    from hifir_tpu_torch.parallel.trsv_halo import HaloOp
+
+    kinds = [type(op).__name__ for lv in dp.levels
+             for op in (lv.L_op, lv.U_op) if op.nchunks]
+    return dict(halo_factors=kinds.count(HaloOp.__name__),
+                ag_factors=kinds.count("AGTrsvOp"),
+                chunks_per_solve=2 * sum(op.nchunks for lv in dp.levels
+                                         for op in (lv.L_op, lv.U_op)),
+                xin_levels=sum(lv.xin is not None for lv in dp.levels))
+
+
+def k10a_row(torch, book, rng, dp):
+    """K10a at the main path's shape: the chunk of the first level's L
+    operator with the most dependency entries, on every rank at once,
+    against the plain version, with torch.sparse.mm of the chunk's rows
+    (rank-offset columns over the ranks' stacked buffers) as the library
+    call computing the same contributions."""
+    import scipy.sparse as sp
+
+    from hifir_tpu_torch.ops import chunk
+    from hifir_tpu_torch.parallel.trsv_halo import HaloOp
+
+    op = dp.levels[0].L_op
+    dt = dp.dtype
+    dname = str(dt).removeprefix("torch.")
+    es = torch.empty((), dtype=dt).element_size()
+    if isinstance(op, HaloOp):
+        nnzs = [int((v[0] != 0).sum()) for v in op.gvals]
+        c = int(np.argmax(nnzs))
+        cols, vals = op.gcols[c][0], op.gvals[c][0]
+        L, out_off, out_step = op.buf_len, c * op.Cloc, 0
+        form = "halo"
+    else:
+        nnzs = [int((op.vals[0][c] != 0).sum()) for c in range(op.nchunks)]
+        c = int(np.argmax(nnzs))
+        cols, vals = op.cols[0][c], op.vals[0][c]
+        Cloc = op.chunk // dp.mesh.D
+        L, out_off, out_step = op.nslots + 1, c * op.chunk, Cloc
+        form = "all_gather"
+    R, cloc, K = cols.shape
+    x0 = randn_on(torch, rng, (R, L), dt)
+    x0[:, -1] = 0
+    xk, xp = x0.clone(), x0.clone()
+    chunk.ChunkSweep(xk)(cols, vals, out_off, out_step)
+    chunk.chunk_fma_plain(xp, cols, vals, out_off, out_step)
+    pos = (out_off + out_step * torch.arange(R, device=x0.device)[:, None]
+           + torch.arange(cloc, device=x0.device))
+    Y, Yp = xk.gather(1, pos), xp.gather(1, pos)
+    # the library call: the contributions as one CSR product
+    cc, vv = cols.cpu().numpy(), vals.cpu().numpy()
+    live = vv != 0
+    r, j, _ = np.nonzero(live)
+    A = sp.csr_matrix((vv[live], (r * cloc + j, r * L + cc[live])),
+                      shape=(R * cloc, R * L))
+    Acsr = csr_tensor(torch, A, dt, x0.device)
+    contrib = x0.gather(1, pos) - Y
+    nnz = int(live.sum())
+    xw = x0.clone()
+    sweep = chunk.ChunkSweep(xw)
+    ms = book.T.ms(lambda: sweep(cols, vals, out_off, out_step))
+    plain_ms = book.T.ms(lambda: chunk.chunk_fma_plain(
+        xw, cols, vals, out_off, out_step))
+    lib = book.library(
+        f"K10a {dname} {form} chunk torch.sparse.mm",
+        lambda: torch.sparse.mm(Acsr, x0.reshape(-1, 1)).view(R, cloc),
+        contrib, 1e-12 if dt == torch.float64 else 1e-5)
+    # each entry's index and value once, each x entry it reads once, and
+    # the chunk's slots read and written
+    uniq = len({(a, b) for a, b in zip(r.tolist(), cc[live].tolist())})
+    nbytes = nnz * (4 + es) + uniq * es + 2 * R * cloc * es
+    book.record("K10a_chunk", dname,
+                f"ranks={R} cloc={cloc} K={K} nnz={nnz} slots={L} "
+                f"form={form} level=0 L chunk={c}", Y, Yp, ms, plain_ms, lib,
+                nbytes, 2.0 * nnz, 1e-12 if dt == torch.float64 else 1e-5,
+                simt_peak(dt))
+
+
+def k10b_row(torch, book, rec, mesh, dt):
+    """K10b at the largest level's ring-step shape of the dist_schur
+    factorize (``rec``: that level's C, L_E, d, U_F), every rank at once,
+    in ``dt``, against the plain version; no single PyTorch call computes
+    it."""
+    from hifir_tpu_torch.parallel import schur
+
+    C, L_E, d, U_F = rec
+    D = mesh.D
+    nm, m = L_E.nrows, L_E.ncols
+    nmp = -(-nm // D) * D
+    nb = cb = nmp // D
+    le_i, le_v, KL = schur._ell_pack(L_E, nmp, sentinel=m)
+    uf_i, uf_v, KU = schur._panelize_uf(U_F, D, cb)
+    d_ext = np.concatenate([np.asarray(d), [0.0]])
+    t = lambda a, v=None: torch.as_tensor(  # noqa: E731
+        np.ascontiguousarray(a), dtype=v, device="cuda")
+    args = (t(le_i.reshape(D, nb, KL)), t(le_v.reshape(D, nb, KL), dt),
+            t(np.broadcast_to(d_ext, (D, m + 1)), dt), t(uf_i), t(uf_v, dt))
+    kc, kv = schur.schur_partial(*args, cb)
+    pc, pv = schur.schur_partial_plain(*args, cb)
+    torch.cuda.synchronize()
+    gate(torch.equal(kc, pc), "K10b: the kernel's columns and masks differ "
+         "from the plain version's")
+    W = KL * KU
+    es = torch.empty((), dtype=dt).element_size()
+    # what this step's data needs: each live L_E entry (index and value),
+    # each U_F row (KU slots) and d entry that a live entry references, once
+    # a rank, and the W outputs a row written; a product and a sum for each
+    # live candidate, a product for each l * d
+    li = le_i.reshape(D, nb * KL)
+    rk, slot = np.nonzero(li != m)
+    used = np.unique(rk.astype(np.int64) * (m + 1) + li[rk, slot])
+    n_cand = int((uf_i[rk, li[rk, slot]] != cb).sum())
+    nbytes = (rk.size * (4 + es) + used.size * (es + KU * (4 + es))
+              + D * nb * W * (4 + es))
+    flops = rk.size + 2 * n_cand
+    book.record("K10b_schur", str(dt).removeprefix("torch."),
+                f"ranks={D} nb={nb} KL={KL} KU={KU} W={W} m={m} "
+                f"nm={nm} cb={cb} live_le={rk.size} uf_rows={used.size} "
+                f"candidates={n_cand}", kv, pv,
+                book.T.ms(lambda: schur.schur_partial(*args, cb)),
+                book.T.ms(lambda: schur.schur_partial_plain(*args, cb)),
+                (None, "no single PyTorch call computes it"), nbytes, flops,
+                1e-12 if dt == torch.float64 else 1e-5, simt_peak(dt))
+
+
+def randn_on(torch, rng, shape, dt):
+    return torch.as_tensor(rng.standard_normal(shape), dtype=dt,
+                           device="cuda")
+
+
+def dist_phase(torch, T, rng, smi):
+    """Distribution (``hifir_tpu_torch/parallel``) on eight ranks of one
+    card, each part counted: DistPrec at the JAX package's scale leg, the
+    halo and exchange paths at full depth, the sharded IR step, the ring
+    Schur and dist_schur=1, and PartitionedHIF with a DistPrec a part.
+    Returns the report, the launches of each part and the kernel rows."""
+    import hifir_tpu_torch as ht
+    from hifir_tpu_torch.models.problems import convdiff2d, poisson2d
+    from hifir_tpu_torch.ops.spmv import (sliced_ell_from_csr,
+                                          sliced_ell_sub_mrhs)
+    from hifir_tpu_torch.parallel import (DistPrec, PartitionedHIF,
+                                          build_halo_spmv, halo_spmv,
+                                          make_mesh, make_sharded_ir_step,
+                                          shard_ell_rows, sharded_spmv)
+    from hifir_tpu_torch.parallel import schur as pschur
+
+    dev = "cuda"
+    launches, report = {}, {}
+    book = Rows(T)
+    mesh = make_mesh(DIST_RANKS, device=dev)
+    log(f"  mesh: {mesh.shape} on {dev} ({len(mesh.groups())} group) "
+        f"[{smi}]")
+
+    # 1. DistPrec at the scale leg: poisson2d(512), robust options
+    t_part = time.perf_counter()
+    A = poisson2d(DIST_NX)
+    n = A.nrows
+    t0 = time.perf_counter()
+    P = ht.HIF().factorize(A, ht.Options(verbose=0), device=dev)
+    fsecs = time.perf_counter() - t0
+    lv = [(p.m, p.n) for p in P.precs]
+    b = rng.standard_normal(n)
+    xh = P.solve(b)
+    xmax = np.abs(xh).max()
+    single = P.to_device(dtype=np.float64, device=dev)
+    xs = single.solve(b).cpu().numpy()
+    rep = dict(n=n, levels=lv, factorize_seconds=fsecs, nnz_M=P.nnz())
+    dps = {}
+    for npdt, tol in ((np.float64, 1e-12), (np.float32, 1e-4)):
+        name = np.dtype(npdt).name
+        t0 = time.perf_counter()
+        dp = dps[name] = DistPrec.from_host(
+            mesh, P, dtype=npdt, chunk=DIST_CHUNK, max_halo_chunks=128)
+        build = time.perf_counter() - t0
+        shape = dist_solve_factors(dp)
+        x = dist_count(torch, launches, f"distprec {name} solve",
+                       lambda: dp.solve(b)).double().cpu().numpy()
+        per = launches[f"distprec {name} solve"]
+        err_h = float(np.abs(x - xh).max() / xmax)
+        err_s = float(np.abs(x - xs).max() / xmax)
+        gate(err_h <= tol, f"DistPrec {name} vs host solve {err_h:.3e}")
+        gate(err_s <= tol, f"DistPrec {name} vs DevicePrec solve "
+             f"{err_s:.3e}")
+        gate(per["K10a"] == shape["chunks_per_solve"],
+             f"DistPrec {name}: {per['K10a']} K10a launches, "
+             f"{shape['chunks_per_solve']} chunks")
+        gate(per["K1"] > 0, "DistPrec: no K1 launch")
+        ms = timed(torch, lambda: dp.solve(b), 3)
+        prof = None
+        if name == "float64":
+            prof = device_profile(torch, lambda: dp.solve(b), 1,
+                                  reset=dist_reset, read=dist_read)
+            log_profile(f"DistPrec {name} solve", prof, ms)
+        rep[name] = dict(build_seconds=build, **shape,
+                         comm_elems=dp.comm_elems,
+                         allgather_elems=dp.allgather_elems,
+                         n_halo=dp.n_halo,
+                         bytes_per_rank=dp.nbytes_per_rank(),
+                         err_vs_host=err_h, err_vs_deviceprec=err_s,
+                         solve_ms=ms, launches_per_solve=per, profile=prof)
+        log(f"  DistPrec poisson2d({DIST_NX}) {name}: levels {lv}; build "
+            f"{build:.2f} s (host); halo factors {shape['halo_factors']}, "
+            f"all_gather factors {shape['ag_factors']}, exchange-linked "
+            f"levels {shape['xin_levels']}; {shape['chunks_per_solve']} "
+            f"chunks/solve; comm_elems {dp.comm_elems} vs allgather_elems "
+            f"{dp.allgather_elems}; bytes/rank {dp.nbytes_per_rank()}; "
+            f"rel err vs host {err_h:.3e}, vs DevicePrec {err_s:.3e} "
+            f"(tol {tol:.0e}); solve {ms} ms (CUDA events); launches/solve "
+            f"{per} [{smi}]")
+    report["distprec"] = rep
+
+    report["distprec"]["seconds"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # 2. the halo and exchange paths at full depth: poisson2d(64) with the
+    # JAX distribution tests' options, chunk=64
+    A64 = poisson2d(64)
+    P64 = ht.HIF().factorize(A64, ht.Options(**RED_OPTS), device=dev)
+    gate(P64.levels() >= 3, f"poisson2d(64): {P64.levels()} levels (< 3)")
+    b64 = rng.standard_normal(A64.nrows)
+    xh64 = P64.solve(b64)
+    rep = dict(levels=[(p.m, p.n) for p in P64.precs])
+    for form, kw in (("halo", {}), ("all_gather", dict(halo=False)),
+                     ("whole vectors", dict(shard_vectors=False))):
+        dp = DistPrec.from_host(mesh, P64, chunk=64, **kw)
+        x = dist_count(torch, launches, f"p64 {form}",
+                       lambda: dp.solve(b64)).cpu().numpy()
+        err = float(np.abs(x - xh64).max() / np.abs(xh64).max())
+        gate(err <= 1e-12, f"poisson2d(64) DistPrec {form}: {err:.3e}")
+        shape = dist_solve_factors(dp)
+        rep[form] = dict(err=err, comm_elems=dp.comm_elems,
+                         allgather_elems=dp.allgather_elems,
+                         n_halo=dp.n_halo, **shape,
+                         launches=launches[f"p64 {form}"])
+        if form == "halo":
+            gate(dp.comm_elems < 0.5 * dp.allgather_elems,
+                 f"halo comm {dp.comm_elems} >= half of "
+                 f"{dp.allgather_elems}")
+            gate(dp.n_halo >= 4, f"{dp.n_halo} halo factors (< 4)")
+            gate(all(lvl.xin is not None and lvl.xin.comm_elems
+                     < lvl.xin.allgather_elems for lvl in dp.levels[1:]),
+                 "an exchange plan is missing or not cheaper")
+        if form == "whole vectors":
+            gate(all(lvl.xin is None for lvl in dp.levels),
+                 "an exchange plan without sharded vectors")
+        log(f"  poisson2d(64) DistPrec {form}: rel err {err:.3e} (tol "
+            f"1e-12); comm {dp.comm_elems} / allgather "
+            f"{dp.allgather_elems}; halo factors {dp.n_halo}; launches "
+            f"{launches[f'p64 {form}']}")
+    report["halo_paths"] = rep
+    rep["seconds"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # 3. sharded and halo SpMV and the IR step on a (2, 4) mesh with
+    # poisson2d(512)'s A
+    mesh24 = make_mesh(DIST_RANKS, rhs=2, device=dev)
+    Ae = shard_ell_rows(mesh24, A)
+    Aw = sliced_ell_from_csr(A, dtype=np.float64, device=dev)
+    xv = randn_on(torch, rng, (n,), torch.float64)
+    yk = sliced_ell_sub_mrhs(Aw, xv[:, None])[:, 0]
+    ys = dist_count(torch, launches, "sharded_spmv",
+                    lambda: sharded_spmv(mesh24, Ae, xv))[:n]
+    H = build_halo_spmv(mesh, A)
+    xpad = torch.zeros(H.nb * DIST_RANKS, dtype=torch.float64, device=dev)
+    xpad[:n] = xv
+    yh = dist_count(torch, launches, "halo_spmv",
+                    lambda: halo_spmv(H, xpad))[:n]
+    e_s, e_h = rel_diff(ys, yk), rel_diff(yh, yk)
+    gate(e_s <= 1e-12 and e_h <= 1e-12, f"sharded/halo SpMV vs K1 on A: "
+         f"{e_s:.3e} / {e_h:.3e}")
+    step = make_sharded_ir_step(mesh24, n)
+    nrhs = 4
+    B = randn_on(torch, rng, (Ae.nrows, nrhs), torch.float64)
+    B[n:] = 0
+    X = torch.zeros_like(B)
+    res = [1.0]
+
+    def ir():
+        nonlocal X
+        for _ in range(5):
+            X = step(Ae, single.levels, single.tail, X, B)
+            R = sliced_ell_sub_mrhs(Aw, X[:n], B[:n])
+            res.append(float((R.norm(dim=0) / B[:n].norm(dim=0)).max()))
+
+    dist_count(torch, launches, "ir_step x5", ir)
+    gate(all(b2 < a2 for a2, b2 in zip(res, res[1:])),
+         f"IR residual did not fall every step: {res}")
+    report["sharded"] = dict(sharded_spmv_err=e_s, halo_spmv_err=e_h,
+                             halo=H.halo, ir_residuals=res,
+                             launches={k: launches[k] for k in (
+                                 "sharded_spmv", "halo_spmv",
+                                 "ir_step x5")})
+    report["sharded"]["seconds"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    log(f"  (2, 4) mesh: sharded_spmv / halo_spmv (halo {H.halo}) vs K1 "
+        f"on A: {e_s:.3e} / {e_h:.3e} (tol 1e-12); IR step x5 residuals "
+        f"{['%.3e' % r for r in res]}; launches "
+        f"{report['sharded']['launches']}")
+
+    # 4. the ring Schur and dist_schur=1: convdiff2d(128) on the anchors
+    Ac = convdiff2d(128)
+    base = dict(FIXTURE_OPTS, use_native=0)
+    t0 = time.perf_counter()
+    Ph = ht.HIF().factorize(Ac, ht.Options(**base), device=dev)
+    hsecs = time.perf_counter() - t0
+    calls = []
+    ring = pschur.schur_spgemm_ring
+
+    def recording(C, L_E, d, U_F, mesh=None, device="cuda"):
+        calls.append((C, L_E, d, U_F))
+        return ring(C, L_E, d, U_F, mesh=mesh, device=device)
+
+    pschur.schur_spgemm_ring = recording
+    try:
+        t0 = time.perf_counter()
+        Pd = dist_count(torch, launches, "dist_schur factorize",
+                        lambda: ht.HIF().factorize(
+                            Ac, ht.Options(dist_schur=1, **base),
+                            device=dev))
+        dsecs = time.perf_counter() - t0
+    finally:
+        pschur.schur_spgemm_ring = ring
+    gate([(p.m, p.n) for p in Pd.precs] == [(p.m, p.n) for p in Ph.precs],
+         "dist_schur levels differ from the host Schur's")
+    terr = 0.0
+    if Ph.precs[-1].dense_matrix is not None:
+        dh, dd = Ph.precs[-1].dense_matrix, Pd.precs[-1].dense_matrix
+        terr = float(np.abs(dd - dh).max() / np.abs(dh).max())
+    bc = rng.standard_normal(Ac.nrows)
+    xch = Ph.solve(bc)
+    serr = float(np.abs(Pd.solve(bc) - xch).max() / np.abs(xch).max())
+    gate(terr <= 1e-12 and serr <= 1e-12, f"dist_schur tail {terr:.3e}, "
+         f"solve {serr:.3e}")
+    gate(launches["dist_schur factorize"]["K10b"] > 0,
+         "dist_schur: no K10b launch")
+    big = max(calls, key=lambda c: c[1].nrows)
+    report["dist_schur"] = dict(
+        levels=[(p.m, p.n) for p in Pd.precs], host_seconds=hsecs,
+        dist_seconds=dsecs, ring_calls=len(calls), tail_err=terr,
+        solve_err=serr, launches=launches["dist_schur factorize"])
+    report["dist_schur"]["seconds"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    log(f"  convdiff2d(128) dist_schur=1 (anchors): levels "
+        f"{report['dist_schur']['levels']}, {len(calls)} ring SpGEMMs, "
+        f"{dsecs:.2f} s vs host Schur {hsecs:.2f} s; tail rel err "
+        f"{terr:.3e}, solve {serr:.3e} (tol 1e-12); launches "
+        f"{launches['dist_schur factorize']}")
+
+    # 5. PartitionedHIF, eight parts of poisson2d(512)
+    t0 = time.perf_counter()
+    PP = PartitionedHIF().factorize(A, 8, ht.Options(verbose=0))
+    psecs = time.perf_counter() - t0
+    xr = PP.solve(b)
+    rmax = np.abs(xr).max()
+    dpp = PP.to_device(device=dev)
+    xd = dist_count(torch, launches, "partitioned to_device",
+                    lambda: dpp.solve(b))
+    e_d = float(np.abs(xd - xr).max() / rmax)
+    t0 = time.perf_counter()
+    PP.attach_dist_solvers(mesh, chunk=DIST_CHUNK, max_halo_chunks=128)
+    asecs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xa = dist_count(torch, launches, "partitioned DistPrec",
+                    lambda: PP.local_contrib(b))
+    a_ms = (time.perf_counter() - t0) * 1e3
+    e_a = float(np.abs(xa - xr).max() / rmax)
+    xt = PP.solve(b, trans=True)
+    gate(np.array_equal(PP.local_contrib(b, trans=True), xt),
+         "the partitioned adjoint left the host path")
+    gate(e_d <= 1e-12 and e_a <= 1e-12, f"partitioned device forms vs host "
+         f"RAS: {e_d:.3e} / {e_a:.3e}")
+    gate(launches["partitioned DistPrec"]["K10a"] > 0,
+         "partitioned DistPrec: no K10a launch")
+    report["partitioned"] = dict(
+        factorize_seconds=psecs, attach_seconds=asecs,
+        levels=PP.levels(), err_to_device=e_d, err_dist=e_a,
+        dist_apply_ms_host_clock=a_ms,
+        launches={k: launches[k] for k in ("partitioned to_device",
+                                           "partitioned DistPrec")})
+    report["partitioned"]["seconds"] = time.perf_counter() - t_part
+    log(f"  PartitionedHIF 8 parts of poisson2d({DIST_NX}): factorize "
+        f"{psecs:.2f} s, attach_dist_solvers {asecs:.2f} s; to_device / "
+        f"DistPrec-a-part vs host RAS {e_d:.3e} / {e_a:.3e} (tol 1e-12); "
+        f"DistPrec apply {a_ms:.1f} ms (host clock); launches "
+        f"{report['partitioned']['launches']} [{smi}]")
+
+    log("  seconds by part: " + ", ".join(
+        f"{k} {v['seconds']:.1f}" for k, v in report.items()))
+    # the kernel rows
+    for name, dp in dps.items():
+        k10a_row(torch, book, rng, dp)
+        k10b_row(torch, book, big, mesh, dp.dtype)
+    return report, launches, book.rows
+
+
 _SOURCES = {
     "K7": ("K7_bsr", "cuda", "hifir_tpu_torch/csrc/kernels.cu",
            "hifir_tpu/ops/pallas_spmv.py:133"),
@@ -2400,6 +2862,16 @@ _SOURCES = {
            "hifir_tpu/ops/spmv.py:167"),
     "K2": ("K2_trsv", "cuda", "hifir_tpu_torch/csrc/kernels.cu",
            "hifir_tpu/ops/trsv.py:544"),
+}
+# the distribution phase's kernels: (name, route, source, replaces, the run
+# whose launches stand for the kernel, its row)
+_DIST_SOURCES = {
+    "K10a": ("K10a_chunk", "cuda", "hifir_tpu_torch/csrc/kernels.cu",
+             "hifir_tpu/parallel/trsv_halo.py:284", "distprec float64 solve",
+             "K10a_chunk"),
+    "K10b": ("K10b_schur", "cuda", "hifir_tpu_torch/csrc/kernels.cu",
+             "hifir_tpu/parallel/schur.py:96", "dist_schur factorize",
+             "K10b_schur"),
 }
 # the kernel-phase row that stands for each kernel in the summary line: the
 # shape, dtype and form it runs at on the main path (HIFIR's A-product is
@@ -2564,6 +3036,15 @@ def main(argv=None) -> int:
     gate(sir_total["K1"] > 0, "kernel K1 was not launched on the "
          "saddle-point path")
 
+    log("== distribution: eight ranks on one card (hifir_tpu_torch."
+        "parallel)")
+    # its own generator, so that its inputs do not move with the rows above
+    t_phase = time.perf_counter()
+    dreport, dlaunches, drows = dist_phase(
+        torch, T, np.random.default_rng(args.seed + 6), smi)
+    dreport["seconds"] = time.perf_counter() - t_phase
+    log(f"  distribution phase {dreport['seconds']:.1f} s [{smi}]")
+
     offs = [w["offset_ms"] for w in PROFILE_WINDOWS
             if w["offset_ms"] is not None]
     log(f"== profiler: {len(PROFILE_WINDOWS)} windows, "
@@ -2602,6 +3083,19 @@ def main(argv=None) -> int:
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                 library_ms=row["library_ms"], dtype=dt, shape=row["shape"]))
 
+    for k, (name, route, src, repl, run, rname) in _DIST_SOURCES.items():
+        row = next(r for r in drows if r["name"] == rname
+                   and r["dtype"] == "float64")
+        kernels.append(dict(
+            name=name, route=route, source=src, replaces=repl,
+            launches=dlaunches[run][k], max_abs_err=row["max_abs_err"],
+            ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"], library_note=row["library_note"],
+            dtype=row["dtype"], shape=row["shape"]))
+        gate(dlaunches[run][k] > 0, f"kernel {k} was not launched on the "
+             f"distribution path ({run})")
+
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
@@ -2629,6 +3123,9 @@ def main(argv=None) -> int:
                            million_launches=mlaunches,
                            million_want=mwant, saddle=sreport_ir,
                            saddle_launches=sir_launches,
+                           distribution=dreport,
+                           distribution_launches=dlaunches,
+                           distribution_kernel_rows=drows,
                            profile_windows=PROFILE_WINDOWS,
                            seconds=time.perf_counter() - t_start), f,
                       indent=1)

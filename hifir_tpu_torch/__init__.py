@@ -9,9 +9,11 @@ GMRES of ``solvers/gmres_np.py``), packs it onto an NVIDIA GPU and applies
 it there through hand-written CUDA kernels (``csrc/kernels.cu``): the
 M-solve and its adjoint, with a runtime rank and null-space filters, the
 products M x and M^H x, HIFIR refinement and the GMRES drivers, in
-float32, float64, complex64 and complex128.  Device entry points run on
-the card unless the caller passes ``device="cpu"``.  The package imports
-torch, numpy and scipy, never jax or hifir_tpu.
+float32, float64, complex64 and complex128.  ``parallel`` distributes the
+M-solve, the SpMV, the Schur complement and a partitioned factorization
+over a mesh of ranks (eight on one card by default).  Device entry points
+run on the card unless the caller passes ``device="cpu"``.  The package
+imports torch, numpy and scipy, never jax or hifir_tpu.
 """
 
 from . import device
@@ -21,8 +23,9 @@ from .nsp import NspFilter
 from .options import Options
 from .solvers.gmres import fgmres_hifir, gmres_hif, gmres_mrhs
 from .solvers.ir import ir_apply
+from .version import __version__, version
 
 __all__ = ["device", "DevicePrec", "HIF", "load_prec", "save_prec",
            "prec_from_arrays",
            "NspFilter", "Options", "ir_apply", "gmres_hif", "fgmres_hifir",
-           "gmres_mrhs"]
+           "gmres_mrhs", "__version__", "version"]

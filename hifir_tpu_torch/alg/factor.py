@@ -98,7 +98,7 @@ def _compute_schur(C_tail, L_E: CSR, d: np.ndarray, U_F: CSR) -> CSR:
 def level_factorize(A: CSR, m0: int, N: int, level: int, opts: Options,
                     row_sizes: np.ndarray, col_sizes: np.ndarray,
                     stats: np.ndarray, force_pivot: bool = False,
-                    sym_block: bool = False
+                    sym_block: bool = False, device="cuda"
                     ) -> Tuple[LevelPrec, Optional[CSR], np.ndarray, np.ndarray]:
     """One level end-to-end.  Returns ``(prec, S_next, row_sizes, col_sizes)``;
     ``S_next`` is ``None`` when this is the last level (dense tail attached to
@@ -107,16 +107,15 @@ def level_factorize(A: CSR, m0: int, N: int, level: int, opts: Options,
     reference's ``IsSymm`` template flag (builder.hpp:534-535: level 1 with a
     user-declared symmetric leading block ``m0 > 0``): symmetric
     preprocessing is forced and the Crout kernel runs in mirror mode
-    (``crout_level_np(symm_mode=2)``)."""
+    (``crout_level_np(symm_mode=2)``).  ``opts.dist_schur`` computes the
+    Schur complement by the ring SpGEMM over the default mesh on
+    ``device`` (:func:`~hifir_tpu_torch.parallel.schur.schur_spgemm_ring`),
+    on the numpy anchors, as the JAX package does."""
     import scipy.sparse as sp
 
     n = A.nrows
     if A.ncols != n:
         raise ValueError("only square systems are supported")
-    if opts.dist_schur:
-        raise NotImplementedError(
-            "dist_schur=1: the distributed Schur complement is not ported "
-            "(distribution is ROADMAP.md, queue 1, item 4)")
 
     # --- symmetric-preprocessing decision (ref factor.hpp:588-611) ---------
     if opts.is_symm or sym_block:
@@ -184,11 +183,13 @@ def level_factorize(A: CSR, m0: int, N: int, level: int, opts: Options,
         a_L *= 2
         a_U *= 2
     use_pivot = force_pivot or opts.pivot == PIVOTING_ON
+    # dist_schur needs the anchor branch (the native kernel fuses the Schur);
     # VERBOSE_FAC (per-Crout-step streaming, ref builder.hpp:266-267) also
     # runs the anchor, whose loop streams each step -- matching the
     # reference, where the streamer costs the factorization its speed too
     stream_fac = bool(opts.verbose & VERBOSE_FAC)
-    use_native = (not use_pivot and opts.use_native and not stream_fac
+    use_native = (not use_pivot and opts.use_native and not opts.dist_schur
+                  and not stream_fac
                   and _native.has_crout_dtype(Ahat.data.dtype))
     S_native = None
     EF_native = None
@@ -271,7 +272,7 @@ def level_factorize(A: CSR, m0: int, N: int, level: int, opts: Options,
         hif_info(opts, "level %d: retrying with rook pivoting "
                        "(post_flag=%d)", level, post_flag)
         return level_factorize(A, m0, N, level, opts, row_sizes, col_sizes,
-                               stats, force_pivot=True)
+                               stats, force_pivot=True, device=device)
 
     # stats (ref factor.hpp:1053-1060)
     stats[0] += m0 - m
@@ -304,7 +305,15 @@ def level_factorize(A: CSR, m0: int, N: int, level: int, opts: Options,
                                   a_U)
             U_F = U_F_t.transpose()
             C_tail = Ah2[m:, :][:, m:].tocsr()
-            S = _compute_schur(C_tail, L_E, res.d, U_F)
+            if opts.dist_schur:
+                # the ring SpGEMM over the default mesh on the device
+                from ..parallel.schur import schur_spgemm_ring
+
+                C_csr = CSR(n - m, n - m, C_tail.indptr.astype(np.int64),
+                            C_tail.indices, C_tail.data)
+                S = schur_spgemm_ring(C_csr, L_E, res.d, U_F, device=device)
+            else:
+                S = _compute_schur(C_tail, L_E, res.d, U_F)
             E = Ah2[m:, :][:, :m].tocsr()
             F = Ah2[:m, :][:, m:].tocsr()
             E = CSR(n - m, m, E.indptr.astype(np.int64), E.indices, E.data)

@@ -124,7 +124,9 @@ class HIF:
 
         ``A`` is a :class:`~hifir_tpu_torch.ds.csr.CSR` or anything scipy
         turns into CSR.  ``device`` is where the dense tail's QRCP runs when
-        ``params.device_tail`` is set (K8); nothing else uses it."""
+        ``params.device_tail`` is set (K8) and where the ring Schur SpGEMM's
+        ranks live when ``params.dist_schur`` is set; nothing else uses
+        it."""
         opts = params if params is not None else get_default_options()
         if not isinstance(A, CSR):
             A = CSR.from_scipy(A)
@@ -185,7 +187,7 @@ class HIF:
             prec, S, row_sizes, col_sizes = level_factorize(
                 S, m_in if m_in else S.nrows, N, level, opts,
                 row_sizes, col_sizes, self.stats_,
-                sym_block=(level == 1 and m0 > 0))
+                sym_block=(level == 1 and m0 > 0), device=device)
             self.precs.append(prec)
             level += 1
         if opts.dtype == "float32":

@@ -14,8 +14,17 @@
 //                  (TrsvSchedule branch: entry gather, lax.scan over chunks,
 //                  exit gather)
 //
+// K10a chunk_fma  replaces the chunk step of the distributed level-scheduled
+//                  triangular solves, hifir_tpu/parallel/trsv_halo.py:
+//                  halo_op_kernel, prec_sharded.py:ag_op_kernel and
+//                  trsv_sharded.py:_kernel (x[own] -= sum vals * x[cols])
+// K10b schur_partial replaces hifir_tpu/parallel/schur.py:_partial_kernel
+//                  (one ring step of the Schur SpGEMM: candidates, sort by
+//                  column, runs of equal columns summed)
+//
 // K1 and K2 come in f32, f64, c64 and c128; K7 in f32 and f64 only, as the
-// TPU kernel it replaces (Mosaic has no complex type).
+// TPU kernel it replaces (Mosaic has no complex type); K10a and K10b in f32
+// and f64, as the distribution they serve (real only in the JAX package).
 
 #include <cuda_runtime.h>
 
@@ -1303,6 +1312,161 @@ int trsv_solve(const T* B, T* X, const int* in_rows, const int* cols,
 #undef TRSV_LAUNCH
 }
 
+
+// ---------------------------------------------------------------------------
+// K10a: one chunk of a distributed level-scheduled triangular solve, for
+// every rank of a device in one launch.  Rank r's working vector is row r
+// of x (row stride xs); its slot j of the chunk is
+// x[r][out_off + r * out_step + j] -= sum_k vals[r][j][k] * x[r][cols[r][j][k]]
+// (cols and vals of rank r start at r * cvs, row-major (cloc, K)), and,
+// with a package buffer, pkg[r][j] gets the slot's new value (what the
+// tiled all_gather sends, as the JAX kernel's ``cur - contrib``).  The
+// dependencies lie in earlier chunks (dependency levels are padded to chunk
+// boundaries), so no slot reads a slot of its own chunk.  Padded entries
+// point at a zero slot with value 0.
+//
+// Bound: bytes (each dependency reads an index, a value and one x entry
+// for two FLOP).  Design: a thread a slot, the dependency loop in
+// registers; the chunk is small (C / D slots a rank), so the launch and
+// the dependent-load latency dominate, not the bytes.
+
+constexpr int kChunkThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kChunkThreads)
+chunk_fma_kernel(T* x, int64_t xs, int out_off, int out_step,
+                 const int* __restrict__ cols, const T* __restrict__ vals,
+                 int64_t cvs, int nranks, int cloc, int K, T* pkg) {
+  const int64_t t = (int64_t)blockIdx.x * kChunkThreads + threadIdx.x;
+  if (t >= (int64_t)nranks * cloc) return;
+  const int r = (int)(t / cloc), j = (int)(t % cloc);
+  T* xr = x + r * xs;
+  const int* c = cols + r * cvs + (int64_t)j * K;
+  const T* v = vals + r * cvs + (int64_t)j * K;
+  T s = T(0);
+  for (int k = 0; k < K; ++k) s = fma_rn(__ldg(v + k), xr[__ldg(c + k)], s);
+  T* o = xr + out_off + (int64_t)r * out_step + j;
+  const T y = *o - s;
+  *o = y;
+  if (pkg != nullptr) pkg[(int64_t)r * cloc + j] = y;
+}
+
+template <typename T>
+int chunk_fma(T* x, int64_t xs, int out_off, int out_step, const int* cols,
+              const T* vals, int64_t cvs, int nranks, int cloc, int K,
+              T* pkg, void* stream) {
+  const int64_t total = (int64_t)nranks * cloc;
+  if (total == 0) return (int)cudaSuccess;
+  const unsigned blocks = (unsigned)((total + kChunkThreads - 1) /
+                                     kChunkThreads);
+  chunk_fma_kernel<T><<<blocks, kChunkThreads, 0, (cudaStream_t)stream>>>(
+      x, xs, out_off, out_step, cols, vals, cvs, nranks, cloc, K, pkg);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K10b: one ring step of the distributed Schur SpGEMM.  Row r of the local
+// L_E blocks (rank r / nb, whose U_F panel starts at uf + rank * ufs and
+// whose d at d + rank * ds) forms its W = KL * KU candidates
+// (uf_idx[l][b], -(le_val[a] * d[l]) * uf_val[l][b]) for l = le_idx[r][a]
+// (the sentinel row m of the panel holds column cb), sorts them by column
+// and writes, at the position of the last entry of each run of equal
+// columns below cb, (column, sum of the run), and (cb, 0) elsewhere.  The
+// JAX kernel sums a run as a difference of cumulative sums; here the run is
+// summed from its first entry to its last, a fixed but different order.
+//
+// Bound: bytes (the candidates' gathers).  Design: a block a row, the W
+// pairs in shared memory (padded to a power of two with an unused key),
+// a bitonic sort, then each run's last position sums its run.  The host
+// refuses a W whose pairs do not fit in shared memory.
+
+constexpr int kSchurThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kSchurThreads)
+schur_partial_kernel(const int* __restrict__ le_idx,
+                     const T* __restrict__ le_val, const T* __restrict__ d,
+                     int64_t ds, const int* __restrict__ uf_idx,
+                     const T* __restrict__ uf_val, int64_t ufs, int nb,
+                     int KL, int KU, int Wp, int cb, int* out_c, T* out_v) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sv = reinterpret_cast<T*>(smem_raw);
+  int* sk = reinterpret_cast<int*>(sv + Wp);
+  const int64_t r = blockIdx.x;
+  const int64_t rank = r / nb;
+  const int W = KL * KU;
+  const int* ui = uf_idx + rank * ufs;
+  const T* uv = uf_val + rank * ufs;
+  const T* dr = d + rank * ds;
+  for (int w = threadIdx.x; w < Wp; w += blockDim.x) {
+    int key = 0x7fffffff;
+    T val = T(0);
+    if (w < W) {
+      const int a = w / KU, b = w % KU;
+      const int l = __ldg(le_idx + r * KL + a);
+      const T ld = __ldg(le_val + r * KL + a) * __ldg(dr + l);
+      key = __ldg(ui + (int64_t)l * KU + b);
+      val = -(ld * __ldg(uv + (int64_t)l * KU + b));
+    }
+    sk[w] = key;
+    sv[w] = val;
+  }
+  __syncthreads();
+  for (int k = 2; k <= Wp; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < Wp; i += blockDim.x) {
+        const int p = i ^ j;
+        if (p > i) {
+          const bool up = (i & k) == 0;
+          const int ki = sk[i], kp = sk[p];
+          if ((ki > kp) == up) {
+            sk[i] = kp;
+            sk[p] = ki;
+            const T t = sv[i];
+            sv[i] = sv[p];
+            sv[p] = t;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int w = threadIdx.x; w < W; w += blockDim.x) {
+    const int key = sk[w];
+    const bool last = w + 1 == Wp || sk[w + 1] != key;
+    int oc = cb;
+    T ov = T(0);
+    if (last && key < cb) {
+      int i = w;
+      while (i > 0 && sk[i - 1] == key) --i;
+      for (; i <= w; ++i) ov += sv[i];
+      oc = key;
+    }
+    out_c[r * W + w] = oc;
+    out_v[r * W + w] = ov;
+  }
+}
+
+template <typename T>
+int schur_partial(const int* le_idx, const T* le_val, const T* d, int64_t ds,
+                  const int* uf_idx, const T* uf_val, int64_t ufs, int rows,
+                  int nb, int KL, int KU, int cb, int* out_c, T* out_v,
+                  void* stream) {
+  if (rows == 0) return (int)cudaSuccess;
+  int Wp = 1;
+  while (Wp < KL * KU) Wp <<= 1;
+  const int64_t smem = (int64_t)Wp * (sizeof(T) + sizeof(int));
+  static int granted = 0;
+  const cudaError_t err =
+      allow_smem(schur_partial_kernel<T>, (int)smem, granted);
+  if (err != cudaSuccess) return (int)err;
+  schur_partial_kernel<T><<<(unsigned)rows, kSchurThreads, (int)smem,
+                            (cudaStream_t)stream>>>(
+      le_idx, le_val, d, ds, uf_idx, uf_val, ufs, nb, KL, KU, Wp, cb, out_c,
+      out_v);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1310,6 +1474,10 @@ extern "C" {
 const char* hifir_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
+
+// The dynamic shared memory a block may hold; the host checks a kernel's
+// need against it before the launch (K10b's row of W candidates).
+int hifir_max_smem() { return kMaxSmem; }
 
 // The yardstick: read ``nbytes`` at ``p`` once (see read_rate_kernel).
 int read_rate(const void* p, int64_t nbytes, unsigned* out,
@@ -1351,6 +1519,26 @@ int read_rate(const void* p, int64_t nbytes, unsigned* out,
                          stream);                                             \
   }
 
+#define HIFIR_DEFINE_DIST(SUFFIX, T)                                          \
+  int chunk_fma_##SUFFIX(T* x, int64_t xs, int out_off, int out_step,        \
+                         const int* cols, const T* vals, int64_t cvs,        \
+                         int nranks, int cloc, int K, T* pkg,                \
+                         void* stream) {                                      \
+    return chunk_fma<T>(x, xs, out_off, out_step, cols, vals, cvs, nranks,   \
+                        cloc, K, pkg, stream);                                \
+  }                                                                           \
+  int schur_partial_##SUFFIX(const int* le_idx, const T* le_val, const T* d, \
+                             int64_t ds, const int* uf_idx, const T* uf_val, \
+                             int64_t ufs, int rows, int nb, int KL, int KU,  \
+                             int cb, int* out_c, T* out_v, void* stream) {   \
+    return schur_partial<T>(le_idx, le_val, d, ds, uf_idx, uf_val, ufs, rows, \
+                            nb, KL, KU, cb, out_c, out_v, stream);            \
+  }
+
+// K10a and K10b are real only, as the distribution they serve
+HIFIR_DEFINE_DIST(f32, float)
+HIFIR_DEFINE_DIST(f64, double)
+
 // K7 is real only, as the TPU kernel it replaces; K1 and K2 take complex
 HIFIR_DEFINE_BSR(f32, float, MmaTf32x3)
 HIFIR_DEFINE_BSR(f64, double, MmaF64)
@@ -1361,5 +1549,6 @@ HIFIR_DEFINE(c128, C128)
 
 #undef HIFIR_DEFINE
 #undef HIFIR_DEFINE_BSR
+#undef HIFIR_DEFINE_DIST
 
 }  // extern "C"

@@ -35,6 +35,9 @@ _SIGNATURES = {
                   _I, _P],
     "trsv_solve": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P,
                    _P],
+    "chunk_fma": [_P, _L, _I, _I, _P, _P, _L, _I, _I, _I, _P, _P],
+    "schur_partial": [_P, _P, _P, _L, _P, _P, _L, _I, _I, _I, _I, _I, _P, _P,
+                      _P],
 }
 # The value dtypes each entry point is built for (its symbols are
 # ``{name}_{suffix}``): K1 and K2 real and complex, K7 real only, as the TPU
@@ -43,7 +46,9 @@ _DTYPE_SUFFIX = {"float32": "f32", "float64": "f64", "complex64": "c64",
                  "complex128": "c128"}
 SUFFIXES = {"bsr_spmv": ("f32", "f64"),
             "sell_spmv": ("f32", "f64", "c64", "c128"),
-            "trsv_solve": ("f32", "f64", "c64", "c128")}
+            "trsv_solve": ("f32", "f64", "c64", "c128"),
+            "chunk_fma": ("f32", "f64"),
+            "schur_partial": ("f32", "f64")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +112,8 @@ def load_kernels() -> KernelLib:
             f.restype = ctypes.c_int
     lib.hifir_error_string.argtypes = [ctypes.c_int]
     lib.hifir_error_string.restype = ctypes.c_char_p
+    lib.hifir_max_smem.argtypes = []
+    lib.hifir_max_smem.restype = ctypes.c_int
     lib.read_rate.argtypes = [_P, _L, _P, ctypes.c_uint, _P]
     lib.read_rate.restype = ctypes.c_int
     return KernelLib(lib, so, seconds, log)

@@ -229,6 +229,12 @@ def sell_spmv_cuda(A, X: torch.Tensor, C=None, out=None,
     for name, t in (("C", C), ("out", out)):
         if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"{name} is {tuple(t.shape)}, expected {shape}")
+    # the kernel forms row * nrhs and c * nrhs in 32 bits
+    for name, rows in (("X", X.shape[0]), ("C", A.nrows)):
+        if rows * nrhs >= 2**31:
+            raise ValueError(f"sell_spmv: {name} rows x columns = {rows} x "
+                             f"{nrhs} reach 2**31, beyond K1's 32-bit "
+                             "offsets")
     if out is None:
         out = X.new_empty(shape)
     in_place = C is not None and C.data_ptr() == out.data_ptr()
@@ -246,8 +252,9 @@ def sell_spmv_cuda(A, X: torch.Tensor, C=None, out=None,
         idx, val, k_uni = A.indices, A.values, A.k
         tables, first, max_nnz = {}, 0, A.k
         empty = A.nrows * A.k == 0
-    if max(A.nrows * nrhs, A.ncols * nrhs, A.nrows * k_uni) >= 2**31:
-        raise ValueError("sell_spmv: operands too large for 32-bit indexing")
+    if A.nrows * k_uni >= 2**31:
+        raise ValueError(f"sell_spmv: {A.nrows} x {k_uni} ELL entries reach "
+                         "2**31, beyond K1's 32-bit offsets")
     if empty or nrhs == 0:
         if C is None:
             return out.zero_()

@@ -274,12 +274,15 @@ def _best_cap_and_cost(dcount, lev, chunk):
     return best_cap, best_cost
 
 
-def _choose_chunk(dcount, lev, upper: int):
+def _choose_chunk(dcount, lev, multiple: int, upper: int):
     """Joint (chunk, k_cap) choice minimizing the schedule cost model over
-    the power-of-two chunks 8..upper."""
-    c = 8
+    the power-of-two multiples of ``multiple`` (the mesh's rank count for a
+    distributed schedule) from 8 up to ``upper``."""
+    c = multiple
+    while c < 8:
+        c *= 2
     best = (c, None, float("inf"))
-    while c <= upper:
+    while c <= max(upper, multiple):
         cap, cost = _best_cap_and_cost(dcount, lev, c)
         if cost < best[2]:
             best = (c, cap, cost)
@@ -288,14 +291,15 @@ def _choose_chunk(dcount, lev, upper: int):
 
 
 def build_trsv_schedule(T, lower: bool, chunk: int = 256, dtype=None,
-                        k_cap=None, device="cuda") -> TrsvSchedule:
+                        k_cap=None, device="cuda",
+                        chunk_multiple: int = 1) -> TrsvSchedule:
     """Build the device schedule for ``(I + strict(T))^{-1}``.
 
     ``T`` is a host CSR whose strict lower (or upper) triangle is the factor.
     ``k_cap`` splits rows with more than ``k_cap`` dependencies into
     partial-sum slots in earlier sub-stages of the same level (``"auto"``:
     the cost model's choice; ``None``: unsplit).  ``chunk="auto"`` picks the
-    chunk jointly with the cap.
+    chunk jointly with the cap, a multiple of ``chunk_multiple``.
     """
     dev = resolve_device(device)
     n = T.nrows
@@ -323,7 +327,8 @@ def build_trsv_schedule(T, lower: bool, chunk: int = 256, dtype=None,
     lev = _compute_levels(n, indptr, indices, lower)
 
     if chunk == "auto":
-        chunk, auto_cap = _choose_chunk(dcount, lev, upper=1024)
+        chunk, auto_cap = _choose_chunk(dcount, lev, max(chunk_multiple, 1),
+                                        upper=1024)
         if k_cap == "auto":
             k_cap = auto_cap
     elif k_cap == "auto":

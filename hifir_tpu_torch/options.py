@@ -102,9 +102,7 @@ class Options:
     # --- extensions (not in the reference struct) ---------------------------
     dtype: str = "float64"    # factorization/solve precision
     use_native: int = 1       # use the native host library's Crout kernels
-    dist_schur: int = 0       # distributed Schur complement; 1 raises
-                              # NotImplementedError (distribution is not
-                              # ported yet: ROADMAP.md, queue 1, item 4)
+    dist_schur: int = 0       # the Schur complement by the ring SpGEMM
     device_tail: int = 0      # factorize the dense tail on the GPU (QRCP,
                               # small_scale/qrcp_device.py)
     symm_detect: int = 1      # auto-engage the LDL^T path on exactly

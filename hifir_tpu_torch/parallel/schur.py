@@ -1,0 +1,224 @@
+"""Distributed Schur-complement SpGEMM (ring over column panels).
+
+The port of ``hifir_tpu/parallel/schur.py``: ``S = C - L_E diag(d) U_F``
+with rank k owning row block k of L_E and C and column panel k of U_F, the
+panels rotated around the ring of ranks (:meth:`Mesh.shift`), so that at
+ring step e rank k holds panel ``(k + e) % D`` and computes the partial rows
+``(L_E D U_F)[rows_k, panel]``.  One step on every rank of a device is one
+launch of kernel K10b (:func:`schur_partial`): per local L_E row the
+KL * KU candidates, sorted by column, runs of equal columns summed.  The
+host packs the operands (``_ell_pack``, ``_panelize_uf``, copied from the
+JAX package) and compresses each step's output before the next rotation,
+merging the A-tail block C as the JAX package does.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..ds.csr import CSR
+from ..kernels.build import check, kernel_fn, load_kernels
+from .mesh import Mesh, make_mesh
+
+__all__ = ["schur_spgemm_ring", "schur_partial", "schur_partial_plain",
+           "schur_partial_cuda"]
+
+
+def _ell_pack(M: CSR, nrows_pad: int, sentinel: int):
+    """Row-major ELL pack with padded rows and a sentinel column id."""
+    counts = np.diff(M.indptr)
+    K = max(int(counts.max()) if M.nrows else 0, 1)
+    idx = np.full((nrows_pad, K), sentinel, dtype=np.int32)
+    val = np.zeros((nrows_pad, K), dtype=M.data.dtype)
+    if M.indices.size:
+        rows = np.repeat(np.arange(M.nrows, dtype=np.int64), counts)
+        offs = (np.arange(M.indices.size, dtype=np.int64)
+                - np.repeat(M.indptr[:-1], counts))
+        idx[rows, offs] = M.indices
+        val[rows, offs] = M.data
+    return idx, val, K
+
+
+def _panelize_uf(U_F: CSR, D: int, cb: int):
+    """Column panels of U_F as (D, m+1, KU) ELL with *local* column ids;
+    row m is an all-sentinel row fed by padded L_E entries."""
+    m = U_F.nrows
+    cols = U_F.indices.astype(np.int64)
+    panel = cols // cb
+    local = (cols - panel * cb).astype(np.int32)
+    rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(U_F.indptr))
+    counts = np.zeros((D, m), dtype=np.int64)
+    np.add.at(counts, (panel, rows), 1)
+    KU = max(int(counts.max()) if counts.size else 0, 1)
+    idx = np.full((D, m + 1, KU), cb, dtype=np.int32)
+    val = np.zeros((D, m + 1, KU), dtype=U_F.data.dtype)
+    order = np.lexsort((local, rows, panel))
+    pnl, rws, loc = panel[order], rows[order], local[order]
+    dat = U_F.data[order]
+    if order.size:
+        key = pnl * (m + 1) + rws
+        new = np.empty(order.size, dtype=bool)
+        new[0] = True
+        new[1:] = key[1:] != key[:-1]
+        grp_start = np.repeat(np.flatnonzero(new),
+                              np.diff(np.append(np.flatnonzero(new),
+                                                order.size)))
+        slot = np.arange(order.size) - grp_start
+        idx[pnl, rws, slot] = loc
+        val[pnl, rws, slot] = dat
+    return idx, val, KU
+
+
+def _check(le_idx, le_val, d, uf_idx, uf_val):
+    R, nb, KL = le_idx.shape
+    if (le_val.shape != le_idx.shape or uf_idx.dim() != 3
+            or uf_val.shape != uf_idx.shape or uf_idx.shape[0] != R
+            or d.shape != (R, uf_idx.shape[1])):
+        raise ValueError(
+            f"schur_partial: le {tuple(le_idx.shape)}, d {tuple(d.shape)}, "
+            f"uf {tuple(uf_idx.shape)} do not fit")
+
+
+def schur_partial_plain(le_idx, le_val, d, uf_idx, uf_val, cb: int):
+    """Plain PyTorch K10b on every rank of the group (the JAX kernel's
+    arithmetic: a stable sort, runs summed as cumulative-sum differences);
+    returns (cols, vals), each (ranks, nb, KL * KU).
+    ``schur_partial_plain.calls`` counts its calls."""
+    _check(le_idx, le_val, d, uf_idx, uf_val)
+    schur_partial_plain.calls += 1
+    R, nb, KL = le_idx.shape
+    KU = uf_idx.shape[2]
+    W = KL * KU
+    li = le_idx.long()
+    ld = le_val * d.gather(1, li.view(R, -1)).view(R, nb, KL)
+    rk = torch.arange(R, device=li.device)[:, None, None]
+    cand_c = uf_idx[rk, li].reshape(R, nb, W)
+    cand_v = (-(ld[..., None] * uf_val[rk, li])).reshape(R, nb, W)
+    sc, order = torch.sort(cand_c, dim=-1, stable=True)
+    sv = cand_v.gather(-1, order)
+    prev = torch.cat([torch.full_like(sc[..., :1], -1), sc[..., :-1]], -1)
+    nxt = torch.cat([sc[..., 1:], torch.full_like(sc[..., :1], cb + 1)], -1)
+    pos = torch.arange(W, device=sc.device).expand_as(sc)
+    cs = torch.cumsum(sv, -1)
+    start = torch.cummax(torch.where(sc != prev, pos, 0), -1).values
+    base = (cs - sv).gather(-1, start)
+    valid = (sc != nxt) & (sc < cb)
+    return (torch.where(valid, sc, cb).to(torch.int32),
+            torch.where(valid, cs - base, torch.zeros_like(cs)))
+
+
+schur_partial_plain.calls = 0
+
+
+def schur_partial_cuda(le_idx, le_val, d, uf_idx, uf_val, cb: int):
+    """Launch K10b for every rank of the group; refuses a row width
+    W = KL * KU whose candidates do not fit in a block's shared memory.
+    ``schur_partial_cuda.launches`` counts its launches."""
+    _check(le_idx, le_val, d, uf_idx, uf_val)
+    R, nb, KL = le_idx.shape
+    KU = uf_idx.shape[2]
+    W = KL * KU
+    Wp = 1 << max(W - 1, 0).bit_length()
+    need = Wp * (4 + le_val.element_size())   # a key and a value each
+    room = load_kernels().lib.hifir_max_smem()
+    if need > room:
+        raise ValueError(
+            f"schur_partial: W = KL * KU = {KL} * {KU} = {W} candidates a row "
+            f"need {need} bytes of shared memory (padded to {Wp}), more than "
+            f"a block's {room}")
+    if R * nb * W >= 2**31 or uf_idx.shape[1] * KU >= 2**31:
+        raise ValueError("schur_partial: operands reach 2**31 entries")
+    out_c = torch.empty((R, nb, W), dtype=torch.int32, device=le_idx.device)
+    out_v = le_val.new_empty((R, nb, W))
+    fn = kernel_fn("schur_partial", index_dtypes=(torch.int32,) * 3,
+                   le_idx=le_idx, le_val=le_val, d=d, uf_idx=uf_idx,
+                   uf_val=uf_val, out_c=out_c, out_v=out_v)
+    err = fn(le_idx.data_ptr(), le_val.data_ptr(), d.data_ptr(), d.shape[1],
+             uf_idx.data_ptr(), uf_val.data_ptr(),
+             uf_idx.shape[1] * KU, R * nb, nb, KL, KU, cb, out_c.data_ptr(),
+             out_v.data_ptr(),
+             torch.cuda.current_stream(le_idx.device).cuda_stream)
+    check(err, "schur_partial")
+    schur_partial_cuda.launches += 1
+    return out_c, out_v
+
+
+schur_partial_cuda.launches = 0
+
+
+def schur_partial(le_idx, le_val, d, uf_idx, uf_val, cb: int):
+    """One ring step on every rank of a group: masked (col, val) pairs of
+    ``-(L_E D U_F)[rows, panel]``, columns local to the panel (``cb``
+    where masked).  ``le_idx``/``le_val`` (ranks, nb, KL), ``d``
+    (ranks, m + 1), ``uf_idx``/``uf_val`` (ranks, m + 1, KU).  Kernel K10b
+    for CUDA tensors, the plain version for CPU ones."""
+    if le_idx.device.type == "cpu":
+        return schur_partial_plain(le_idx, le_val, d, uf_idx, uf_val, cb)
+    return schur_partial_cuda(le_idx, le_val, d, uf_idx, uf_val, cb)
+
+
+def schur_spgemm_ring(C_tail: CSR, L_E: CSR, d: np.ndarray, U_F: CSR,
+                      mesh: Optional[Mesh] = None, device="cuda") -> CSR:
+    """S = C_tail - L_E diag(d) U_F by the ring SpGEMM over ``mesh``'s
+    ``rows`` ranks (default: :func:`make_mesh` on ``device``).  Inputs and
+    result are host CSR; D - 1 panel rotations move U_F around the ring.
+    Equal to the host Schur to rounding (the runs are summed in another,
+    fixed order)."""
+    if mesh is None:
+        mesh = make_mesh(device=device)
+    D = mesh.D
+    nm, m = L_E.nrows, L_E.ncols
+    if nm == 0:
+        return C_tail
+    dtype = np.result_type(L_E.data.dtype, U_F.data.dtype)
+    if np.dtype(dtype).kind != "f":
+        raise TypeError(f"schur_spgemm_ring is real only, got {dtype}")
+    nmp = -(-nm // D) * D
+    nb = nmp // D
+    cb = nmp // D  # panel width (the same padded split of the tail columns)
+
+    le_idx_h, le_val_h, KL = _ell_pack(L_E, nmp, sentinel=m)
+    uf_idx_h, uf_val_h, KU = _panelize_uf(U_F, D, cb)
+    d_ext = np.concatenate([np.asarray(d), np.zeros(1, dtype=L_E.data.dtype)])
+
+    le_idx = mesh.put(le_idx_h.reshape(D, nb, KL))
+    le_val = mesh.put(le_val_h.reshape(D, nb, KL))
+    uf_idx = mesh.put(uf_idx_h)
+    uf_val = mesh.put(uf_val_h)
+    d_dev = mesh.replicate(torch.as_tensor(d_ext))
+
+    rows_acc, cols_acc, vals_acc = [], [], []
+    for e in range(D):
+        outs = [schur_partial(*a, cb) for a in zip(le_idx, le_val, d_dev,
+                                                   uf_idx, uf_val)]
+        oc = mesh.collect([c for c, _ in outs]).cpu().numpy().reshape(
+            D * nb, -1)
+        ov = mesh.collect([v for _, v in outs]).cpu().numpy().reshape(
+            D * nb, -1)
+        keep = oc < cb
+        if keep.any():
+            r, k = np.nonzero(keep)
+            # rank r // nb holds panel (r // nb + e) % D at this step
+            panel = (r // nb + e) % D
+            rows_acc.append(r.astype(np.int64))
+            cols_acc.append(panel * cb + oc[r, k].astype(np.int64))
+            vals_acc.append(ov[r, k])
+        if e < D - 1:
+            # rank k receives panel k + 1's holder's panel
+            uf_idx = mesh.shift(uf_idx, -1, ring=True)
+            uf_val = mesh.shift(uf_val, -1, ring=True)
+
+    # merge the A-tail block on the host (duplicates coalesce in from_coo)
+    c_rows = np.repeat(np.arange(nm, dtype=np.int64), np.diff(C_tail.indptr))
+    rows_acc.append(c_rows)
+    cols_acc.append(C_tail.indices.astype(np.int64))
+    vals_acc.append(C_tail.data)
+    S = CSR.from_coo(nmp, nmp, np.concatenate(rows_acc),
+                     np.concatenate(cols_acc), np.concatenate(vals_acc))
+    if nmp != nm:
+        return CSR(nm, nm, S.indptr[:nm + 1], S.indices[:S.indptr[nm]],
+                   S.data[:S.indptr[nm]])
+    return CSR(nm, nm, S.indptr, S.indices, S.data)

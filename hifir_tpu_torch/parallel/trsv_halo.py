@@ -1,0 +1,274 @@
+"""Distributed level-scheduled trsv with a compact per-chunk halo exchange.
+
+The port of ``hifir_tpu/parallel/trsv_halo.py``.  Chunks of the level
+schedule are split over the ``rows`` ranks as in :mod:`.trsv_sharded`
+(rank k owns slots ``[c*C + k*Cloc, c*C + (k+1)*Cloc)`` of every chunk c),
+but the working vector lives distributed: rank k keeps only its own slices
+(``nchunks * Cloc`` entries) plus a halo region holding exactly the foreign
+slots its rows read, counted on the host.  Every chunk carries its own
+metadata: its dependency gather trimmed to its real fan-in ``K_c``, and an
+exchange of up to three legs, each sized to the halo it carries:
+
+- ring-neighbour dependencies ride two neighbour sends (``ppermute``);
+- the far remainder rides one tiled all_gather of a compact package per
+  rank (only the slots some non-neighbour rank reads);
+- a pure compact all_gather is taken instead where the host count says the
+  mix is not cheaper.
+
+The host planning is the JAX package's, vectorized in numpy; ``meta``,
+``sends``, ``comm_elems`` and ``allgather_elems`` equal the JAX plan's.  A
+chunk's step is one launch of kernel K10a for every rank of a device, then
+its legs, each a gather of the package and one copy into the receivers'
+halo regions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.chunk import ChunkSweep
+from ..ops.trsv import build_trsv_schedule
+from .mesh import Mesh
+
+__all__ = ["HaloOp", "build_halo_op", "halo_op_kernel", "halo_trsv_apply"]
+
+
+@dataclasses.dataclass
+class HaloOp:
+    """One triangular factor's rank-distributed halo schedule.
+
+    The per-rank operands are lists with one tensor per group of the mesh,
+    the ranks of the group along the first axis."""
+
+    mesh: Mesh
+    in_rows: List[torch.Tensor]    # (ranks, own_len) int64 rows feeding own
+    #                                slots (n: zero)
+    out_slots: np.ndarray          # (n,) slot of each row (host)
+    exit_pos: List[torch.Tensor]   # (n,) int64: each row's position in the
+    #                                all_gathered own slices (rank-major)
+    gcols: Tuple[List[torch.Tensor], ...]   # per chunk (ranks, Cloc, K_c)
+    #                                         int32 local coordinates
+    gvals: Tuple[List[torch.Tensor], ...]   # per chunk (ranks, Cloc, K_c)
+    sends: Tuple[Tuple[List[torch.Tensor], ...], ...]  # per chunk and leg
+    #                               (ranks, W) int64 own coordinates to send
+    meta: Tuple[tuple, ...]        # per chunk (off_l, Wl, off_r, Wr, off_ag,
+    #   Wag): the legs' widths and halo offsets; ``sends`` holds the nonzero
+    #   legs in that order
+    nchunks: int
+    Cloc: int
+    own_len: int
+    buf_len: int
+    D: int
+    n: int
+    comm_elems: int                # host-counted exchanged elements
+    allgather_elems: int           # what the tiled all_gather scheme moves
+
+    def nbytes(self) -> int:
+        """Bytes of the operand on all ranks."""
+        ts = [t for c in self.gcols + self.gvals for t in c]
+        ts += [t for c in self.sends for leg in c for t in leg]
+        ts += list(self.in_rows) + list(self.exit_pos)
+        return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _plan(D: int, C: int, cols: np.ndarray, nchunks: int):
+    """The JAX package's halo plan: per chunk meta and send coordinates
+    (-1 unused), every rank's local coordinate of every slot (-1: none
+    yet), the halo's end and the exchanged element count."""
+    Cloc = C // D
+    nslots = nchunks * C
+    own_len = nchunks * Cloc
+    K = cols.shape[2]
+    slot = np.arange(nslots, dtype=np.int64)
+    owner = (slot % C) // Cloc
+    own_coord = (slot // C) * Cloc + (slot % C) - owner * Cloc
+
+    dep = cols.reshape(nchunks, D, Cloc, K).transpose(1, 0, 2, 3)
+    pad = dep >= nslots
+    dep_owner = np.where(pad, -1, owner[np.minimum(dep, nslots - 1)])
+    me = np.arange(D)[:, None, None, None]
+    foreign = (~pad) & (dep_owner != me)
+
+    # the foreign slots rank k reads, by the chunk that produced them
+    need = []
+    for k in range(D):
+        f = np.unique(dep[k][foreign[k]])
+        need.append((f, np.searchsorted(f // C, np.arange(nchunks + 1))))
+
+    def by_owner(sets):
+        """The union of ``sets`` (sorted: by owner, then slot) and where
+        each owner's run starts in it."""
+        u = np.unique(np.concatenate(sets))
+        start = np.concatenate([[0], np.cumsum(np.bincount(
+            owner[u], minlength=D))])
+        return u, start
+
+    loc = np.full((D, nslots + 1), -1, dtype=np.int64)
+    meta, send_plans = [], []
+    halo_off = own_len
+    comm = 0
+    empty = np.empty(0, np.int64)
+    for c in range(nchunks):
+        nd = [f[cut[c]:cut[c + 1]] for f, cut in need]
+        if all(len(s) == 0 for s in nd):
+            meta.append((0, 0, 0, 0, 0, 0))
+            send_plans.append(())
+            continue
+        ow = [owner[s] for s in nd]
+        fl = [nd[k][ow[k] == k - 1] for k in range(D)]
+        fr = [nd[k][ow[k] == k + 1] for k in range(D)]
+        far = [nd[k][(ow[k] != k - 1) & (ow[k] != k + 1)] for k in range(D)]
+        Wl = max(len(s) for s in fl)
+        Wr = max(len(s) for s in fr)
+        union, ustart = by_owner(far)
+        Wag = int(np.diff(ustart).max())
+        union_all, ustart_all = by_owner(nd)
+        Wag_all = int(np.diff(ustart_all).max())
+        if D * Wag_all < Wl + Wr + D * Wag:
+            fl = fr = [empty] * D
+            far, union, ustart = nd, union_all, ustart_all
+            Wl = Wr = 0
+            Wag = Wag_all
+        off_l = halo_off
+        off_r = off_l + Wl
+        off_ag = off_r + Wr
+        halo_off = off_ag + D * Wag
+        meta.append((off_l, Wl, off_r, Wr, off_ag, Wag))
+        plan = []
+        if Wl:
+            send_r = np.full((D, Wl), -1, dtype=np.int64)
+            for k in range(D):
+                if k + 1 < D:
+                    send_r[k, :len(fl[k + 1])] = own_coord[fl[k + 1]]
+                loc[k, fl[k]] = off_l + np.arange(len(fl[k]))
+            plan.append(send_r)
+            comm += (D - 1) * Wl
+        if Wr:
+            send_l = np.full((D, Wr), -1, dtype=np.int64)
+            for k in range(D):
+                if k >= 1:
+                    send_l[k, :len(fr[k - 1])] = own_coord[fr[k - 1]]
+                loc[k, fr[k]] = off_r + np.arange(len(fr[k]))
+            plan.append(send_l)
+            comm += (D - 1) * Wr
+        if Wag:
+            send = np.full((D, Wag), -1, dtype=np.int64)
+            for o in range(D):
+                u = union[ustart[o]:ustart[o + 1]]
+                send[o, :len(u)] = own_coord[u]
+            for k in range(D):
+                s = far[k]
+                o = owner[s]
+                rank = np.searchsorted(union, s) - ustart[o]
+                loc[k, s] = off_ag + o * Wag + rank
+            plan.append(send)
+            comm += D * (D - 1) * Wag
+        send_plans.append(tuple(plan))
+
+    for k in range(D):
+        mine = owner == k
+        loc[k, :nslots][mine] = own_coord[mine]
+    return meta, send_plans, loc, halo_off, comm, owner, own_coord, dep, pad
+
+
+def build_halo_op(mesh: Mesh, T, lower: bool, chunk: int = 256,
+                  dtype=None, max_chunks: Optional[int] = None
+                  ) -> Optional[HaloOp]:
+    """Build the per-chunk halo schedule for ``(I + strict(T))^{-1}``.
+
+    Returns ``None`` when the factor is empty, the mesh has one rank, or the
+    schedule has more than ``max_chunks`` chunks (the caller then takes the
+    all_gather op, as in the JAX package)."""
+    D = mesh.D
+    C = max(chunk, D)
+    C -= C % D
+    sched = build_trsv_schedule(T, lower=lower, chunk=C, dtype=dtype,
+                                device="cpu")
+    nchunks = sched.nchunks
+    if nchunks == 0 or D == 1:
+        return None
+    if max_chunks is not None and nchunks > max_chunks:
+        return None
+    Cloc = C // D
+    nslots = nchunks * C
+    n = sched.n
+    own_len = nchunks * Cloc
+    cols = sched.cols.numpy()
+    vals = sched.vals.numpy()
+    K = cols.shape[2]
+    (meta, send_plans, loc, halo_off, comm, owner, own_coord, dep,
+     pad) = _plan(D, C, cols, nchunks)
+    buf_len = halo_off + 1
+    LPAD = buf_len - 1
+    loc[loc < 0] = LPAD
+    dvals = vals.reshape(nchunks, D, Cloc, K).transpose(1, 0, 2, 3)
+
+    gcols, gvals, sends = [], [], []
+    for c in range(nchunks):
+        # trim to the chunk's real fan-in
+        Kc = max(int((~pad[:, c]).sum(axis=2).max()), 1)
+        dk = np.where(pad[:, c, :, :Kc], nslots, dep[:, c, :, :Kc])
+        lc = np.take_along_axis(loc, dk.reshape(D, -1), axis=1) \
+            .reshape(D, Cloc, Kc)
+        gcols.append(mesh.put(lc.astype(np.int32)))
+        gvals.append(mesh.put(np.ascontiguousarray(dvals[:, c, :, :Kc])))
+        sends.append(tuple(mesh.put(np.where(s < 0, LPAD, s))
+                           for s in send_plans[c]))
+
+    in_rows = sched.in_rows.numpy().reshape(nchunks, D, Cloc) \
+        .transpose(1, 0, 2).reshape(D, own_len)
+    out_slots = sched.out_slots.numpy().astype(np.int64)
+    exit_pos = owner[out_slots] * own_len + own_coord[out_slots]
+    return HaloOp(
+        mesh=mesh, in_rows=mesh.put(in_rows.astype(np.int64)),
+        out_slots=out_slots,
+        exit_pos=[torch.as_tensor(exit_pos, device=g.device)
+                  for g in mesh.groups()],
+        gcols=tuple(gcols), gvals=tuple(gvals), sends=tuple(sends),
+        meta=tuple(meta), nchunks=nchunks, Cloc=Cloc, own_len=own_len,
+        buf_len=buf_len, D=D, n=n, comm_elems=comm,
+        allgather_elems=nchunks * D * (C - Cloc))
+
+
+def halo_op_kernel(op: HaloOp, bs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Solve (I + strict(T)) x = b on the ranks: ``bs`` replicated (per
+    group (ranks, n)); the working vector distributed (own slices + halo);
+    the result replicated (one exit all_gather)."""
+    mesh, D, Cloc = op.mesh, op.D, op.Cloc
+    xs = []
+    for b, ir in zip(bs, op.in_rows):
+        x = b.new_zeros((b.shape[0], op.buf_len))
+        ext = torch.cat([b, b.new_zeros((b.shape[0], 1))], 1)
+        x[:, :op.own_len] = ext.gather(1, ir)
+        xs.append(x)
+    sweeps = [ChunkSweep(x) for x in xs]
+    off = 0
+    for c in range(op.nchunks):
+        for sweep, cc, vv in zip(sweeps, op.gcols[c], op.gvals[c]):
+            sweep(cc, vv, off)
+        off_l, Wl, off_r, Wr, off_ag, Wag = op.meta[c]
+        legs = iter(op.sends[c])
+        if Wl:
+            pkg = [x.gather(1, s) for x, s in zip(xs, next(legs))]
+            mesh.shift(pkg, 1, out=[x[:, off_l:off_l + Wl] for x in xs])
+        if Wr:
+            pkg = [x.gather(1, s) for x, s in zip(xs, next(legs))]
+            mesh.shift(pkg, -1, out=[x[:, off_r:off_r + Wr] for x in xs])
+        if Wag:
+            pkg = [x.gather(1, s) for x, s in zip(xs, next(legs))]
+            mesh.all_gather(pkg, out=[x[:, off_ag:off_ag + D * Wag]
+                                      for x in xs])
+        off += Cloc
+    full = mesh.all_gather([x[:, :op.own_len] for x in xs])
+    return [f.index_select(1, e) for f, e in zip(full, op.exit_pos)]
+
+
+def halo_trsv_apply(op: HaloOp, b) -> torch.Tensor:
+    """Apply one halo-trsv operator on its ranks; ``b`` replicated in (every
+    rank a copy), rank 0's copy of x returned."""
+    b = torch.as_tensor(b, dtype=op.gvals[0][0].dtype)
+    return halo_op_kernel(op, op.mesh.replicate(b))[0][0]

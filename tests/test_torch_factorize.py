@@ -242,11 +242,6 @@ def test_options_copy_field_for_field():
             __import__("hifir_tpu.options", fromlist=[name]), name)
 
 
-def test_dist_schur_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        port_factorize(convdiff2d(8), JOptions(verbose=0, dist_schur=1))
-
-
 def test_factorize_raw_and_clear(monkeypatch):
     monkeypatch.setattr(tnative, "_load", lambda: None)
     A = convdiff2d(10)
