@@ -138,6 +138,18 @@ Phases, in order; any failed gate raises and the script exits non-zero:
    native factorize of saddle_point_stokes(64), packed in f32, 10
    Richardson steps with the f64 residual on the host and the M-solve on
    the card; the median contraction of the first 5 steps must be < 0.5.
+14. Distribution, generator --seed + 6, eight ranks on the card
+   (hifir_tpu_torch.parallel), each part counted: DistPrec on
+   poisson2d(512) in f64 and f32 against the host and single-device
+   solves (1e-12 / 1e-4), timed and profiled; every one-group run takes
+   one chunk sweep (K10a redesigned) a factor application and no
+   per-chunk K10a; poisson2d(64)'s halo, all_gather and whole-vector
+   forms, then its halo and all_gather forms on two groups of the one
+   card, where K10a runs a chunk a group; the sharded and halo SpMV and
+   the IR step on a (2, 4) mesh; the ring Schur (K10b) under dist_schur=1
+   on convdiff2d(128); PartitionedHIF with eight parts; then the rows of
+   K10a, the sweep (one application of level 0's L) and K10b against
+   their plain versions.
 
 Every torch.profiler breakdown discards one profiled warm-up run, leaves
 PROFILE_PAD_S of idle host at each end of the window (the tracer drops
@@ -850,7 +862,7 @@ def time_main_path(torch, packs, Bd, Ab, nnz):
 def _kernel_name(name: str) -> str:
     for k in ("bsr_mma_kernel", "bsr_stream_kernel", "sell_wide_kernel",
               "sell_narrow_kernel", "trsv_solve_kernel", "chunk_fma_kernel",
-              "schur_partial_kernel"):
+              "chunk_sweep_kernel", "schur_partial_kernel"):
         if k in name:
             return k
     return name if len(name) <= 70 else name[:67] + "..."
@@ -876,7 +888,7 @@ _LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 _KERNEL_OF = {"bsr_mma_kernel": "K7", "bsr_stream_kernel": "K7",
               "sell_wide_kernel": "K1", "sell_narrow_kernel": "K1",
               "trsv_solve_kernel": "K2", "chunk_fma_kernel": "K10a",
-              "schur_partial_kernel": "K10b"}
+              "chunk_sweep_kernel": "sweep", "schur_partial_kernel": "K10b"}
 
 
 def profiled(torch, body, warm=None, start=None, pads=None):
@@ -2405,6 +2417,7 @@ def saddle_phase(torch, rng, smi):
 DIST_NX = 512          # the JAX package's DistPrec scale leg
 DIST_CHUNK = 1024
 DIST_RANKS = 8
+SWEEP_WIDE_RANKS = (16, 17, 32)
 RED_OPTS = dict(tau_L=1e-2, tau_U=1e-2, alpha_L=3, alpha_U=3, kappa=5,
                 kappa_d=5, verbose=0, dense_thres=50)
 
@@ -2413,7 +2426,8 @@ def dist_counters():
     from hifir_tpu_torch.ops import chunk
     from hifir_tpu_torch.parallel import schur
 
-    return {"K10a": chunk.ChunkSweep, "K10b": schur.schur_partial_cuda}
+    return {"K10a": chunk.ChunkSweep, "sweep": chunk.ChunkSweepKernel,
+            "K10b": schur.schur_partial_cuda}
 
 
 def dist_reset():
@@ -2433,20 +2447,20 @@ def dist_plain_calls() -> int:
     from hifir_tpu_torch.parallel import schur
 
     return (plain_calls() + chunk.chunk_fma_plain.calls
-            + schur.schur_partial_plain.calls)
+            + chunk.chunk_sweep_plain.calls + schur.schur_partial_plain.calls)
 
 
 def dist_count(torch, launches, what, fn):
-    """``fn()`` with every launch count (K10a and K10b too) and the plain
-    versions' calls set to 0 just before it and read just after; a plain
-    call on the card fails the run."""
+    """``fn()`` with every launch count (K10a, the sweep and K10b too) and
+    the plain versions' calls set to 0 just before it and read just after;
+    a plain call on the card fails the run."""
     from hifir_tpu_torch.ops import chunk, spmv, trsv
     from hifir_tpu_torch.ops.bsr_spmv import bsr_matvec_mrhs_plain
     from hifir_tpu_torch.parallel import schur
 
-    for f in (chunk.chunk_fma_plain, schur.schur_partial_plain,
-              spmv.sliced_ell_sub_mrhs_plain, trsv.trsv_apply_plain,
-              bsr_matvec_mrhs_plain):
+    for f in (chunk.chunk_fma_plain, chunk.chunk_sweep_plain,
+              schur.schur_partial_plain, spmv.sliced_ell_sub_mrhs_plain,
+              trsv.trsv_apply_plain, bsr_matvec_mrhs_plain):
         f.calls = 0
     torch.cuda.synchronize()
     dist_reset()
@@ -2465,42 +2479,148 @@ def dist_solve_factors(dp) -> dict:
 
     kinds = [type(op).__name__ for lv in dp.levels
              for op in (lv.L_op, lv.U_op) if op.nchunks]
-    return dict(halo_factors=kinds.count(HaloOp.__name__),
+    return dict(factors=len(kinds), halo_factors=kinds.count(HaloOp.__name__),
                 ag_factors=kinds.count("AGTrsvOp"),
                 chunks_per_solve=2 * sum(op.nchunks for lv in dp.levels
                                          for op in (lv.L_op, lv.U_op)),
                 xin_levels=sum(lv.xin is not None for lv in dp.levels))
 
 
+def sweep_gates(per: dict, shape: dict, what: str) -> None:
+    """On the one-group mesh every factor application is one sweep launch
+    (each factor with chunks runs twice a solve, down and up) and no K10a
+    launch runs."""
+    gate(per["sweep"] == 2 * shape["factors"] and per["K10a"] == 0,
+         f"{what}: {per['sweep']} sweep launches for {shape['factors']} "
+         f"factors with chunks, {per['K10a']} K10a launches")
+
+
+def k10a_gates(per: dict, shape: dict, ngroups: int, what: str) -> None:
+    """On a mesh of several groups every chunk step is one K10a launch a
+    group and no sweep runs."""
+    gate(per["K10a"] == ngroups * shape["chunks_per_solve"]
+         and per["sweep"] == 0,
+         f"{what}: {per['K10a']} K10a launches, {per['sweep']} sweeps for "
+         f"{shape['chunks_per_solve']} chunk steps of {ngroups} groups")
+
+
+def sweep_bytes(sw, es: int) -> tuple:
+    """What one application of a sweep must move, and its entries: each
+    live entry's index and value once, each x entry it reads once (a
+    rank's distinct dependencies and its own slots), and each slot written
+    once a rank copy (halo form: the own slots and the legs' receivers)."""
+    R, cloc = sw.ranks, sw.cloc
+    keys, nnz = [], 0
+    if sw.form == "all_gather":
+        cols, vals = sw.cols.cpu().numpy(), sw.vals.cpu().numpy()
+        live = vals != 0
+        rk = np.broadcast_to(np.arange(R)[None, :, None, None], cols.shape)
+        keys.append(rk[live].astype(np.int64) * sw.min_len + cols[live])
+        own = sw.nchunks * sw.chunk
+        written = own * R
+    else:
+        written = 0
+        for c in range(sw.nchunks):
+            cols, vals, _ = (t.cpu().numpy() for t in sw.halo_chunk(c))
+            live = vals != 0
+            rk = np.broadcast_to(np.arange(R)[:, None, None], cols.shape)
+            keys.append(rk[live].astype(np.int64) * sw.min_len + cols[live])
+            _, Wl, _, Wr, _, Wag = sw.desc_host[c, 3:9].tolist()
+            written += (Wl + Wr) * (R - 1) + Wag * R * R
+        own = sw.nchunks * cloc * R
+        written += own
+    nnz = sum(k.size for k in keys)
+    uniq = np.unique(np.concatenate(keys)).size
+    return nnz * (4 + es) + (uniq + own) * es + written * es, nnz
+
+
+def sweep_pair(torch, rng, op, dt):
+    """One application of factor ``op``'s chunk sweep (its one-group plan)
+    by the kernel and by ``chunk_sweep_plain`` on the same slot vectors:
+    random own slots, the halo regions and the zero slot zero.  Returns the
+    sweep, the entry vectors and both results."""
+    from hifir_tpu_torch.ops import chunk
+    from hifir_tpu_torch.parallel.trsv_halo import HaloOp
+
+    halo = isinstance(op, HaloOp)
+    sw = op.packed[0] if halo else op.plan
+    gate(sw is not None, "the factor has no sweep plan (several groups)")
+    own = op.own_len if halo else op.nslots
+    x0 = torch.zeros((sw.ranks, sw.min_len), dtype=dt, device=sw.vals.device)
+    x0[:, :own] = randn_on(torch, rng, (sw.ranks, own), dt)
+    xk, xp = x0.clone(), x0.clone()
+    chunk.chunk_sweep(xk, sw)
+    chunk.chunk_sweep_plain(xp, sw)
+    torch.cuda.synchronize()
+    return sw, x0, xk, xp
+
+
+def sweep_row(torch, book, rng, dp, lvl, Th, name):
+    """The chunk sweep (K10a redesigned): one application of level
+    ``lvl``'s L factor of ``dp`` (factor ``Th``) on every rank, one launch,
+    against ``chunk_sweep_plain`` on the same slot vectors.  The library
+    call is ``torch.triangular_solve`` with the factor as CSR on one copy
+    (as K2's row), held against the factor's distributed solve of the same
+    right-hand side."""
+    import scipy.sparse as sp
+
+    from hifir_tpu_torch.ops import chunk
+    from hifir_tpu_torch.parallel.prec_sharded import _trsv_op_kernel
+
+    op = dp.levels[lvl].L_op
+    dt = dp.dtype
+    dname = str(dt).removeprefix("torch.")
+    es = torch.empty((), dtype=dt).element_size()
+    sw, x0, xk, xp = sweep_pair(torch, rng, op, dt)
+    tol, stol = (1e-12, 1e-10) if dt == torch.float64 else (1e-5, 1e-4)
+    Ts = sp.tril(Th.to_scipy().tocsr(), -1).tocsr()
+    Tcsr = csr_tensor(torch, (Ts + sp.eye(op.n, format="csr")).tocsr()
+                      .sorted_indices(), dt, sw.vals.device)
+    b = randn_on(torch, rng, (op.n, 1), dt)
+    ref = _trsv_op_kernel(op, dp.mesh.replicate(b[:, 0]))[0][0][:, None]
+    lib = book.library(
+        f"{name} {dname} level-{lvl} L torch.triangular_solve (CSR)",
+        lambda: torch.triangular_solve(b, Tcsr, upper=False,
+                                       unitriangular=True)[0], ref, stol)
+    nbytes, nnz = sweep_bytes(sw, es)
+    xw, xq = x0.clone(), x0.clone()
+    ms = book.T.ms(lambda: chunk.chunk_sweep(xw, sw))
+    plain_ms = book.T.ms(lambda: chunk.chunk_sweep_plain(xq, sw), iters=3,
+                         warmup=1)
+    K = (sw.cols.shape[3] if sw.form == "all_gather"
+         else int(sw.desc_host[:, 1].max()))
+    book.record(name, dname,
+                f"ranks={sw.ranks} chunks={sw.nchunks} cloc={sw.cloc} K={K} "
+                f"nnz={nnz} slots={sw.min_len} form={sw.form} level={lvl} L "
+                f"stages={sw._kernel.stages} smem={sw._kernel.smem}",
+                xk, xp, ms, plain_ms, lib, nbytes, 2.0 * nnz, tol,
+                simt_peak(dt))
+
+
 def k10a_row(torch, book, rng, dp):
-    """K10a at the main path's shape: the chunk of the first level's L
-    operator with the most dependency entries, on every rank at once,
-    against the plain version, with torch.sparse.mm of the chunk's rows
+    """K10a at the shape the several-group layout gives it: the chunk of
+    the first all_gather L factor (level 0 on the main path) with the most
+    dependency entries in group 0, on that group's ranks at once, against
+    the plain version, with torch.sparse.mm of the chunk's rows
     (rank-offset columns over the ranks' stacked buffers) as the library
     call computing the same contributions."""
     import scipy.sparse as sp
 
     from hifir_tpu_torch.ops import chunk
-    from hifir_tpu_torch.parallel.trsv_halo import HaloOp
+    from hifir_tpu_torch.parallel.prec_sharded import AGTrsvOp
 
-    op = dp.levels[0].L_op
+    lvl, op = next((i, lv.L_op) for i, lv in enumerate(dp.levels)
+                   if isinstance(lv.L_op, AGTrsvOp) and lv.L_op.nchunks)
+    gate(op.plan is None, "K10a row: the factor runs the sweep (one group)")
     dt = dp.dtype
     dname = str(dt).removeprefix("torch.")
     es = torch.empty((), dtype=dt).element_size()
-    if isinstance(op, HaloOp):
-        nnzs = [int((v[0] != 0).sum()) for v in op.gvals]
-        c = int(np.argmax(nnzs))
-        cols, vals = op.gcols[c][0], op.gvals[c][0]
-        L, out_off, out_step = op.buf_len, c * op.Cloc, 0
-        form = "halo"
-    else:
-        nnzs = [int((op.vals[0][c] != 0).sum()) for c in range(op.nchunks)]
-        c = int(np.argmax(nnzs))
-        cols, vals = op.cols[0][c], op.vals[0][c]
-        Cloc = op.chunk // dp.mesh.D
-        L, out_off, out_step = op.nslots + 1, c * op.chunk, Cloc
-        form = "all_gather"
+    g = dp.mesh.groups()[0]
+    nnzs = [int((op.vals[0][c] != 0).sum()) for c in range(op.nchunks)]
+    c = int(np.argmax(nnzs))
+    cols, vals = op.cols[0][c], op.vals[0][c]
     R, cloc, K = cols.shape
+    L, out_off, out_step = op.nslots + 1, c * op.chunk + g.lo * cloc, cloc
     x0 = randn_on(torch, rng, (R, L), dt)
     x0[:, -1] = 0
     xk, xp = x0.clone(), x0.clone()
@@ -2524,7 +2644,7 @@ def k10a_row(torch, book, rng, dp):
     plain_ms = book.T.ms(lambda: chunk.chunk_fma_plain(
         xw, cols, vals, out_off, out_step))
     lib = book.library(
-        f"K10a {dname} {form} chunk torch.sparse.mm",
+        f"K10a {dname} all_gather chunk torch.sparse.mm",
         lambda: torch.sparse.mm(Acsr, x0.reshape(-1, 1)).view(R, cloc),
         contrib, 1e-12 if dt == torch.float64 else 1e-5)
     # each entry's index and value once, each x entry it reads once, and
@@ -2532,8 +2652,9 @@ def k10a_row(torch, book, rng, dp):
     uniq = len({(a, b) for a, b in zip(r.tolist(), cc[live].tolist())})
     nbytes = nnz * (4 + es) + uniq * es + 2 * R * cloc * es
     book.record("K10a_chunk", dname,
-                f"ranks={R} cloc={cloc} K={K} nnz={nnz} slots={L} "
-                f"form={form} level=0 L chunk={c}", Y, Yp, ms, plain_ms, lib,
+                f"ranks={R} (group 0 of {len(dp.mesh.groups())}) "
+                f"cloc={cloc} K={K} nnz={nnz} slots={L} form=all_gather "
+                f"level={lvl} L chunk={c}", Y, Yp, ms, plain_ms, lib,
                 nbytes, 2.0 * nnz, 1e-12 if dt == torch.float64 else 1e-5,
                 simt_peak(dt))
 
@@ -2592,10 +2713,12 @@ def randn_on(torch, rng, shape, dt):
 
 def dist_phase(torch, T, rng, smi):
     """Distribution (``hifir_tpu_torch/parallel``) on eight ranks of one
-    card, each part counted: DistPrec at the JAX package's scale leg, the
-    halo and exchange paths at full depth, the sharded IR step, the ring
-    Schur and dist_schur=1, and PartitionedHIF with a DistPrec a part.
-    Returns the report, the launches of each part and the kernel rows."""
+    card, each part counted: DistPrec at the JAX package's scale leg (one
+    group: the sweep; two groups of the card: K10a a chunk), the halo and
+    exchange paths at full depth (also on two groups, and the sweep's wider
+    clusters of 16, 17 and 32 ranks), the sharded IR step, the ring Schur
+    and dist_schur=1, and PartitionedHIF with a DistPrec a part.  Returns
+    the report, the launches of each part and the kernel rows."""
     import hifir_tpu_torch as ht
     from hifir_tpu_torch.models.problems import convdiff2d, poisson2d
     from hifir_tpu_torch.ops.spmv import (sliced_ell_from_csr,
@@ -2605,6 +2728,7 @@ def dist_phase(torch, T, rng, smi):
                                           make_mesh, make_sharded_ir_step,
                                           shard_ell_rows, sharded_spmv)
     from hifir_tpu_torch.parallel import schur as pschur
+    from hifir_tpu_torch.parallel.trsv_halo import HaloOp
 
     dev = "cuda"
     launches, report = {}, {}
@@ -2643,9 +2767,7 @@ def dist_phase(torch, T, rng, smi):
         gate(err_h <= tol, f"DistPrec {name} vs host solve {err_h:.3e}")
         gate(err_s <= tol, f"DistPrec {name} vs DevicePrec solve "
              f"{err_s:.3e}")
-        gate(per["K10a"] == shape["chunks_per_solve"],
-             f"DistPrec {name}: {per['K10a']} K10a launches, "
-             f"{shape['chunks_per_solve']} chunks")
+        sweep_gates(per, shape, f"DistPrec {name}")
         gate(per["K1"] > 0, "DistPrec: no K1 launch")
         ms = timed(torch, lambda: dp.solve(b), 3)
         prof = None
@@ -2669,6 +2791,40 @@ def dist_phase(torch, T, rng, smi):
             f"rel err vs host {err_h:.3e}, vs DevicePrec {err_s:.3e} "
             f"(tol {tol:.0e}); solve {ms} ms (CUDA events); launches/solve "
             f"{per} [{smi}]")
+    # K10a a chunk at the shape a mesh over several devices gives it: the
+    # same solve on two groups of the one card ("cuda:0" and "cuda" are
+    # distinct devices to the mesh, as "cpu" and "cpu:0" in the tests), four
+    # ranks x 128 slots a group, the all_gather legs as copies between
+    # launches
+    mesh2 = make_mesh(devices=["cuda:0"] * 4 + ["cuda"] * 4)
+    ngroups = len(mesh2.groups())
+    gate(ngroups == 2, f"the split layout has {ngroups} groups")
+    dps2 = {}
+    for npdt, tol in ((np.float64, 1e-12), (np.float32, 1e-4)):
+        name = np.dtype(npdt).name
+        what = f"distprec {name} solve two groups"
+        t0 = time.perf_counter()
+        dp = dps2[name] = DistPrec.from_host(
+            mesh2, P, dtype=npdt, chunk=DIST_CHUNK, max_halo_chunks=128)
+        build = time.perf_counter() - t0
+        shape = dist_solve_factors(dp)
+        x = dist_count(torch, launches, what,
+                       lambda: dp.solve(b)).double().cpu().numpy()
+        per = launches[what]
+        err_h = float(np.abs(x - xh).max() / xmax)
+        gate(err_h <= tol, f"DistPrec {name}, two groups, vs host solve "
+             f"{err_h:.3e}")
+        k10a_gates(per, shape, ngroups, what)
+        # timed in f64 only: the f32 run stands for its K10a row's shape
+        ms = timed(torch, lambda: dp.solve(b), 1) if npdt == np.float64 \
+            else None
+        rep[f"{name} two groups"] = dict(**shape, build_seconds=build,
+                                         err_vs_host=err_h, solve_ms=ms,
+                                         launches_per_solve=per)
+        log(f"  DistPrec poisson2d({DIST_NX}) {name} on two groups of one "
+            f"card: build {build:.2f} s (host); rel err vs host {err_h:.3e} "
+            f"(tol {tol:.0e}); solve {ms} ms (CUDA events); launches/solve "
+            f"{per} [{smi}]")
     report["distprec"] = rep
 
     report["distprec"]["seconds"] = time.perf_counter() - t_part
@@ -2685,11 +2841,14 @@ def dist_phase(torch, T, rng, smi):
     for form, kw in (("halo", {}), ("all_gather", dict(halo=False)),
                      ("whole vectors", dict(shard_vectors=False))):
         dp = DistPrec.from_host(mesh, P64, chunk=64, **kw)
+        if form == "halo":
+            dp64_halo = dp
         x = dist_count(torch, launches, f"p64 {form}",
                        lambda: dp.solve(b64)).cpu().numpy()
         err = float(np.abs(x - xh64).max() / np.abs(xh64).max())
         gate(err <= 1e-12, f"poisson2d(64) DistPrec {form}: {err:.3e}")
         shape = dist_solve_factors(dp)
+        sweep_gates(launches[f"p64 {form}"], shape, f"poisson2d(64) {form}")
         rep[form] = dict(err=err, comm_elems=dp.comm_elems,
                          allgather_elems=dp.allgather_elems,
                          n_halo=dp.n_halo, **shape,
@@ -2709,6 +2868,46 @@ def dist_phase(torch, T, rng, smi):
             f"1e-12); comm {dp.comm_elems} / allgather "
             f"{dp.allgather_elems}; halo factors {dp.n_halo}; launches "
             f"{launches[f'p64 {form}']}")
+    # K10a a chunk in both forms: the same operator on the two groups
+    for form, kw in (("halo", {}), ("all_gather", dict(halo=False))):
+        what = f"p64 {form} two groups"
+        dp = DistPrec.from_host(mesh2, P64, chunk=64, **kw)
+        x = dist_count(torch, launches, what,
+                       lambda: dp.solve(b64)).cpu().numpy()
+        err = float(np.abs(x - xh64).max() / np.abs(xh64).max())
+        shape = dist_solve_factors(dp)
+        per = launches[what]
+        gate(err <= 1e-12, f"poisson2d(64) DistPrec {form}, two groups: "
+             f"{err:.3e}")
+        k10a_gates(per, shape, ngroups, what)
+        rep[f"{form} two groups"] = dict(err=err, **shape, launches=per)
+        log(f"  poisson2d(64) DistPrec {form}, two groups of one card: rel "
+            f"err {err:.3e} (tol 1e-12); launches {per}")
+    # the sweep's wider clusters: 16 ranks (a non-portable cluster of 16
+    # CTAs), 17 and 32 (two ranks a CTA, the last CTA of 17 with one)
+    for R in SWEEP_WIDE_RANKS:
+        meshR = make_mesh(R, device=dev)
+        for form, kw in (("halo", {}), ("all_gather", dict(halo=False))):
+            what = f"p64 {form} {R} ranks"
+            dp = DistPrec.from_host(meshR, P64, chunk=64, **kw)
+            x = dist_count(torch, launches, what,
+                           lambda: dp.solve(b64)).cpu().numpy()
+            err = float(np.abs(x - xh64).max() / np.abs(xh64).max())
+            shape = dist_solve_factors(dp)
+            gate(err <= 1e-12, f"poisson2d(64) DistPrec {form}, {R} ranks: "
+                 f"{err:.3e}")
+            sweep_gates(launches[what], shape, what)
+            sw, _, xk, xp = sweep_pair(torch, rng, dp.levels[0].L_op,
+                                       dp.dtype)
+            serr = rel_diff(xk, xp)
+            gate(serr <= 1e-12, f"{what}: the level-0 L sweep differs from "
+                 f"its plain version by {serr:.3e}")
+            rep[f"{form} {R} ranks"] = dict(
+                err=err, sweep_vs_plain=serr, cloc=sw.cloc,
+                stages=sw._kernel.stages, **shape, launches=launches[what])
+            log(f"  poisson2d(64) DistPrec {form}, {R} ranks on one card: "
+                f"rel err {err:.3e}; level-0 L sweep vs plain {serr:.3e} "
+                f"(tol 1e-12; cloc {sw.cloc}); launches {launches[what]}")
     report["halo_paths"] = rep
     rep["seconds"] = time.perf_counter() - t_part
     t_part = time.perf_counter()
@@ -2831,8 +3030,11 @@ def dist_phase(torch, T, rng, smi):
          "the partitioned adjoint left the host path")
     gate(e_d <= 1e-12 and e_a <= 1e-12, f"partitioned device forms vs host "
          f"RAS: {e_d:.3e} / {e_a:.3e}")
-    gate(launches["partitioned DistPrec"]["K10a"] > 0,
-         "partitioned DistPrec: no K10a launch")
+    shape = dict(factors=sum(dist_solve_factors(p.M_dist)["factors"]
+                             for p in PP.parts if p.M_dist is not None))
+    gate(shape["factors"] > 0, "partitioned DistPrec: no distributed factor")
+    sweep_gates(launches["partitioned DistPrec"], shape,
+                "partitioned DistPrec")
     report["partitioned"] = dict(
         factorize_seconds=psecs, attach_seconds=asecs,
         levels=PP.levels(), err_to_device=e_d, err_dist=e_a,
@@ -2848,9 +3050,18 @@ def dist_phase(torch, T, rng, smi):
 
     log("  seconds by part: " + ", ".join(
         f"{k} {v['seconds']:.1f}" for k, v in report.items()))
-    # the kernel rows
+    # the kernel rows: K10a on a group of the two-group solve, the sweep in
+    # the main path's all_gather form and in the halo form (poisson2d(64)'s
+    # first level carried by a halo factor)
+    hl = next(i for i, lv in enumerate(dp64_halo.levels)
+              if isinstance(lv.L_op, HaloOp))
     for name, dp in dps.items():
-        k10a_row(torch, book, rng, dp)
+        k10a_row(torch, book, rng, dps2[name])
+        sweep_row(torch, book, rng, dp, 0, P.precs[0].L_B, "K10a_sweep")
+        dph = dp64_halo if name == "float64" else DistPrec.from_host(
+            mesh, P64, dtype=np.float32, chunk=64)
+        sweep_row(torch, book, rng, dph, hl, P64.precs[hl].L_B,
+                  "K10a_sweep_halo")
         k10b_row(torch, book, big, mesh, dp.dtype)
     return report, launches, book.rows
 
@@ -2864,11 +3075,16 @@ _SOURCES = {
            "hifir_tpu/ops/trsv.py:544"),
 }
 # the distribution phase's kernels: (name, route, source, replaces, the run
-# whose launches stand for the kernel, its row)
+# whose launches stand for the kernel, its row).  The sweep carries the
+# DistPrec solve on one group; K10a a chunk carries the same solve on two
+# groups, and its row is taken from that run's operator.
 _DIST_SOURCES = {
     "K10a": ("K10a_chunk", "cuda", "hifir_tpu_torch/csrc/kernels.cu",
-             "hifir_tpu/parallel/trsv_halo.py:284", "distprec float64 solve",
-             "K10a_chunk"),
+             "hifir_tpu/parallel/prec_sharded.py:92",
+             "distprec float64 solve two groups", "K10a_chunk"),
+    "sweep": ("K10a_sweep", "cuda", "hifir_tpu_torch/csrc/kernels.cu",
+              "hifir_tpu/parallel/prec_sharded.py:77",
+              "distprec float64 solve", "K10a_sweep"),
     "K10b": ("K10b_schur", "cuda", "hifir_tpu_torch/csrc/kernels.cu",
              "hifir_tpu/parallel/schur.py:96", "dist_schur factorize",
              "K10b_schur"),

@@ -18,6 +18,9 @@
 //                  triangular solves, hifir_tpu/parallel/trsv_halo.py:
 //                  halo_op_kernel, prec_sharded.py:ag_op_kernel and
 //                  trsv_sharded.py:_kernel (x[own] -= sum vals * x[cols])
+//      chunk_sweep K10a redesigned: the same solves' whole chunk loop
+//                  (lax.scan over the chunks, the exchange legs inside) in
+//                  one cluster launch, for the ranks of one device
 // K10b schur_partial replaces hifir_tpu/parallel/schur.py:_partial_kernel
 //                  (one ring step of the Schur SpGEMM: candidates, sort by
 //                  column, runs of equal columns summed)
@@ -1365,6 +1368,368 @@ int chunk_fma(T* x, int64_t xs, int out_off, int out_step, const int* cols,
 }
 
 // ---------------------------------------------------------------------------
+// K10a redesigned, the chunk sweep: one launch runs a distributed triangular
+// factor's whole chunk loop (the JAX package's lax.scan over the chunks,
+// with the exchange legs inside it) for the R ranks of one device.  Rank
+// r's working vector is row r of x (row stride xs).  Per chunk c, rank r
+// computes its cloc slots as chunk_fma does,
+//   y[j] = x[r][own + j] - sum_k vals[j][k] * x[r][cols[j][k]]
+// (k = 0..K-1 by fma, K10a's order), and sends them:
+// - all_gather form (desc null): own = c * chunk + r * cloc, and y[j] goes
+//   to x[q][own + j] for every rank q (the tiled all_gather);
+// - halo form: own = c * cloc, y[j] goes to x[r][own + j]; then its legs
+//   (the chunk's record: off_l, Wl, off_r, Wr, off_ag, Wag) take the values
+//   at rank r's send coordinates: the first Wl to rank r + 1 at off_l, the
+//   next Wr to rank r - 1 at off_r, the last Wag to every rank at
+//   off_ag + r * Wag.  Edge ranks with no sender keep the zeros their halo
+//   region starts with (the caller's precondition).
+// A chunk's (cloc, K) cols and vals of every rank are one block of the flat
+// operands (rank r's at coff + r * cloc * K; all_gather form coff = c * R *
+// cloc * K, halo form coff and K = K_c from the chunk's record), and rank
+// r's send coordinates the (W = Wl + Wr + Wag) run at soff + r * W of
+// sends.  Records (halo form): kSweepRec int64 a chunk, (coff, K_c, soff,
+// off_l, Wl, off_r, Wr, off_ag, Wag, 0).
+//
+// Bound: the chain of dependent chunk steps, not bytes: a step moves ~6-12
+// KB a rank, and each needs every rank's previous step.  Design, one link
+// of the chain made short:
+// - one thread block cluster, one CTA a rank (several past 16 ranks); the
+//   steps are separated by one cluster barrier (arrive.release,
+//   wait.acquire), no launch;
+// - a rank's cols, vals, send coordinates and record do not depend on x:
+//   the TMA copies them S - 1 chunks ahead into a ring in shared memory
+//   (an mbarrier a stage), so a step's only global reads are x's;
+// - the CTA's last warp is the producer: it computes nothing, arrives at
+//   the cluster barrier at once and issues the ring's refill while the
+//   other warps step, so the refill is off the chain (issued by a
+//   computing thread between its arrive and wait, it lengthened every
+//   step; PERF.md section 6);
+// - x and its halo stay in global memory (L2 resident at the main path's
+//   sizes) and are read with ld.global.cg: other CTAs write them during the
+//   launch, so neither L1 nor the read-only path may serve them;
+// - the halo legs read this chunk's values from shared memory, where the
+//   step also left them.
+// A span of a flat operand is copied as the 16-byte lines that cover it;
+// the host leaves 16 bytes of slack after each operand and 16-byte aligns
+// each chunk's block, so a copy never leaves the allocation.
+
+constexpr int kSweepMaxCluster = 16;  // CTAs of a non-portable cluster
+constexpr int kSweepPortable = 8;     // CTAs of a portable cluster
+// at most 512 threads a CTA, so that a thread may hold 128 registers: a
+// value spilled to local memory is read back from L2 after the barrier's
+// L1 invalidation, on the chain (built for 1024 threads, the f32 kernel
+// took 32 registers and spilled, and its step was slower than f64's)
+constexpr int kSweepMaxThreads = 512;
+constexpr int kSweepRec = 10;         // int64 fields of a chunk's record
+constexpr int kSweepRecBytes = kSweepRec * 8;  // 80: whole 16-byte lines
+constexpr int kSweepBatch = 8;        // x loads in flight a slot
+
+__host__ __device__ inline int64_t round16(int64_t b) {
+  return (b + 15) / 16 * 16;
+}
+
+// Shared memory of a sweep CTA: the stages' mbarriers, then the ring (a
+// stage: the record (halo), then each of the CTA's ranks' cols, vals and
+// send coordinates), then the CTA's new values (halo).
+struct SweepLayout {
+  int64_t cbytes, vbytes, sbytes, stage, bars, ring, ys, total;
+};
+
+__host__ __device__ inline SweepLayout sweep_layout(int rpc, int cloc,
+                                                    int kmax, int wmax,
+                                                    int es, bool halo,
+                                                    int stages) {
+  SweepLayout L;
+  L.cbytes = round16((int64_t)cloc * kmax * 4) + 16;
+  L.vbytes = round16((int64_t)cloc * kmax * es) + 16;
+  L.sbytes = halo ? round16((int64_t)wmax * 8) + 16 : 0;
+  L.stage = rpc * (L.cbytes + L.vbytes + L.sbytes) +
+            (halo ? kSweepRecBytes : 0);
+  L.bars = round16((int64_t)stages * 8);
+  L.ring = stages * L.stage;
+  L.ys = halo ? round16((int64_t)rpc * cloc * es) : 0;
+  L.total = L.bars + L.ring + L.ys;
+  return L;
+}
+
+inline int sweep_rpc(int R) {
+  return (R + kSweepMaxCluster - 1) / kSweepMaxCluster;
+}
+
+// The CTA's threads: a thread a slot of a rank (up to kSweepMaxThreads -
+// 32 at once), then the producer warp.
+inline int sweep_threads(int cloc) {
+  const int t = (cloc + 31) / 32 * 32;
+  const int most = kSweepMaxThreads - 32;
+  return (t < 64 ? 64 : t > most ? most : t) + 32;
+}
+
+__device__ __forceinline__ float ld_cg(const float* p) {
+  float v;
+  asm volatile("ld.global.cg.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ double ld_cg(const double* p) {
+  double v;
+  asm volatile("ld.global.cg.f64 %0, [%1];\n" : "=d"(v) : "l"(p));
+  return v;
+}
+
+// The 16-byte lines covering elements [a, a + n) of ``p``: their first
+// address and byte count, and the offset of element a in them (elements).
+template <typename E>
+struct Span {
+  uintptr_t lo;
+  unsigned bytes;
+  int shift;
+  __device__ Span(const E* p, int64_t a, int64_t n) {
+    const uintptr_t s = reinterpret_cast<uintptr_t>(p + a);
+    const uintptr_t e = reinterpret_cast<uintptr_t>(p + a + n);
+    lo = s & ~uintptr_t(15);
+    bytes = n > 0 ? (unsigned)(((e + 15) & ~uintptr_t(15)) - lo) : 0u;
+    shift = (int)((s - lo) / sizeof(E));
+  }
+};
+
+// A chunk's record: read from global memory (the producer) or from its
+// stage (every thread); the all_gather form computes it.
+struct SweepChunk {
+  int64_t coff, soff;
+  int K, off_l, Wl, off_r, Wr, off_ag, Wag;
+};
+
+template <bool HALO>
+__device__ __forceinline__ SweepChunk sweep_chunk(const int64_t* rec, int c,
+                                                  int R, int cloc, int K) {
+  SweepChunk d;
+  if constexpr (HALO) {
+    d.coff = rec[0];
+    d.K = (int)rec[1];
+    d.soff = rec[2];
+    d.off_l = (int)rec[3];
+    d.Wl = (int)rec[4];
+    d.off_r = (int)rec[5];
+    d.Wr = (int)rec[6];
+    d.off_ag = (int)rec[7];
+    d.Wag = (int)rec[8];
+  } else {
+    d.coff = (int64_t)c * R * cloc * K;
+    d.K = K;
+    d.soff = 0;
+    d.off_l = d.Wl = d.off_r = d.Wr = d.off_ag = d.Wag = 0;
+  }
+  return d;
+}
+
+template <typename T, bool HALO>
+__global__ void __launch_bounds__(kSweepMaxThreads, 1)
+chunk_sweep_kernel(T* x, int64_t xs, int R, int rpc, int nchunks, int cloc,
+                   int K, int chunk, const int* __restrict__ cols,
+                   const T* __restrict__ vals,
+                   const int64_t* __restrict__ sends,
+                   const int64_t* __restrict__ desc, int kmax, int wmax,
+                   int stages) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const SweepLayout lay =
+      sweep_layout(rpc, cloc, kmax, wmax, (int)sizeof(T), HALO, stages);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
+  unsigned char* ring = smem_raw + lay.bars;
+  T* ys = reinterpret_cast<T*>(ring + lay.ring);
+  const int r0 = blockIdx.x * rpc;  // this CTA's first rank
+  const int nr = min(rpc, R - r0);
+  const int nw = blockDim.x - 32;   // the computing threads
+  const bool producer = threadIdx.x >= nw;
+  const bool issuer = threadIdx.x == nw;  // the producer warp's lane 0
+  const int rec0 = HALO ? kSweepRecBytes : 0;
+  auto rank_base = [&](unsigned char* st, int i) {
+    return st + rec0 + i * (lay.cbytes + lay.vbytes + lay.sbytes);
+  };
+
+  // the issuer: copy chunk c (its record d) into stage q
+  auto fill = [&](int c, int q, const SweepChunk& d) {
+    unsigned char* st = ring + q * lay.stage;
+    const unsigned b = smem_u32(&bar[q]);
+    unsigned total = HALO ? kSweepRecBytes : 0;
+    for (int i = 0; i < nr; ++i) {
+      const int64_t a = d.coff + (int64_t)(r0 + i) * cloc * d.K;
+      const int64_t n = (int64_t)cloc * d.K;
+      total += Span<int>(cols, a, n).bytes + Span<T>(vals, a, n).bytes;
+      if constexpr (HALO) {
+        const int W = d.Wl + d.Wr + d.Wag;
+        total += Span<int64_t>(sends, d.soff + (int64_t)(r0 + i) * W, W)
+                     .bytes;
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+        "r"(total)
+        : "memory");
+    if constexpr (HALO)
+      bulk_copy(st, desc + (int64_t)c * kSweepRec, kSweepRecBytes, b);
+    for (int i = 0; i < nr; ++i) {
+      unsigned char* rb = rank_base(st, i);
+      const int64_t a = d.coff + (int64_t)(r0 + i) * cloc * d.K;
+      const int64_t n = (int64_t)cloc * d.K;
+      const Span<int> sc(cols, a, n);
+      const Span<T> sv(vals, a, n);
+      if (sc.bytes) bulk_copy(rb, (const void*)sc.lo, sc.bytes, b);
+      if (sv.bytes)
+        bulk_copy(rb + lay.cbytes, (const void*)sv.lo, sv.bytes, b);
+      if constexpr (HALO) {
+        const int W = d.Wl + d.Wr + d.Wag;
+        const Span<int64_t> ss(sends, d.soff + (int64_t)(r0 + i) * W, W);
+        if (ss.bytes)
+          bulk_copy(rb + lay.cbytes + lay.vbytes, (const void*)ss.lo,
+                    ss.bytes, b);
+      }
+    }
+  };
+
+  if (issuer) {
+    for (int q = 0; q < stages; ++q)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                       smem_u32(&bar[q]))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (issuer)
+    for (int c = 0; c < min(stages, nchunks); ++c)
+      fill(c, c, sweep_chunk<HALO>(HALO ? desc + (int64_t)c * kSweepRec
+                                        : nullptr,
+                                   c, R, cloc, K));
+
+  for (int c = 0; c < nchunks; ++c) {
+    // this iteration's refill: chunk c - 1 + stages into the stage of
+    // chunk c - 1, which every thread has read (all passed the last wait)
+    const int cn = c - 1 + stages;
+    const bool refill = issuer && c >= 1 && cn < nchunks;
+    const int q = c % stages;
+    unsigned char* st = ring + q * lay.stage;
+    SweepChunk d{};
+    if (!producer) {
+      mbar_wait(smem_u32(&bar[q]), (unsigned)((c / stages) & 1));
+      d = sweep_chunk<HALO>(reinterpret_cast<const int64_t*>(st), c, R, cloc,
+                            K);
+    }
+    const int Kc = d.K;
+    for (int i = 0; i < nr && !producer; ++i) {
+      const int r = r0 + i;
+      unsigned char* rb = rank_base(st, i);
+      const int64_t a = d.coff + (int64_t)r * cloc * Kc;
+      const int* sc = reinterpret_cast<const int*>(rb) +
+                      Span<int>(cols, a, 0).shift;
+      const T* sv = reinterpret_cast<const T*>(rb + lay.cbytes) +
+                    Span<T>(vals, a, 0).shift;
+      T* xr = x + r * xs;
+      const int own = HALO ? c * cloc : c * chunk + r * cloc;
+      for (int j = threadIdx.x; j < cloc; j += nw) {
+        const int* cj = sc + j * Kc;
+        const T* vj = sv + j * Kc;
+        T acc = T(0);
+        for (int k0 = 0; k0 < Kc; k0 += kSweepBatch) {
+          T xv[kSweepBatch];
+#pragma unroll
+          for (int u = 0; u < kSweepBatch; ++u)
+            xv[u] = k0 + u < Kc ? ld_cg(xr + cj[k0 + u]) : T(0);
+#pragma unroll
+          for (int u = 0; u < kSweepBatch; ++u)
+            if (k0 + u < Kc) acc = fma_rn(vj[k0 + u], xv[u], acc);
+        }
+        const T y = ld_cg(xr + own + j) - acc;
+        if constexpr (HALO) {
+          xr[own + j] = y;
+          ys[i * cloc + j] = y;
+        } else {
+          for (int p = 0; p < R; ++p) x[p * xs + own + j] = y;
+        }
+      }
+    }
+    if constexpr (HALO) {
+      __syncthreads();  // the legs read the CTA's new values
+      const int W = d.Wl + d.Wr + d.Wag;
+      const int own = c * cloc;
+      for (int i = 0; i < nr && !producer; ++i) {
+        const int r = r0 + i;
+        const int64_t b0 = d.soff + (int64_t)r * W;
+        const int64_t* ss =
+            reinterpret_cast<const int64_t*>(rank_base(st, i) + lay.cbytes +
+                                             lay.vbytes) +
+            Span<int64_t>(sends, b0, 0).shift;
+        const T* xr = x + r * xs;
+        for (int w = threadIdx.x; w < W; w += nw) {
+          const int64_t s = ss[w];
+          const T v = s >= own && s < own + cloc ? ys[i * cloc + (s - own)]
+                                                 : ld_cg(xr + s);
+          if (w < d.Wl) {
+            if (r + 1 < R) x[(r + 1) * xs + d.off_l + w] = v;
+          } else if (w < d.Wl + d.Wr) {
+            if (r >= 1) x[(r - 1) * xs + d.off_r + (w - d.Wl)] = v;
+          } else {
+            const int64_t o =
+                d.off_ag + (int64_t)r * d.Wag + (w - d.Wl - d.Wr);
+            for (int p = 0; p < R; ++p) x[p * xs + o] = v;
+          }
+        }
+      }
+    }
+    if (c + 1 < nchunks) {
+      // every CTA's writes of this chunk before any CTA's next reads
+      asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+      if (refill)
+        fill(cn, cn % stages,
+             sweep_chunk<HALO>(HALO ? desc + (int64_t)cn * kSweepRec
+                                    : nullptr,
+                               cn, R, cloc, K));
+      asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+    }
+  }
+}
+
+template <typename T>
+int chunk_sweep(T* x, int64_t xs, int R, int nchunks, int cloc, int K,
+                int chunk, const int* cols, const T* vals,
+                const int64_t* sends, const int64_t* desc, int kmax, int wmax,
+                int stages, void* stream) {
+  if (nchunks == 0 || R == 0 || cloc == 0) return (int)cudaSuccess;
+  const bool halo = desc != nullptr;
+  const int rpc = sweep_rpc(R);
+  const unsigned ncta = (unsigned)((R + rpc - 1) / rpc);
+  const int km = halo ? kmax : K;  // the widest chunk's fan-in
+  const SweepLayout lay =
+      sweep_layout(rpc, cloc, km, wmax, (int)sizeof(T), halo, stages);
+  if (stages < 2 || lay.total > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int smem = (int)lay.total;
+  auto kernel = halo ? chunk_sweep_kernel<T, true>
+                     : chunk_sweep_kernel<T, false>;
+  static int granted[2] = {0, 0};
+  cudaError_t err = allow_smem(kernel, smem, granted[halo]);
+  if (err != cudaSuccess) return (int)err;
+  if (ncta > kSweepPortable) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ncta);
+  cfg.blockDim = dim3((unsigned)sweep_threads(cloc));
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ncta;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, xs, R, rpc, nchunks, cloc, K,
+                           chunk, cols, vals, sends, desc, km, wmax, stages);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // K10b: one ring step of the distributed Schur SpGEMM.  Row r of the local
 // L_E blocks (rank r / nb, whose U_F panel starts at uf + rank * ufs and
 // whose d at d + rank * ds) forms its W = KL * KU candidates
@@ -1527,6 +1892,13 @@ int read_rate(const void* p, int64_t nbytes, unsigned* out,
     return chunk_fma<T>(x, xs, out_off, out_step, cols, vals, cvs, nranks,   \
                         cloc, K, pkg, stream);                                \
   }                                                                           \
+  int chunk_sweep_##SUFFIX(T* x, int64_t xs, int R, int nchunks, int cloc,   \
+                           int K, int chunk, const int* cols, const T* vals, \
+                           const int64_t* sends, const int64_t* desc,        \
+                           int kmax, int wmax, int stages, void* stream) {   \
+    return chunk_sweep<T>(x, xs, R, nchunks, cloc, K, chunk, cols, vals,     \
+                          sends, desc, kmax, wmax, stages, stream);          \
+  }                                                                           \
   int schur_partial_##SUFFIX(const int* le_idx, const T* le_val, const T* d, \
                              int64_t ds, const int* uf_idx, const T* uf_val, \
                              int64_t ufs, int rows, int nb, int KL, int KU,  \
@@ -1534,6 +1906,14 @@ int read_rate(const void* p, int64_t nbytes, unsigned* out,
     return schur_partial<T>(le_idx, le_val, d, ds, uf_idx, uf_val, ufs, rows, \
                             nb, KL, KU, cb, out_c, out_v, stream);            \
   }
+
+// The shared memory a chunk sweep's CTA needs (the host checks it against
+// hifir_max_smem before it builds a sweep, and picks the ring's stages).
+int64_t chunk_sweep_smem(int R, int cloc, int kmax, int wmax, int es,
+                         int halo, int stages) {
+  return sweep_layout(sweep_rpc(R), cloc, kmax, wmax, es, halo != 0, stages)
+      .total;
+}
 
 // K10a and K10b are real only, as the distribution they serve
 HIFIR_DEFINE_DIST(f32, float)

@@ -36,6 +36,8 @@ _SIGNATURES = {
     "trsv_solve": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P,
                    _P],
     "chunk_fma": [_P, _L, _I, _I, _P, _P, _L, _I, _I, _I, _P, _P],
+    "chunk_sweep": [_P, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
+                    _P],
     "schur_partial": [_P, _P, _P, _L, _P, _P, _L, _I, _I, _I, _I, _I, _P, _P,
                       _P],
 }
@@ -48,6 +50,7 @@ SUFFIXES = {"bsr_spmv": ("f32", "f64"),
             "sell_spmv": ("f32", "f64", "c64", "c128"),
             "trsv_solve": ("f32", "f64", "c64", "c128"),
             "chunk_fma": ("f32", "f64"),
+            "chunk_sweep": ("f32", "f64"),
             "schur_partial": ("f32", "f64")}
 
 
@@ -114,6 +117,8 @@ def load_kernels() -> KernelLib:
     lib.hifir_error_string.restype = ctypes.c_char_p
     lib.hifir_max_smem.argtypes = []
     lib.hifir_max_smem.restype = ctypes.c_int
+    lib.chunk_sweep_smem.argtypes = [_I] * 7
+    lib.chunk_sweep_smem.restype = ctypes.c_int64
     lib.read_rate.argtypes = [_P, _L, _P, ctypes.c_uint, _P]
     lib.read_rate.restype = ctypes.c_int
     return KernelLib(lib, so, seconds, log)

@@ -11,7 +11,10 @@ Each level's L/U solve is carried by one of two operators:
 - :class:`AGTrsvOp` (also ``halo=False``): the replicated working vector
   reassembled per chunk with a tiled all_gather.
 
-Both run a chunk as one launch of kernel K10a for every rank of a device.
+Both run a factor's chunk loop as their modules say: on a mesh whose ranks
+share one device, one launch of the chunk sweep (K10a redesigned, the
+exchange inside it) a factor application; across devices, a K10a launch a
+chunk for every rank of a device, the legs as peer copies.
 The E and F products run kernel K1 on each rank's row block, the ranks of a
 device in one launch (:func:`~.sharded.stacked_ell`); the dense tail is the
 port's :class:`~hifir_tpu_torch.alg.prec.DevicePrec` tail, every rank's copy
@@ -30,13 +33,14 @@ import torch
 
 from ..alg.prec import DenseTail, _dense_tail, tail_solve_mrhs
 from ..device import numpy_dtype, torch_dtype
+from ..ops.chunk import Sweep
 from ..ops.spmv import ELL, ell_from_csr, sliced_ell_sub_mrhs
 from ..ops.trsv import build_trsv_schedule
 from .exchange import XPlan, build_exchange_plan, xplan_fetch
 from .mesh import Mesh
 from .sharded import pad_rows, stacked_ell
 from .trsv_halo import HaloOp, build_halo_op, halo_op_kernel
-from .trsv_sharded import ag_sweep, shard_chunks
+from .trsv_sharded import ag_plan, ag_sweep, shard_chunks
 
 __all__ = ["DistPrec", "AGTrsvOp", "DistLevel", "ag_op_kernel"]
 
@@ -62,6 +66,11 @@ class AGTrsvOp:
     chunk: int
     n: int
     sharded: bool = False
+    plan: Optional[Sweep] = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        # one group holding every rank: the factor's chunk sweep
+        self.plan = ag_plan(self.mesh, self.cols, self.vals, self.chunk)
 
     @property
     def nslots(self) -> int:
@@ -87,7 +96,7 @@ def ag_op_kernel(op: AGTrsvOp, bs: List[torch.Tensor]) -> List[torch.Tensor]:
     else:
         for x, e, ir in zip(xs, exts, op.in_rows):
             x[:, :ns] = e.gather(1, ir)
-    ag_sweep(mesh, xs, op.cols, op.vals, op.chunk, op.nchunks)
+    ag_sweep(op, xs)
     ys = [x.gather(1, o) for x, o in zip(xs, op.out_slots)]
     if op.sharded:
         return [y[:, :op.n] for y in mesh.all_gather(ys)]

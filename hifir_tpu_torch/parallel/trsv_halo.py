@@ -16,10 +16,25 @@ exchange of up to three legs, each sized to the halo it carries:
   mix is not cheaper.
 
 The host planning is the JAX package's, vectorized in numpy; ``meta``,
-``sends``, ``comm_elems`` and ``allgather_elems`` equal the JAX plan's.  A
-chunk's step is one launch of kernel K10a for every rank of a device, then
-its legs, each a gather of the package and one copy into the receivers'
-halo regions.
+``sends``, ``comm_elems`` and ``allgather_elems`` equal the JAX plan's.
+
+Each group's operands are packed chunk-major into flat buffers (a
+:class:`~hifir_tpu_torch.ops.chunk.Sweep` of the ``halo`` form): every
+chunk's (ranks, Cloc, K_c) dependency block at a 16-byte aligned offset,
+its legs' send coordinates rank-major (ranks, Wl + Wr + Wag), and a record
+per chunk on the device (its offsets, K_c and ``meta``).  The per-chunk
+``gcols``, ``gvals`` and ``sends`` are views of those buffers.
+
+The chunk loop (:func:`halo_op_kernel`) is chosen by the mesh's layout:
+
+- one group (every ``rows`` rank on one device, as ``make_mesh`` puts them
+  on the card): the whole loop is one call of
+  :func:`~hifir_tpu_torch.ops.chunk.chunk_sweep`, on the card one launch of
+  the redesigned K10a with the three legs inside it, on the CPU its plain
+  version;
+- several groups: :func:`halo_chunk_loop`, a K10a launch a chunk for each
+  group, then the legs, each a gather of the package and a copy (peer
+  copies across devices) into the receivers' halo regions.
 """
 
 from __future__ import annotations
@@ -30,11 +45,12 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.chunk import ChunkSweep
+from ..ops.chunk import ChunkSweep, Sweep, chunk_sweep, with_slack
 from ..ops.trsv import build_trsv_schedule
 from .mesh import Mesh
 
-__all__ = ["HaloOp", "build_halo_op", "halo_op_kernel", "halo_trsv_apply"]
+__all__ = ["HaloOp", "build_halo_op", "halo_op_kernel", "halo_chunk_loop",
+           "halo_trsv_apply"]
 
 
 @dataclasses.dataclass
@@ -50,11 +66,13 @@ class HaloOp:
     out_slots: np.ndarray          # (n,) slot of each row (host)
     exit_pos: List[torch.Tensor]   # (n,) int64: each row's position in the
     #                                all_gathered own slices (rank-major)
+    packed: List[Sweep]            # per group: the packed operands
     gcols: Tuple[List[torch.Tensor], ...]   # per chunk (ranks, Cloc, K_c)
-    #                                         int32 local coordinates
+    #                                 int32 local coordinates (packed views)
     gvals: Tuple[List[torch.Tensor], ...]   # per chunk (ranks, Cloc, K_c)
     sends: Tuple[Tuple[List[torch.Tensor], ...], ...]  # per chunk and leg
     #                               (ranks, W) int64 own coordinates to send
+    #                               (packed views)
     meta: Tuple[tuple, ...]        # per chunk (off_l, Wl, off_r, Wr, off_ag,
     #   Wag): the legs' widths and halo offsets; ``sends`` holds the nonzero
     #   legs in that order
@@ -68,9 +86,9 @@ class HaloOp:
     allgather_elems: int           # what the tiled all_gather scheme moves
 
     def nbytes(self) -> int:
-        """Bytes of the operand on all ranks."""
-        ts = [t for c in self.gcols + self.gvals for t in c]
-        ts += [t for c in self.sends for leg in c for t in leg]
+        """Bytes of the operand on all ranks (the packed buffers, which
+        ``gcols``, ``gvals`` and ``sends`` view)."""
+        ts = [t for p in self.packed for t in p.tensors()]
         ts += list(self.in_rows) + list(self.exit_pos)
         return sum(t.numel() * t.element_size() for t in ts)
 
@@ -175,6 +193,39 @@ def _plan(D: int, C: int, cols: np.ndarray, nchunks: int):
     return meta, send_plans, loc, halo_off, comm, owner, own_coord, dep, pad
 
 
+def _pack(g, lcs, lvs, Ks, legs, meta, Cloc: int, buf_len: int) -> Sweep:
+    """Group ``g``'s share of the per-chunk operands (``lcs``/``lvs`` (D,
+    Cloc, K_c), ``legs`` the nonzero legs' (D, W) send coordinates) packed
+    chunk-major: each chunk's block at a 16-byte aligned offset of its flat
+    buffer, and a record a chunk (coff, K_c, soff, meta, 0)."""
+    R = g.size
+    nchunks = len(Ks)
+    csize = [R * Cloc * k for k in Ks]
+    ssize = [R * sum(m[1::2]) for m in meta]
+    up = lambda a, q: -(-a // q) * q  # noqa: E731
+    coff = np.concatenate([[0], np.cumsum([up(n, 4) for n in csize])])
+    soff = np.concatenate([[0], np.cumsum([up(n, 2) for n in ssize])])
+    pc = np.zeros(coff[-1], np.int32)
+    pv = np.zeros(coff[-1], lvs[0].dtype)
+    ps = np.zeros(soff[-1], np.int64)
+    for c in range(nchunks):
+        pc[coff[c]:coff[c] + csize[c]] = lcs[c][g.lo:g.hi].ravel()
+        pv[coff[c]:coff[c] + csize[c]] = lvs[c][g.lo:g.hi].ravel()
+        if legs[c]:
+            ps[soff[c]:soff[c] + ssize[c]] = np.concatenate(
+                [s[g.lo:g.hi] for s in legs[c]], axis=1).ravel()
+    desc = np.zeros((nchunks, 10), np.int64)
+    desc[:, 0] = coff[:-1]
+    desc[:, 1] = Ks
+    desc[:, 2] = soff[:-1]
+    desc[:, 3:9] = np.asarray(meta, np.int64).reshape(nchunks, 6)
+    dev = g.device
+    return Sweep("halo", R, nchunks, Cloc, with_slack(pc, device=dev),
+                 with_slack(pv, device=dev), buf_len,
+                 sends=with_slack(ps, device=dev),
+                 desc=torch.as_tensor(desc, device=dev), desc_host=desc)
+
+
 def build_halo_op(mesh: Mesh, T, lower: bool, chunk: int = 256,
                   dtype=None, max_chunks: Optional[int] = None
                   ) -> Optional[HaloOp]:
@@ -207,17 +258,27 @@ def build_halo_op(mesh: Mesh, T, lower: bool, chunk: int = 256,
     loc[loc < 0] = LPAD
     dvals = vals.reshape(nchunks, D, Cloc, K).transpose(1, 0, 2, 3)
 
-    gcols, gvals, sends = [], [], []
+    lcs, lvs, Ks = [], [], []
     for c in range(nchunks):
         # trim to the chunk's real fan-in
         Kc = max(int((~pad[:, c]).sum(axis=2).max()), 1)
         dk = np.where(pad[:, c, :, :Kc], nslots, dep[:, c, :, :Kc])
-        lc = np.take_along_axis(loc, dk.reshape(D, -1), axis=1) \
-            .reshape(D, Cloc, Kc)
-        gcols.append(mesh.put(lc.astype(np.int32)))
-        gvals.append(mesh.put(np.ascontiguousarray(dvals[:, c, :, :Kc])))
-        sends.append(tuple(mesh.put(np.where(s < 0, LPAD, s))
-                           for s in send_plans[c]))
+        lcs.append(np.take_along_axis(loc, dk.reshape(D, -1), axis=1)
+                   .reshape(D, Cloc, Kc).astype(np.int32))
+        lvs.append(dvals[:, c, :, :Kc])
+        Ks.append(Kc)
+    legs = [[np.where(s < 0, LPAD, s) for s in send_plans[c]]
+            for c in range(nchunks)]
+    packed = [_pack(g, lcs, lvs, Ks, legs, meta, Cloc, buf_len)
+              for g in mesh.groups()]
+    views = [[p.halo_chunk(c) for p in packed] for c in range(nchunks)]
+    gcols = tuple([v[0] for v in vc] for vc in views)
+    gvals = tuple([v[1] for v in vc] for vc in views)
+    sends = []
+    for c, vc in enumerate(views):
+        cuts = np.cumsum([0] + [W for W in meta[c][1::2] if W]).tolist()
+        sends.append(tuple([v[2][:, a:e] for v in vc]
+                           for a, e in zip(cuts[:-1], cuts[1:])))
 
     in_rows = sched.in_rows.numpy().reshape(nchunks, D, Cloc) \
         .transpose(1, 0, 2).reshape(D, own_len)
@@ -228,7 +289,7 @@ def build_halo_op(mesh: Mesh, T, lower: bool, chunk: int = 256,
         out_slots=out_slots,
         exit_pos=[torch.as_tensor(exit_pos, device=g.device)
                   for g in mesh.groups()],
-        gcols=tuple(gcols), gvals=tuple(gvals), sends=tuple(sends),
+        packed=packed, gcols=gcols, gvals=gvals, sends=tuple(sends),
         meta=tuple(meta), nchunks=nchunks, Cloc=Cloc, own_len=own_len,
         buf_len=buf_len, D=D, n=n, comm_elems=comm,
         allgather_elems=nchunks * D * (C - Cloc))
@@ -238,13 +299,26 @@ def halo_op_kernel(op: HaloOp, bs: List[torch.Tensor]) -> List[torch.Tensor]:
     """Solve (I + strict(T)) x = b on the ranks: ``bs`` replicated (per
     group (ranks, n)); the working vector distributed (own slices + halo);
     the result replicated (one exit all_gather)."""
-    mesh, D, Cloc = op.mesh, op.D, op.Cloc
+    mesh = op.mesh
     xs = []
     for b, ir in zip(bs, op.in_rows):
-        x = b.new_zeros((b.shape[0], op.buf_len))
+        x = b.new_zeros((b.shape[0], op.buf_len))   # the halo starts zero
         ext = torch.cat([b, b.new_zeros((b.shape[0], 1))], 1)
         x[:, :op.own_len] = ext.gather(1, ir)
         xs.append(x)
+    if len(op.packed) == 1:     # one group: the sweep
+        chunk_sweep(xs[0], op.packed[0])
+    else:
+        halo_chunk_loop(op, xs)
+    full = mesh.all_gather([x[:, :op.own_len] for x in xs])
+    return [f.index_select(1, e) for f, e in zip(full, op.exit_pos)]
+
+
+def halo_chunk_loop(op: HaloOp, xs: List[torch.Tensor]) -> None:
+    """The chunk loop a chunk at a time, in place on the distributed
+    working vectors ``xs``: each chunk's K10a step for every group, then its
+    legs through the mesh's collectives."""
+    mesh, D, Cloc = op.mesh, op.D, op.Cloc
     sweeps = [ChunkSweep(x) for x in xs]
     off = 0
     for c in range(op.nchunks):
@@ -263,8 +337,6 @@ def halo_op_kernel(op: HaloOp, bs: List[torch.Tensor]) -> List[torch.Tensor]:
             mesh.all_gather(pkg, out=[x[:, off_ag:off_ag + D * Wag]
                                       for x in xs])
         off += Cloc
-    full = mesh.all_gather([x[:, :op.own_len] for x in xs])
-    return [f.index_select(1, e) for f, e in zip(full, op.exit_pos)]
 
 
 def halo_trsv_apply(op: HaloOp, b) -> torch.Tensor:

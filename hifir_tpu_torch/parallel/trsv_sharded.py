@@ -11,41 +11,71 @@ replicated (every rank a copy); the factor is the sharded operand.
 A rank's shard of the factor is its ``Cloc`` rows of every chunk; the
 shards of a device's ranks are kept chunk-major, ``(nchunks, ranks, Cloc,
 K)``, so that one chunk of all of them is one contiguous block.
+
+The chunk loop (:func:`ag_sweep`) is chosen by the mesh's layout, read
+once when the factor is built (:func:`ag_plan`):
+
+- one group (every ``rows`` rank on one device, as ``make_mesh`` puts them
+  on the card): the whole loop is one call of
+  :func:`~hifir_tpu_torch.ops.chunk.chunk_sweep`, on the card one launch of
+  the redesigned K10a with the all_gather inside it, on the CPU its plain
+  version;
+- several groups (ranks on several devices): :func:`ag_chunk_loop`, a K10a
+  launch a chunk for each group, then the tiled all_gather as peer copies
+  (a kernel cannot reach another device's buffers or wait on it).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 
-from ..ops.chunk import ChunkSweep
+from ..ops.chunk import ChunkSweep, Sweep, chunk_sweep, with_slack
 from ..ops.trsv import build_trsv_schedule
 from .mesh import Mesh
 
 __all__ = ["ShardedTrsv", "shard_trsv_schedule", "sharded_trsv_apply",
-           "shard_chunks", "ag_sweep"]
+           "shard_chunks", "ag_sweep", "ag_chunk_loop", "ag_plan"]
 
 
 def shard_chunks(mesh: Mesh, a: np.ndarray, dtype=None) -> List[torch.Tensor]:
     """A schedule array (nchunks, C, K) split into the ranks' Cloc-row
-    shards of every chunk, per group chunk-major (nchunks, ranks, Cloc, K)."""
+    shards of every chunk, per group chunk-major (nchunks, ranks, Cloc, K),
+    with the slack a sweep operand keeps after it."""
     nchunks, C, K = a.shape
     D = mesh.D
     v = a.reshape(nchunks, D, C // D, K)
-    return [torch.as_tensor(np.ascontiguousarray(v[:, g.lo:g.hi]),
-                            dtype=dtype, device=g.device)
+    return [with_slack(v[:, g.lo:g.hi], dtype, g.device)
             for g in mesh.groups()]
 
 
-def ag_sweep(mesh: Mesh, xs: List[torch.Tensor], cols, vals, chunk: int,
-             nchunks: int) -> None:
-    """The chunk loop on replicated slot vectors ``xs`` (per group
-    (ranks, nslots + 1), the last slot zero), in place: each chunk's K10a
-    step on every rank's slice, its new values also into the rank's send
-    package, then the tiled all_gather of the packages into every rank's
-    copy of the chunk."""
+def ag_plan(mesh: Mesh, cols, vals, chunk: int) -> Optional[Sweep]:
+    """The chunk sweep of a factor's shards when one group holds every
+    rank, else None: the one place the layout is decided."""
+    if len(mesh.groups()) != 1:
+        return None
+    return Sweep.all_gather(cols[0], vals[0], chunk)
+
+
+def ag_sweep(op, xs: List[torch.Tensor]) -> None:
+    """The chunk loop of ``op`` (an ``AGTrsvOp`` or :class:`ShardedTrsv`)
+    on replicated slot vectors ``xs`` (per group (ranks, nslots + 1), the
+    last slot zero), in place: its sweep when it has one (:func:`ag_plan`),
+    else :func:`ag_chunk_loop`."""
+    if op.plan is not None:
+        chunk_sweep(xs[0], op.plan)
+    else:
+        ag_chunk_loop(op.mesh, xs, op.cols, op.vals, op.chunk, op.nchunks)
+
+
+def ag_chunk_loop(mesh: Mesh, xs: List[torch.Tensor], cols, vals,
+                  chunk: int, nchunks: int) -> None:
+    """The chunk loop a chunk at a time: each chunk's K10a step on every
+    rank's slice, its new values also into the rank's send package, then
+    the tiled all_gather of the packages into every rank's copy of the
+    chunk."""
     Cloc = chunk // mesh.D
     groups = mesh.groups()
     pkgs = [x.new_empty((g.size, Cloc)) for g, x in zip(groups, xs)]
@@ -71,6 +101,7 @@ class ShardedTrsv:
         self.nchunks = nchunks
         self.chunk = chunk
         self.nslots = nslots
+        self.plan = ag_plan(mesh, cols, vals, chunk)  # one group: the sweep
 
 
 def shard_trsv_schedule(mesh: Mesh, T, lower: bool, chunk: int = 256
@@ -103,6 +134,6 @@ def sharded_trsv_apply(st: ShardedTrsv, b) -> torch.Tensor:
         ext = torch.cat([bg, bg.new_zeros((bg.shape[0], 1))], 1)
         x[:, :st.nslots] = ext.gather(1, ir)
         xs.append(x)
-    ag_sweep(mesh, xs, st.cols, st.vals, st.chunk, st.nchunks)
+    ag_sweep(st, xs)
     out = [x.gather(1, o) for x, o in zip(xs, st.out_slots)]
     return out[0][0]
