@@ -112,14 +112,27 @@ Phases, in order; any failed gate raises and the script exits non-zero:
    and K1, K2 four solves' worth.
 10. Factorize timing: 50 back-to-back M-solves per poisson-256 pack, both
    directions, 5 HIFIR applies, each with a torch.profiler breakdown.
-11. K8, the device QRCP of the dense tail (a torch route), in f64 on the
-   two real fixture tails under torch.cuda.set_sync_debug_mode("error"):
-   pivots equal to scipy geqp3's, rank equal to the host's, |QR - AP| and
-   |Q^T Q - I| <= 1e-13; its ms beside geqp3's, torch.geqrf's (unpivoted)
-   and its launches from the profiler; the auto f64 M-solve of a
-   tail_on_device pack within 1e-10 of the host-tail pack on each fixture;
-   the complex tail's host fallback; the rank rule on 40x40 rank-25 QRCP
-   and SYEIG tails: r = rank + 1 equal to r = 0 (1e-12) and to the host's
+11. K8, the device QRCP of the dense tail (one cooperative launch of
+   qrcp_kernel), against its plain version (the eager loop) on the card in
+   f64 and f32: the two real fixture tails, the 40x40 rank-25 matrix,
+   seeded Gaussian n = 1, 2, 33, 736, 2000 (2000 takes the global-memory
+   layout, the others shared memory) and the 8x8 tie set (identity,
+   permutation, equal columns, zero column, zero matrix), each under
+   torch.cuda.set_sync_debug_mode("error") with one launch by the counter
+   and one qrcp_kernel a factorization in the profiler: pivots equal (f32:
+   up to a certified tie at f32 precision), Q and R within 1e-12 (f64) /
+   1e-5 (f32, or twice the plain version's own f32 distance from its f64
+   factors where that is larger), |QR - AP| and |Q^T Q - I| <= 1e-13 /
+   1e-4; on the fixtures in f64 pivots equal to scipy geqp3's and the rank
+   to the host's; a grid that cannot be co-resident refused.  Its ms (and
+   us a column step) at the fixtures' tails and n = 2000 beside the plain
+   route on the card, host geqp3 and torch.geqrf (unpivoted).  Then the K8
+   path, its launches counted from 0: the auto f64 M-solve of a
+   tail_on_device pack within 1e-10 of the host-tail pack on each fixture
+   (both to_device calls timed), HIF.factorize(convdiff2d(128))
+   with device_tail=1 against 0 (host seconds, rank, M-solve 1e-8); the
+   complex tail's host fallback; the rank rule on 40x40 rank-25 QRCP and
+   SYEIG tails: r = rank + 1 equal to r = 0 (1e-12) and to the host's
    truncated solve (1e-10), both directions.
 12. 1M (BASELINE config 2), generator --seed + 4, each part counted: the
    native factorize of poisson2d(1024) with bench.py's robust options
@@ -157,10 +170,10 @@ device records whose clock-converted times fall outside it) and gates the
 K1, K2 and K7 launches in its trace equal to the launch counters over the
 same runs; a window that lost records is taken again, at most
 PROFILE_TAKES times in all.  Lines with a time, a size or a share carry the
-card's name and power limit in brackets.  The last lines are one JSON
-object with K8's rows ("torch_routes"), the card's name and power limit,
-one JSON object with the kernels and, last, {"ok": true, "device":
-{...}}.  Without a card the
+card's name and power limit in brackets.  The last lines are the card's
+name and power limit, one JSON object with the kernels (K8's at the
+fixtures' tails in f64) and, last, {"ok": true, "device": {...}}.
+Without a card the
 script prints no result and exits with code 2.
 """
 
@@ -883,7 +896,8 @@ PROFILE_TAKES = 3
 PROFILE_WINDOWS = []
 # the host calls that queue device work
 _LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-             "cuLaunchKernelEx", "cudaMemcpyAsync")
+             "cuLaunchKernelEx", "cudaLaunchCooperativeKernel",
+             "cudaMemcpyAsync")
 # the kernel names the profiler reports, by kernel
 _KERNEL_OF = {"bsr_mma_kernel": "K7", "bsr_stream_kernel": "K7",
               "sell_wide_kernel": "K1", "sell_narrow_kernel": "K1",
@@ -1922,116 +1936,411 @@ def time_factorize(torch, packs, Bd, Ab, reps=CHAIN):
     return out, profiles
 
 
-def k8_phase(torch, rng):
-    """K8, the device QRCP (a torch route), on the card in f64 on the two
-    real fixture tails: under torch.cuda.set_sync_debug_mode("error"), so a
-    host sync inside its loop fails the run; pivots equal to scipy
-    geqp3's, the rank equal to the host QRCP's, |QR - A[:, piv]| <= 1e-13
-    |A| and |Q^T Q - I| <= 1e-13 (largest entries); its time beside the
-    host geqp3's, torch.geqrf's on the card (an unpivoted QR: the same
-    FLOP, not the same function) and the same code on the host CPU (its
-    plain version), its launches per factorization from the profiler.
-    Then the auto f64 M-solve of a tail_on_device pack against the
-    host-tail pack (1e-10), the complex tail's host fallback, and the rank
-    rule on the card (:func:`rank_rule_phase`).  Returns the rows and the
-    report."""
+# K8's seeded Gaussian matrices, beside the fixtures' tails and the tie set
+K8_RANDOM = (1, 2, 33, 736, 2000)
+# from this n on, the plain route on the card (~45 launches a column step)
+# runs once, for the comparison, and that run is its time
+K8_PLAIN_ONCE = 736
+K8_TOL = {"float64": 1e-12, "float32": 1e-5}
+# the factorization's own gates: |QR - AP| / |A| and |Q^T Q - I|
+K8_RESIDUAL = {"float64": 1e-13, "float32": 1e-4}
+K8_SOURCE = ("hifir_tpu_torch/csrc/kernels.cu", "qrcp_kernel",
+             "hifir_tpu/small_scale/qrcp_device.py:27")
+
+
+def k8_matrices(rng) -> list:
+    """K8's matrices as float64 arrays: (name, A, pivot positions compared,
+    rank).  The two fixtures' tails, the 40x40 rank-25 matrix (its 25
+    leading positions: past the rank the choice falls among rounding
+    noise), seeded Gaussian n = 1, 2, 33, 736 and 2000, and the tie set of
+    8x8 matrices whose pivots the position rule decides: the identity and a
+    permutation (every norm ties at every step), two equal columns, a zero
+    column and the zero matrix (every position compared: past the rank the
+    norms are exact zeros or one column is left).  Q and R are compared on
+    the rank's columns and rows: past it the reflector's sign follows the
+    sign of rounding noise."""
+    import hifir_tpu_torch as ht
+
+    mats = [(name, ht.load_prec(path).precs[-1].dense_matrix, None, None)
+            for name, path in (("frozen", FIXTURE), ("convdiff", CONVDIFF))]
+    mats.append(("rank25", deficient_tail("qrcp").precs[-1].dense_matrix,
+                 25, 25))
+    mats += [(f"random{n}", rng.standard_normal((n, n)), None, None)
+             for n in K8_RANDOM]
+    B = rng.standard_normal((8, 8))
+    eq, zc = B.copy(), B.copy()
+    eq[:, 5] = eq[:, 2]
+    zc[:, 3] = 0.0
+    mats += [("identity8", np.eye(8), None, None),
+             ("permutation8", np.eye(8)[rng.permutation(8)], None, None),
+             ("equal_columns8", eq, None, 7), ("zero_column8", zc, None, 7),
+             ("zero8", np.zeros((8, 8)), None, 0)]
+    return [(name, A, A.shape[0] if lead is None else lead,
+             A.shape[0] if rank is None else rank)
+            for name, A, lead, rank in mats]
+
+
+def qr_dist(torch, F, Fref, m: int):
+    """Q[:, :m] and R[:m] of factorization F = (Q, R, piv) against Fref's,
+    each reflector's sign taken from R's diagonal (a zero counts as +) and
+    R's rows put back in the original column order (R P^T = Q^T A, so rows
+    below m compare whatever the later pivots): Q's largest difference and
+    R's, each relative to Fref's largest entry, and the largest absolute
+    difference of the two."""
+    if m == 0:
+        return 0.0, 0.0, 0.0
+
+    def normal(Q, R, piv):
+        s = torch.where(R.diagonal()[:m] < 0, -1.0, 1.0).double()
+        Ro = torch.empty((m, R.shape[1]), dtype=torch.float64,
+                         device=R.device)
+        Ro[:, piv] = R[:m].double() * s[:, None]
+        return Q[:, :m].double() * s, Ro
+
+    (q, r), (qr, rr) = normal(*F), normal(*Fref)
+    dq, dr = float((q - qr).abs().max()), float((r - rr).abs().max())
+    return (dq / max(float(Fref[0].abs().max()), 1e-300),
+            dr / max(float(Fref[1].abs().max()), 1e-300), max(dq, dr))
+
+
+def first_diff(a, b, m: int) -> int:
+    """The first position below m where pivot vectors a and b differ (m if
+    none)."""
+    d = np.flatnonzero(a[:m] != b[:m])
+    return int(d[0]) if d.size else m
+
+
+def near_tie(torch, A64, prefix, a: int, b: int, dtype: str):
+    """Whether columns a and b were a tie at ``dtype``'s precision after the
+    pivots ``prefix``: their residual norms^2 once A[:, prefix] is
+    projected out, computed in f64 on the card, differ by more than 1e-12
+    (no exact tie, which the position rule decides) and less than
+    delta = n eps(dtype) n / (n - s) (the downdated norms' drift after s
+    steps, relative to the trailing norms), and both lie within delta of
+    the largest.  Returns (verdict, relative gap, delta)."""
+    n, s = A64.shape[0], len(prefix)
+    delta = n * float(np.finfo(dtype).eps) * n / (n - s)
+    rest = np.setdiff1d(np.arange(n), prefix)
+    Ar = A64[:, torch.as_tensor(rest, device=A64.device)]
+    if s:
+        Qs = torch.linalg.qr(A64[:, torch.as_tensor(prefix,
+                                                    device=A64.device)])[0]
+        Ar = Ar - Qs @ (Qs.T @ Ar)
+    r2 = (Ar * Ar).sum(0)
+    top = float(r2.max())
+    ra = float(r2[int(np.flatnonzero(rest == a)[0])])
+    rb = float(r2[int(np.flatnonzero(rest == b)[0])])
+    gap = abs(ra - rb) / max(ra, rb, 1e-300)
+    ok = (1e-12 < gap < delta and ra >= (1 - delta) * top
+          and rb >= (1 - delta) * top)
+    return ok, gap, delta
+
+
+def k8_check(torch, name, D, lead, rank, dt, plain64):
+    """One K8 factorization of D in dtype ``dt`` on the card against the
+    plain version's (see :func:`k8_phase`); ``plain64`` holds the plain
+    f64 factors by name (filled in the f64 pass, read in the f32 one).
+    Returns the record and the card's A."""
     import scipy.linalg as sla
-    from torch.autograd import DeviceType
 
     import hifir_tpu_torch as ht
+    from hifir_tpu_torch.small_scale.qrcp_device import (
+        qrcp_device, qrcp_device_cuda, qrcp_device_plain, qrcp_plan,
+        qrcp_rank)
+
+    dname = str(dt).removeprefix("torch.")
+    n = D.shape[0]
+    Ad = torch.as_tensor(D, dtype=dt, device="cuda")
+    plan = qrcp_plan(n, dt)
+    torch.cuda.synchronize()
+    k0, p0 = qrcp_device_cuda.launches, qrcp_device_plain.calls
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        F = qrcp_device(Ad)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    gate(qrcp_device_cuda.launches == k0 + 1
+         and qrcp_device_plain.calls == p0,
+         f"K8 {name} {dname}: not one kernel launch")
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    Fp = qrcp_device_plain(Ad)
+    e.record()
+    torch.cuda.synchronize()
+    if dt == torch.float64:
+        plain64[name] = Fp
+    Q, R, piv = F
+    pk, pp = piv.cpu().numpy(), Fp[2].cpu().numpy()
+    s1 = first_diff(pk, pp, lead)
+    m, tie = min(s1, rank), None
+    if s1 < lead:
+        ok, gap, delta = (near_tie(torch, torch.as_tensor(D, device="cuda"),
+                                   pk[:s1], int(pk[s1]), int(pp[s1]), dname)
+                          if dt == torch.float32 else (False, None, None))
+        tie = dict(position=s1, kernel=int(pk[s1]), plain=int(pp[s1]),
+                   gap=gap, delta=delta, ok=ok)
+        log(f"  K8 {name} {dname}: pivots differ at {s1} ({pk[s1]} / "
+            f"{pp[s1]}); f64 residual gap {gap} (delta {delta}): "
+            f"{'a tie' if ok else 'no tie'}")
+        gate(ok, f"K8 {name} {dname}: pivot {s1} differs from the plain "
+             "version's")
+    tol = K8_TOL[dname]
+    dq, dr, dabs = qr_dist(torch, F, Fp, m)
+    acc = None
+    if dt == torch.float32 and max(dq, dr) > tol:
+        # beyond 1e-5 (the Gaussian matrices' n kappa eps): the kernel's
+        # and the plain version's f32 factors against the plain f64 ones,
+        # where all three pivot orders agree
+        F64 = plain64[name]
+        p64 = F64[2].cpu().numpy()
+        mm = min(m, first_diff(pp, p64, lead), first_diff(pk, p64, lead))
+        k64 = max(qr_dist(torch, F, F64, mm)[:2])
+        p32 = max(qr_dist(torch, Fp, F64, mm)[:2])
+        acc = dict(compared=mm, kernel_vs_f64=k64, plain_vs_f64=p32,
+                   tol=max(tol, 2 * p32))
+        log(f"  K8 {name} {dname}: Q {dq:.2e}, R {dr:.2e} from the plain "
+            f"version; against the plain f64 factors on {mm} positions: "
+            f"kernel {k64:.2e}, plain {p32:.2e} (tol max(1e-5, twice the "
+            f"plain's) {acc['tol']:.2e})")
+        gate(k64 <= acc["tol"], f"K8 {name} {dname}: {k64:.2e} from the "
+             f"f64 factors, the plain version {p32:.2e}")
+    A64 = Ad.double()
+    res = float((Q.double() @ R.double() - A64[:, piv]).abs().max()
+                / max(float(A64.abs().max()), 1e-300))
+    orth = float((Q.double().T @ Q.double() - torch.eye(
+        n, dtype=torch.float64, device="cuda")).abs().max())
+    rtol = K8_RESIDUAL[dname]
+    rec = dict(name=name, dtype=dname, n=n, lead=lead, rank=rank,
+               compared=m, pivot_tie=tie, q_rel=dq, r_rel=dr,
+               max_abs_err=dabs, tol=tol, accuracy=acc, residual=res,
+               orthogonality=orth, layout=plan["layout"], grid=plan["grid"],
+               cols=plan["cols"], plain_once_ms=s.elapsed_time(e))
+    log(f"  K8 {name:14s} {dname} n={n:4d} ({plan['layout']}, "
+        f"{plan['grid']} CTAs of {plan['cols']}): pivots equal on {s1} of "
+        f"{lead}; Q and R on {m}: {dq:.2e}, {dr:.2e} (tol {tol:.1e}); "
+        f"|QR - AP| {res:.2e}, |Q^T Q - I| {orth:.2e} (tol {rtol:.0e})")
+    gate((dq <= tol and dr <= tol) or acc is not None, f"K8 {name} {dname}:"
+         f" Q {dq:.2e} or R {dr:.2e} above {tol:.1e}")
+    gate(res <= rtol and orth <= rtol, f"K8 {name} {dname}: residual "
+         f"{res:.2e} or orthogonality {orth:.2e} above {rtol:.0e}")
+    if name in ("frozen", "convdiff") and dt == torch.float64:
+        host = ht.load_prec(FIXTURE if name == "frozen"
+                            else CONVDIFF).precs[-1].dense_solver
+        _, _, lpiv = sla.qr(D, pivoting=True, mode="economic")
+        qrank = qrcp_rank(R)
+        same = bool(np.array_equal(pk, lpiv))
+        rec.update(qrcp_rank=qrank, pivots_equal_geqp3=same)
+        log(f"  K8 {name} f64: pivots equal to geqp3's {same}, rank {qrank} "
+            f"(host {host.rank})")
+        gate(same, f"K8 {name}: pivots differ from geqp3's")
+        gate(qrank == host.rank, f"K8 {name}: rank {qrank} != {host.rank}")
+    return rec, Ad
+
+
+def k8_profile(torch, As, dname):
+    """One profiler window over K8 on every matrix of ``As``: it must hold
+    one qrcp_kernel a factorization and nothing else.  Returns the copies
+    seen (0)."""
+    from torch.autograd import DeviceType
+
+    from hifir_tpu_torch.small_scale.qrcp_device import qrcp_device
+
+    run_all = lambda: [qrcp_device(a) for a in As]
+    for take in range(1, PROFILE_TAKES + 1):
+        prof, offset = profiled(torch, run_all)
+        names = [ev.name for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA
+                 and not ev.name.startswith("ProfilerStep")]
+        kernels = [x for x in names if not x.startswith(("Memcpy",
+                                                          "Memset"))]
+        copies = len(names) - len(kernels)
+        lost = len(kernels) < len(As)
+        PROFILE_WINDOWS.append(dict(offset_ms=offset, take=take, lost=lost))
+        if not lost:
+            break
+    log(f"  K8 {dname}: {len(kernels)} device kernels, {copies} copies for "
+        f"{len(As)} factorizations in the profiler (clock offset {offset} "
+        "ms)")
+    gate(len(kernels) == len(As) and copies == 0
+         and all("qrcp_kernel" in x for x in kernels),
+         f"K8 {dname}: the profiler holds {len(kernels)} kernels and "
+         f"{copies} copies for {len(As)} factorizations")
+    return copies
+
+
+def k8_row(torch, T, name, D, Ad, rec, copies, smi):
+    """K8's row at one matrix: the kernel, the plain route on the card
+    (from K8_PLAIN_ONCE on, its one comparison run), torch.geqrf on the
+    card (CUDA events) and the host geqp3 (host clock), beside the bound."""
+    import scipy.linalg as sla
+
+    from hifir_tpu_torch.small_scale.qrcp_device import (qrcp_device,
+                                                         qrcp_device_plain)
+
+    n, dname = D.shape[0], rec["dtype"]
+    ms = T.ms(lambda: qrcp_device(Ad), iters=10)
+    plain_ms = (rec["plain_once_ms"] if n >= K8_PLAIN_ONCE else
+                timed(torch, lambda: qrcp_device_plain(Ad), 2))
+    geqrf_ms = T.ms(lambda: torch.geqrf(Ad), iters=10)
+    host_ms = []
+    for _ in range(1 if n >= K8_PLAIN_ONCE else 5):
+        t0 = time.perf_counter()
+        sla.qr(D.astype(dname), pivoting=True, mode="economic",
+               check_finite=False)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    # A read once, Q and R written once, piv; (8/3) n^3 FLOP
+    bms, by = bound(3 * n * n * Ad.element_size() + 8 * n, 8 / 3 * n ** 3,
+                    dname)
+    row = dict(name=f"K8_qrcp_{name}", route="cuda", source=K8_SOURCE[0],
+               symbol=K8_SOURCE[1], replaces=K8_SOURCE[2], dtype=dname,
+               shape=f"{n}x{n} {dname}", layout=rec["layout"],
+               grid=rec["grid"], cols=rec["cols"],
+               launches_per_factorization=1, copies=copies,
+               max_abs_err=rec["max_abs_err"], ms=ms,
+               us_per_step=ms * 1e3 / n, plain_ms=plain_ms,
+               plain_route="the eager loop on the card",
+               geqp3_ms=statistics.median(host_ms), geqrf_ms=geqrf_ms,
+               library_ms=None,
+               library_note="no PyTorch call pivots; torch.geqrf "
+               "(geqrf_ms) is the unpivoted QR of the same A",
+               bound_ms=bms, bound_by=by)
+    log(f"  K8 {name} {dname} {n}x{n}: {ms:.4f} ms ({row['us_per_step']:.2f}"
+        f" us a column step, {rec['layout']} layout), plain on the card "
+        f"{plain_ms:.2f} ms, host geqp3 {row['geqp3_ms']:.3f} ms, "
+        f"torch.geqrf {geqrf_ms:.4f} ms (unpivoted), bound {bms:.4f} ms "
+        f"({by}) [{smi}]")
+    return row
+
+
+def k8_path(torch, rng, smi, report):
+    """The K8 path, its launches counted from 0: the auto f64 M-solve of a
+    tail_on_device pack against the host-tail pack on each fixture (1e-10;
+    both packs timed) and HIF.factorize(convdiff2d(128))
+    with device_tail=1 against 0 (host seconds, rank, M-solve 1e-8).
+    Returns the path's launches."""
+    import hifir_tpu_torch as ht
+    from hifir_tpu_torch.models.problems import convdiff2d
     from hifir_tpu_torch.small_scale.dense import DeviceQRCP
     from hifir_tpu_torch.small_scale.qrcp_device import (qrcp_device,
-                                                         qrcp_rank)
+                                                         qrcp_device_cuda)
 
-    rows, report = [], {}
+    def pack(M, tail_on_device):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dp = M.to_device(dtype=np.float64, tail_on_device=tail_on_device)
+        torch.cuda.synchronize()
+        return dp, (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.synchronize()
+    qrcp_device_cuda.launches = 0
     for name, path in (("frozen", FIXTURE), ("convdiff", CONVDIFF)):
         M = ht.load_prec(path)
-        host = M.precs[-1].dense_solver
-        D = M.precs[-1].dense_matrix
-        n = D.shape[0]
-        Ad = torch.as_tensor(D, dtype=torch.float64, device="cuda")
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            Q, R, piv = qrcp_device(Ad)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        rank = qrcp_rank(R)
-        _, _, lpiv = sla.qr(D, pivoting=True, mode="economic")
-        err = float((Q @ R - Ad[:, piv]).abs().max() / Ad.abs().max())
-        orth = float((Q.T @ Q - torch.eye(n, dtype=torch.float64,
-                                          device="cuda")).abs().max())
-        p = piv.cpu().numpy()
-        log(f"  K8 {name} {n}x{n} f64: pivots equal to geqp3's "
-            f"{np.array_equal(p, lpiv)}, rank {rank} (host {host.rank}), "
-            f"|QR - A P| {err:.2e}, |Q^T Q - I| {orth:.2e} (tol 1e-13)")
-        gate(np.array_equal(p, lpiv), f"K8 {name}: pivots differ from "
-             "geqp3's")
-        gate(rank == host.rank, f"K8 {name}: rank {rank} != {host.rank}")
-        gate(err <= 1e-13 and orth <= 1e-13, f"K8 {name}: residual "
-             f"{err:.2e} or orthogonality {orth:.2e} above 1e-13")
-        ms = timed(torch, lambda: qrcp_device(Ad), 3)
-        geqrf_ms = timed(torch, lambda: torch.geqrf(Ad), 10)
-        host_ms = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            sla.qr(D, pivoting=True, mode="economic", check_finite=False)
-            host_ms.append((time.perf_counter() - t0) * 1e3)
-        Dc = torch.as_tensor(D)
-        t0 = time.perf_counter()
-        qrcp_device(Dc)
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        prof, offset = profiled(torch, lambda: qrcp_device(Ad))
-        kinds = {}
-        for ev in prof.events():
-            if ev.device_type != DeviceType.CUDA:
-                kinds["host"] = kinds.get("host", 0) + (ev.name in _LAUNCHES)
-            elif not ev.name.startswith("ProfilerStep"):
-                kind = ("copies" if ev.name.startswith(("Memcpy", "Memset"))
-                        else "kernels")
-                kinds[kind] = kinds.get(kind, 0) + 1
-        # K8's bound: A read once, Q and R written once (and piv), against
-        # (8/3) n^3 FLOP (R's reflections (4/3) n^3, Q's accumulation as
-        # many) at the f64 peak.  The eager route's own traffic, 2 n^2
-        # elements of R and Q read and written at each of the n steps, is
-        # kept beside it as a separate number, not as the bound.
-        bms, by = bound(3 * n * n * 8 + n * 8, 8 / 3 * n ** 3, "float64")
-        eager_ms = 2 * 2 * n * n * 8 * n / MEM_BYTES_PER_S * 1e3
-        row = dict(name=f"K8_qrcp_{name}", route="torch",
-                   source="hifir_tpu_torch/small_scale/qrcp_device.py",
-                   replaces="hifir_tpu/small_scale/qrcp_device.py:27",
-                   shape=f"{n}x{n} float64", launches=kinds.get("kernels", 0),
-                   copies=kinds.get("copies", 0),
-                   host_launch_calls=kinds.get("host", 0), rank=rank,
-                   max_abs_err=float((Q @ R - Ad[:, piv]).abs().max()),
-                   ms=ms, plain_ms=plain_ms, geqp3_ms=statistics.median(
-                       host_ms), library_ms=geqrf_ms, bound_ms=bms,
-                   bound_by=by, eager_traffic_ms=eager_ms,
-                   profile_clock_offset_ms=offset)
-        rows.append(row)
-        log(f"  K8 {name}: {ms:.3f} ms on the card ({row['launches']} "
-            f"kernel launches, {row['copies']} copies a factorization; "
-            f"{row['host_launch_calls']} host launch calls, clock offset "
-            f"{offset} ms), "
-            f"plain (the same code on the host CPU) {plain_ms:.3f} ms, "
-            f"host geqp3 {row['geqp3_ms']:.3f} ms, torch.geqrf on the card "
-            f"{geqrf_ms:.3f} ms (unpivoted), bound {bms:.4f} ms ({by}); "
-            f"the eager route's own traffic at the HBM rate {eager_ms:.4f} "
-            "ms")
-        # the auto f64 M-solve of a tail_on_device pack
         B = torch.as_tensor(rng.standard_normal((M.precs[0].n, NRHS)),
                             device="cuda")
         calls = qrcp_device.calls
-        Xd = M.to_device(dtype=np.float64, tail_on_device=True).solve_mrhs(B)
+        dpd, ms_d = pack(M, True)
         gate(qrcp_device.calls == calls + 1, "tail_on_device did not run K8")
-        dp = M.to_device(dtype=np.float64)
-        Xh = dp.solve_mrhs(B)
-        d = rel_diff(Xd, Xh)
+        dph, ms_h = pack(M, False)
+        d = rel_diff(dpd.solve_mrhs(B), dph.solve_mrhs(B))
         log(f"  tail_on_device auto f64 M-solve on {name}: rel diff vs the "
-            f"host-tail pack {d:.3e} (tol 1e-10)")
+            f"host-tail pack {d:.3e} (tol 1e-10); to_device(float64) "
+            f"{ms_d:.2f} ms with the tail on the card, {ms_h:.2f} ms with "
+            f"the host's (host clock) [{smi}]")
         gate(d <= 1e-10, f"tail_on_device {name}: {d:.3e} > 1e-10")
-        report[f"tail_on_device {name}"] = d
+        report[f"tail_on_device {name}"] = dict(
+            rel_diff=d, to_device_ms=ms_d, host_tail_to_device_ms=ms_h)
+    Ac = convdiff2d(128)
+    fact, secs = {}, {}
+    for dtail in (1, 0, 1, 0):
+        t0 = time.perf_counter()
+        fact[dtail] = ht.HIF().factorize(Ac, ht.Options(
+            **dict(FIXTURE_OPTS, device_tail=dtail)))
+        torch.cuda.synchronize()
+        secs.setdefault(dtail, []).append(time.perf_counter() - t0)
+    dd, dh = (fact[k].precs[-1].dense_solver for k in (1, 0))
+    B = torch.as_tensor(rng.standard_normal((Ac.nrows, NRHS)), device="cuda")
+    d = rel_diff(fact[1].to_device(dtype=np.float64).solve_mrhs(B),
+                 fact[0].to_device(dtype=np.float64).solve_mrhs(B))
+    same = bool(np.array_equal(dd.jpvt, dh.jpvt))
+    report["device_tail_factorize"] = dict(
+        seconds_device_tail=min(secs[1]), seconds_host_tail=min(secs[0]),
+        cpu=cpu_model(), tail=dd.n, rank=dd.rank, host_rank=dh.rank,
+        pivots_equal_geqp3=same, solve_rel_diff=d)
+    log(f"  HIF.factorize(convdiff2d(128)): device_tail=1 {min(secs[1]):.3f}"
+        f" s, device_tail=0 {min(secs[0]):.3f} s (host clock, best of 2, "
+        f"{cpu_model()}); tail {dd.n}, rank {dd.rank} (host {dh.rank}), "
+        f"pivots equal to geqp3's {same}, M-solve rel diff {d:.3e} (tol "
+        "1e-8)")
+    gate(isinstance(dd, DeviceQRCP) and dd.rank == dh.rank and d <= 1e-8,
+         "device_tail=1: the tail's rank or the M-solve differs")
+    torch.cuda.synchronize()
+    launches = qrcp_device_cuda.launches
+    log(f"  K8 launches on the K8 path: {launches}")
+    gate(launches > 0, "K8 was not launched on its path")
+    return launches
+
+
+def k8_phase(torch, T, rng, smi):
+    """K8, the device QRCP, one cooperative launch of qrcp_kernel, against
+    its plain version (the eager loop) on the card, in f64 and f32, on
+    :func:`k8_matrices` (:func:`k8_check`): the kernel's call under
+    torch.cuda.set_sync_debug_mode("error") (a host sync inside fails the
+    run), exactly one launch and no plain call by the counters; pivots
+    equal to the plain version's on the compared positions (f64: in full;
+    f32: up to a first difference only where :func:`near_tie` certifies a
+    tie at f32 precision, the comparison of Q and R stopping there), Q and
+    R within 1e-12 (f64) of the plain version's (:func:`qr_dist`), or in
+    f32 within 1e-5 or, where they are not (the Gaussian matrices' n kappa
+    eps), no farther from the plain f64 factors than twice the plain
+    version's f32 ones; |QR - AP| and |Q^T Q - I| within 1e-13 (f64) /
+    1e-4 (f32); on the fixtures in f64, pivots equal to scipy's geqp3 and
+    the rank to the host's.  A profiler window a dtype holds one
+    qrcp_kernel a factorization and nothing else (:func:`k8_profile`).
+    Rows at the fixtures' tails and the largest Gaussian matrix
+    (:func:`k8_row`); the layouts (shared at the tails, global at 2000); a
+    grid that cannot be co-resident refused; the K8 path
+    (:func:`k8_path`); the complex tail's host fallback; the rank rule
+    (:func:`rank_rule_phase`).  Returns the rows, the report and the K8
+    path's launches."""
+    import hifir_tpu_torch as ht
+    from hifir_tpu_torch.small_scale.dense import DeviceQRCP
+    from hifir_tpu_torch.small_scale.qrcp_device import (qrcp_device,
+                                                         qrcp_device_cuda)
+
+    mats = k8_matrices(rng)
+    big = f"random{max(K8_RANDOM)}"
+    rows, report, plain64 = [], {"matrices": []}, {}
+    for dt in (torch.float64, torch.float32):
+        recs, outs = {}, {}
+        for name, D, lead, rank in mats:
+            recs[name], outs[name] = k8_check(torch, name, D, lead, rank, dt,
+                                              plain64)
+        report["matrices"] += recs.values()
+        copies = k8_profile(torch, list(outs.values()),
+                            str(dt).removeprefix("torch."))
+        rows += [k8_row(torch, T, name, D, outs[name], recs[name], copies,
+                        smi)
+                 for name, D, _, _ in mats
+                 if name in ("frozen", "convdiff", big)]
+
+    lay = {r["name"]: r["layout"] for r in report["matrices"]
+           if r["dtype"] == "float64"}
+    gate(lay["frozen"] == "shared" and lay[big] == "global",
+         f"K8 layouts {lay}")
+    # a grid that cannot be co-resident is an error, never a smaller grid
+    try:
+        qrcp_device_cuda(outs[big], cols_per_cta=1)
+        refused = None
+    except RuntimeError as err:
+        refused = str(err)
+    log(f"  K8 at one column a CTA on {big}: refused ({refused})")
+    gate(refused is not None, f"K8: a grid of a CTA a column on {big} was "
+         "launched")
+    report["refused"] = refused
+
+    launches = k8_path(torch, rng, smi, report)
     report.update(rank_rule_phase(torch, rng))
     # the complex fixture's 25x25 tail takes the host QRCP
     Dz = ht.load_prec(CONVDIFF_C).precs[-1].dense_matrix
@@ -2042,7 +2351,7 @@ def k8_phase(torch, rng):
          "the complex tail did not take the host QRCP")
     log(f"  complex {Dz.shape[0]}x{Dz.shape[0]} tail: host QRCP fallback, "
         f"rank {dz.rank}")
-    return rows, report
+    return rows, report, launches
 
 
 def deficient_tail(kind: str, n: int = 40, rank: int = 25, seed: int = 0):
@@ -3224,7 +3533,7 @@ def main(argv=None) -> int:
     log("== factorize timing")
     ftiming, fprof = time_factorize(torch, fpacks, fBd, fAb)
     log("== K8: device QRCP of the dense tail")
-    k8rows, k8report = k8_phase(torch, frng)
+    k8rows, k8report, k8launches = k8_phase(torch, T, frng, smi)
     freport["seconds_factorize_timing_k8"] = time.perf_counter() - t_phase
     log(f"  factorize, its timing and K8: "
         f"{freport['seconds_factorize_timing_k8']:.1f} s")
@@ -3312,6 +3621,12 @@ def main(argv=None) -> int:
         gate(dlaunches[run][k] > 0, f"kernel {k} was not launched on the "
              f"distribution path ({run})")
 
+    # K8's rows at the K8 path's shapes (the fixtures' tails in f64), with
+    # the launches of that path
+    for row in k8rows:
+        if row["dtype"] == "float64" and "random" not in row["name"]:
+            kernels.append(dict(row, launches=k8launches))
+
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
@@ -3335,7 +3650,8 @@ def main(argv=None) -> int:
                            factorize=freport, factorize_launches=flaunches,
                            factorize_timing=ftiming,
                            factorize_profile=fprof, k8=k8rows,
-                           k8_report=k8report, million=mreport,
+                           k8_report=k8report, k8_launches=k8launches,
+                           million=mreport,
                            million_launches=mlaunches,
                            million_want=mwant, saddle=sreport_ir,
                            saddle_launches=sir_launches,
@@ -3348,8 +3664,6 @@ def main(argv=None) -> int:
         with open(os.path.join(args.out, "nvcc_ptxas.txt"), "w") as f:
             f.write(kl.ptxas_log)
     log(f"== done in {time.perf_counter() - t_start:.1f} s [{smi}]")
-    # K8 is a torch route, not a hand-written kernel: its own line
-    print(json.dumps({"torch_routes": k8rows}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,13 +24,20 @@
 // K10b schur_partial replaces hifir_tpu/parallel/schur.py:_partial_kernel
 //                  (one ring step of the Schur SpGEMM: candidates, sort by
 //                  column, runs of equal columns summed)
+// K8  qrcp         replaces hifir_tpu/small_scale/qrcp_device.py:qrcp_device
+//                  (the dense tail's pivoted QR, a lax.fori_loop in one
+//                  jax.jit): the whole loop in one cooperative launch
 //
 // K1 and K2 come in f32, f64, c64 and c128; K7 in f32 and f64 only, as the
 // TPU kernel it replaces (Mosaic has no complex type); K10a and K10b in f32
-// and f64, as the distribution they serve (real only in the JAX package).
+// and f64, as the distribution they serve (real only in the JAX package),
+// and K8 in f32 and f64, as the JAX sweep (its column norms are real only).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <climits>
 #include <cstdint>
 
 // ---------------------------------------------------------------------------
@@ -1832,6 +1839,338 @@ int schur_partial(const int* le_idx, const T* le_val, const T* d, int64_t ds,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// K8: Householder QR with column pivoting of a dense n x n A, A[:, piv] =
+// Q R, in one cooperative launch.  Replaces
+// hifir_tpu/small_scale/qrcp_device.py:qrcp_device (a lax.fori_loop of n
+// steps in one jax.jit) and computes what it computes: greedy pivoting on
+// the downdated, clamped column norms (ties to the lowest column position),
+// the reflector alpha = -sign(x_k or 1) sigma with v normalised (left as it
+// is when |v| = 0), the annihilated entries set to exactly 0 and the
+// diagonal to exactly alpha, norms2 = max(norms2 - R[k, :]^2, 0).
+//
+// Bound: A read once and Q and R written once are microseconds, and so are
+// the (8/3) n^3 FLOP at the tails' sizes; what sets the time is the chain
+// of n dependent steps.  Design: one grid of co-resident CTAs (the host
+// sizes it from the occupancy and refuses a grid that cannot be) and one
+// grid barrier a step.
+// - CTA g owns physical columns [g cpc, (g + 1) cpc) of R and the same rows
+//   of Q.  R's update R_j -= 2 v (v^T R_j) is local to a column and Q's
+//   q_i -= 2 (q_i . v) v^T to a row, so once v is known a step needs no
+//   other CTA's data.  Only rows >= k of the trailing columns of R and
+//   columns >= k of Q change at step k (v is zero above row k, and v^T R_j
+//   is exactly 0 for a pivoted column j), so a step touches only those.
+// - Columns never move: every CTA keeps the same logical -> physical map
+//   (and its inverse) in shared memory and swaps it as the loop swaps
+//   columns; R is written through the map at the end.
+// - After its updates a CTA publishes one candidate: its trailing column of
+//   largest norm (ties to the lowest logical position), the norm, the
+//   position and the column's rows below the next diagonal, in a double
+//   buffer of the step's parity.  After the grid barrier every CTA reduces
+//   the candidates the same way (so the first maximal position wins, as
+//   argmax picks it), reads the winning column and builds v redundantly:
+//   one barrier a step.  Data that other CTAs wrote in the launch is read
+//   with ld.global.cg, never through the read-only path.
+// - The slabs of R and Q live in shared memory when they fit (n up to
+//   about 1200 in f64 on 132 SMs), else in global memory (R in a scratch
+//   copy, column-major, and Q in place), where L2 holds them.
+
+constexpr int kQrcpThreads = 512;
+constexpr int kQrcpWarps = kQrcpThreads / 32;
+// columns (and rows of Q) a CTA, at least: fewer, fuller CTAs shorten the
+// step at the tails' sizes (tools/probe_qrcp.py's sweep, PERF.md section 6)
+constexpr int kQrcpMinCols = 8;
+
+__device__ __forceinline__ int ld_cg(const int* p) {
+  int v;
+  asm volatile("ld.global.cg.s32 %0, [%1];\n" : "=r"(v) : "l"(p));
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ T neg_inf();
+template <>
+__device__ __forceinline__ float neg_inf<float>() {
+  return __int_as_float((int)0xff800000u);
+}
+template <>
+__device__ __forceinline__ double neg_inf<double>() {
+  return __longlong_as_double((long long)0xfff0000000000000ULL);
+}
+
+// The pivot order: the larger norm first, a NaN above every number (as
+// argmax takes it), then the lower logical position.  A total order on
+// distinct positions, so every lane and every CTA reduces to the same one.
+template <typename T>
+__device__ __forceinline__ bool qrcp_before(T v, int p, T bv, int bp) {
+  if (v != v) return bv == bv || p < bp;  // v is a NaN
+  if (bv != bv) return false;
+  return v > bv || (v == bv && p < bp);
+}
+
+__device__ __forceinline__ float sqrt_rn(float x) { return __fsqrt_rn(x); }
+__device__ __forceinline__ double sqrt_rn(double x) { return __dsqrt_rn(x); }
+
+// Dynamic shared memory of a CTA: x (then v), the norms of its columns,
+// the warps' partial sums and x_k, the map and its inverse, and (the
+// shared-memory layout) the R slab (cpc columns of n) and the Q slab (cpc
+// rows of n).
+__host__ __device__ inline int64_t qrcp_smem(int n, int cpc, int es,
+                                             bool slabs) {
+  int64_t b = round16((int64_t)n * es) + round16((int64_t)cpc * es) +
+              round16((int64_t)(kQrcpWarps + 1) * es) +
+              2 * round16((int64_t)n * 4);
+  if (slabs) b += 2 * round16((int64_t)cpc * n * es);
+  return b;
+}
+
+template <typename T, bool SMEM>
+__global__ void __launch_bounds__(kQrcpThreads, 1)
+qrcp_kernel(const T* __restrict__ A, int n, int cpc, T* Q, T* R,
+            int64_t* piv, T* rt, T* cand_col, T* cand_norm, int* cand_pos) {
+  namespace cg = cooperative_groups;
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int G = gridDim.x, g = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c0 = g * cpc;
+  const int nc = max(0, min(cpc, n - c0));
+  const int es = (int)sizeof(T);
+  unsigned char* p = smem_raw;
+  T* xs = reinterpret_cast<T*>(p);
+  p += round16((int64_t)n * es);
+  T* nrm = reinterpret_cast<T*>(p);
+  p += round16((int64_t)cpc * es);
+  T* part = reinterpret_cast<T*>(p);   // kQrcpWarps partial sums, then x_k
+  p += round16((int64_t)(kQrcpWarps + 1) * es);
+  int* map = reinterpret_cast<int*>(p);
+  p += round16((int64_t)n * 4);
+  int* inv = reinterpret_cast<int*>(p);
+  p += round16((int64_t)n * 4);
+  T* Rs;  // R slab, column-major: Rs[cl * n + i] = R[i, c0 + cl]
+  T* Qs;  // Q slab, row-major: Qs[rl * n + l] = Q[c0 + rl, l]
+  if constexpr (SMEM) {
+    Rs = reinterpret_cast<T*>(p);
+    Qs = Rs + round16((int64_t)cpc * n * es) / es;
+  } else {
+    Rs = rt + (int64_t)c0 * n;
+    Qs = Q + (int64_t)c0 * n;
+  }
+
+  // the candidate of this CTA for step kn: its column of largest norm among
+  // those at logical positions >= kn, its rows kn.. into the buffer of
+  // kn's parity (every thread finds the same one)
+  auto publish = [&](int kn) {
+    T best = neg_inf<T>();
+    int bpos = INT_MAX, bcl = -1;
+    for (int cl = 0; cl < nc; ++cl) {
+      const int pos = inv[c0 + cl];
+      if (pos >= kn && qrcp_before(nrm[cl], pos, best, bpos)) {
+        best = nrm[cl];
+        bpos = pos;
+        bcl = cl;
+      }
+    }
+    const int64_t slot = (int64_t)(kn & 1) * G + g;
+    if (tid == 0) {
+      cand_norm[slot] = best;
+      cand_pos[slot] = bpos;
+    }
+    if (bcl >= 0) {
+      const T* src = Rs + (int64_t)bcl * n;
+      T* dst = cand_col + slot * n;
+      for (int i = kn + tid; i < n; i += kQrcpThreads) dst[i] = src[i];
+    }
+  };
+
+  for (int i = tid; i < n; i += kQrcpThreads) map[i] = inv[i] = i;
+  for (int64_t e = tid; e < (int64_t)n * nc; e += kQrcpThreads) {
+    const int i = (int)(e / nc), cl = (int)(e % nc);
+    Rs[(int64_t)cl * n + i] = A[(int64_t)i * n + c0 + cl];
+  }
+  for (int64_t e = tid; e < (int64_t)n * nc; e += kQrcpThreads)
+    Qs[e] = e % n == c0 + e / n ? T(1) : T(0);
+  __syncthreads();
+  for (int cl = warp; cl < nc; cl += kQrcpWarps) {
+    const T* col = Rs + (int64_t)cl * n;
+    T s = T(0);
+    for (int i = lane; i < n; i += 32) s = fma_rn(col[i], col[i], s);
+    s = warp_sum(s);
+    if (lane == 0) nrm[cl] = s;
+  }
+  __syncthreads();
+  publish(0);
+  grid.sync();
+
+  for (int k = 0; k < n; ++k) {
+    // the pivot: the first of the CTAs' candidates in pivot order (each
+    // warp reduces them itself)
+    const int64_t base = (int64_t)(k & 1) * G;
+    T best = neg_inf<T>();
+    int bpos = INT_MAX, bg = 0;
+    for (int h = lane; h < G; h += 32) {
+      const T v = ld_cg(cand_norm + base + h);
+      const int pos = ld_cg(cand_pos + base + h);
+      if (qrcp_before(v, pos, best, bpos)) {
+        best = v;
+        bpos = pos;
+        bg = h;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o /= 2) {
+      const T v = shfl_xor(best, o);
+      const int pos = shfl_xor(bpos, o), h = shfl_xor(bg, o);
+      if (qrcp_before(v, pos, best, bpos)) {
+        best = v;
+        bpos = pos;
+        bg = h;
+      }
+    }
+    const int j = bpos;      // logical position of the pivot
+    const int c = map[j];    // its physical column
+    const int a = map[k];    // the column it trades places with
+    // x = the pivot column from row k; the sum of squares below row k
+    const T* x = cand_col + (base + bg) * n;
+    T s = T(0);
+    for (int i = k + tid; i < n; i += kQrcpThreads) {
+      const T xv = ld_cg(x + i);
+      xs[i] = xv;
+      if (i > k) s = fma_rn(xv, xv, s);
+      else part[kQrcpWarps] = xv;
+    }
+    s = warp_sum(s);
+    if (lane == 0) part[warp] = s;
+    __syncthreads();
+    T s1 = T(0);
+#pragma unroll
+    for (int w = 0; w < kQrcpWarps; ++w) s1 += part[w];
+    const T xk = part[kQrcpWarps];
+    const T sigma = sqrt_rn(fma_rn(xk, xk, s1));
+    const T alpha = xk < T(0) ? sigma : -sigma;
+    const T vk = xk - alpha;
+    const T vn = sqrt_rn(fma_rn(vk, vk, s1));
+    for (int i = k + tid; i < n; i += kQrcpThreads) {
+      const T xv = i == k ? vk : xs[i];
+      xs[i] = vn > T(0) ? xv / vn : xv;
+    }
+    if (tid == 0) {
+      map[k] = c;
+      map[j] = a;
+      inv[c] = k;
+      inv[a] = j;
+    }
+    __syncthreads();
+    // a warp a task: the CTA's trailing columns of R, then its rows of Q
+    for (int t = warp; t < 2 * nc; t += kQrcpWarps) {
+      if (t < nc) {
+        T* col = Rs + (int64_t)t * n;
+        if (c0 + t == c) {  // the pivot: its diagonal and zeros below it
+          for (int i = k + lane; i < n; i += 32)
+            col[i] = i == k ? alpha : T(0);
+          continue;
+        }
+        if (inv[c0 + t] < k) continue;  // pivoted at an earlier step
+        T w = T(0);
+        for (int i = k + lane; i < n; i += 32) w = fma_rn(xs[i], col[i], w);
+        w = warp_sum(w);
+        for (int i = k + lane; i < n; i += 32)
+          col[i] = col[i] - T(2) * (xs[i] * w);
+        __syncwarp();
+        if (lane == 0) {
+          const T d = nrm[t] - col[k] * col[k];
+          nrm[t] = d < T(0) ? T(0) : d;
+        }
+      } else {
+        T* row = Qs + (int64_t)(t - nc) * n;
+        T w = T(0);
+        for (int l = k + lane; l < n; l += 32) w = fma_rn(row[l], xs[l], w);
+        w = warp_sum(w);
+        for (int l = k + lane; l < n; l += 32)
+          row[l] = row[l] - T(2) * (w * xs[l]);
+      }
+    }
+    __syncthreads();
+    if (k + 1 < n) {
+      publish(k + 1);
+      grid.sync();
+    }
+  }
+
+  // R through the map (zeros below the diagonal), Q's rows, the pivots
+  for (int64_t e = tid; e < (int64_t)n * nc; e += kQrcpThreads) {
+    const int i = (int)(e / nc), cl = (int)(e % nc);
+    const int pos = inv[c0 + cl];
+    R[(int64_t)i * n + pos] = i <= pos ? Rs[(int64_t)cl * n + i] : T(0);
+  }
+  if constexpr (SMEM)
+    for (int64_t e = tid; e < (int64_t)n * nc; e += kQrcpThreads)
+      Q[(int64_t)c0 * n + e] = Qs[e];
+  if (g == 0)
+    for (int i = tid; i < n; i += kQrcpThreads) piv[i] = map[i];
+}
+
+// The launch plan of an n x n QRCP: out = {grid, columns a CTA, 1 for the
+// shared-memory layout (0: global), dynamic shared memory}.  ``cpc`` > 0
+// asks for that many columns a CTA, 0 takes the default (at least
+// kQrcpMinCols, at most one CTA an SM).  A grid that cannot be co-resident
+// is refused (cudaErrorCooperativeLaunchTooLarge), never shrunk.
+template <typename T>
+int qrcp_plan(int n, int cpc, int* out) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (n < 1 || cpc < 0) return (int)cudaErrorInvalidValue;
+  if (cpc == 0) cpc = std::max(kQrcpMinCols, (n + sms - 1) / sms);
+  cpc = std::min(cpc, n);
+  const int G = (n + cpc - 1) / cpc;
+  const int es = (int)sizeof(T);
+  const bool slabs = qrcp_smem(n, cpc, es, true) <= kMaxSmem;
+  const int64_t smem = qrcp_smem(n, cpc, es, slabs);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kernel = slabs ? qrcp_kernel<T, true> : qrcp_kernel<T, false>;
+  static int granted[2] = {0, 0};
+  err = allow_smem(kernel, (int)smem, granted[slabs]);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kQrcpThreads,
+                                                      (size_t)smem);
+  if (err != cudaSuccess) return (int)err;
+  if ((int64_t)per_sm * sms < G)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  out[0] = G;
+  out[1] = cpc;
+  out[2] = slabs ? 1 : 0;
+  out[3] = (int)smem;
+  return (int)cudaSuccess;
+}
+
+template <typename T>
+int qrcp(const T* A, int n, int cpc, int grid, T* Q, T* R, int64_t* piv,
+         T* rt, T* cand_col, T* cand_norm, int* cand_pos, void* stream) {
+  int plan[4];
+  const int err = qrcp_plan<T>(n, cpc, plan);
+  if (err != (int)cudaSuccess) return err;
+  // the scratch was sized for ``grid`` CTAs, and the global layout needs R's
+  // scratch copy
+  if (plan[0] != grid || (!plan[2] && rt == nullptr))
+    return (int)cudaErrorInvalidValue;
+  void* args[] = {(void*)&A, (void*)&n, (void*)&plan[1], (void*)&Q,
+                  (void*)&R, (void*)&piv, (void*)&rt, (void*)&cand_col,
+                  (void*)&cand_norm, (void*)&cand_pos};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      plan[2] ? (const void*)qrcp_kernel<T, true>
+              : (const void*)qrcp_kernel<T, false>,
+      dim3((unsigned)grid), dim3(kQrcpThreads), args, (size_t)plan[3],
+      (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1919,6 +2258,21 @@ int64_t chunk_sweep_smem(int R, int cloc, int kmax, int wmax, int es,
 HIFIR_DEFINE_DIST(f32, float)
 HIFIR_DEFINE_DIST(f64, double)
 
+#define HIFIR_DEFINE_QRCP(SUFFIX, T)                                          \
+  int qrcp_plan_##SUFFIX(int n, int cpc, int* out) {                         \
+    return qrcp_plan<T>(n, cpc, out);                                         \
+  }                                                                           \
+  int qrcp_##SUFFIX(const T* A, int n, int cpc, int grid, T* Q, T* R,        \
+                    int64_t* piv, T* rt, T* cand_col, T* cand_norm,          \
+                    int* cand_pos, void* stream) {                           \
+    return qrcp<T>(A, n, cpc, grid, Q, R, piv, rt, cand_col, cand_norm,      \
+                   cand_pos, stream);                                         \
+  }
+
+// K8 is real only, as the JAX sweep
+HIFIR_DEFINE_QRCP(f32, float)
+HIFIR_DEFINE_QRCP(f64, double)
+
 // K7 is real only, as the TPU kernel it replaces; K1 and K2 take complex
 HIFIR_DEFINE_BSR(f32, float, MmaTf32x3)
 HIFIR_DEFINE_BSR(f64, double, MmaF64)
@@ -1930,5 +2284,6 @@ HIFIR_DEFINE(c128, C128)
 #undef HIFIR_DEFINE
 #undef HIFIR_DEFINE_BSR
 #undef HIFIR_DEFINE_DIST
+#undef HIFIR_DEFINE_QRCP
 
 }  // extern "C"

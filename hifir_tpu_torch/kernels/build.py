@@ -40,10 +40,12 @@ _SIGNATURES = {
                     _P],
     "schur_partial": [_P, _P, _P, _L, _P, _P, _L, _I, _I, _I, _I, _I, _P, _P,
                       _P],
+    "qrcp": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "qrcp_plan": [_I, _I, _P],
 }
 # The value dtypes each entry point is built for (its symbols are
 # ``{name}_{suffix}``): K1 and K2 real and complex, K7 real only, as the TPU
-# kernel it replaces.
+# kernel it replaces; K8 real only, as the JAX sweep.
 _DTYPE_SUFFIX = {"float32": "f32", "float64": "f64", "complex64": "c64",
                  "complex128": "c128"}
 SUFFIXES = {"bsr_spmv": ("f32", "f64"),
@@ -51,7 +53,9 @@ SUFFIXES = {"bsr_spmv": ("f32", "f64"),
             "trsv_solve": ("f32", "f64", "c64", "c128"),
             "chunk_fma": ("f32", "f64"),
             "chunk_sweep": ("f32", "f64"),
-            "schur_partial": ("f32", "f64")}
+            "schur_partial": ("f32", "f64"),
+            "qrcp": ("f32", "f64"),
+            "qrcp_plan": ("f32", "f64")}
 
 
 @dataclasses.dataclass(frozen=True)

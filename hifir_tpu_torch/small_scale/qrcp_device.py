@@ -7,31 +7,49 @@ reflectors and the same clamp, so that the pivots, Q and R follow the JAX
 package's sweep.  On the GPU it replaces the host ``geqp3`` of the dense
 tail (``Options.device_tail``, ``DevicePrec.from_host(tail_on_device=True)``).
 
-The route is eager PyTorch (a "torch route", not a hand-written kernel):
-one Python loop of n steps, each a fixed sequence of tensor operations
-(masked argmax, column swap, reflector, two rank-1 updates, cleanup, norm
-downdate).  Nothing in the loop reads a device value on the host: the pivot
-stays a 0-d tensor and the swap is an index tensor built with
-``torch.where`` on an ``arange``, as the JAX code builds it, so the loop
-queues its launches without a synchronisation.  :func:`qrcp_rank` syncs
-once, after the loop.  Bound on the card: A read once and Q and R written
-once (3 n^2 elements), and (8/3) n^3 FLOP (R's reflections and Q's
-accumulation) at the dtype's peak; at the tails' sizes (n of a few hundred)
-both are microseconds, and the launches (about 45 a step) set its time.
-:func:`qrcp_factor` is the one entry that the dense-tail factorizations
-call.
+:func:`qrcp_device` dispatches on the device of its input:
 
-The same code is the plain version: on the CPU it runs as it is.
+- on the card, :func:`qrcp_device_cuda` runs the whole loop as one
+  cooperative launch of ``csrc/kernels.cu:qrcp_kernel`` (one grid barrier a
+  column step; the kernel's note gives its design);
+- on the CPU, :func:`qrcp_device_plain` runs the plain version: one Python
+  loop of n steps, each a fixed sequence of tensor operations (masked
+  argmax, column swap, reflector, two rank-1 updates, cleanup, norm
+  downdate).  It reads no device value on the host (the pivot stays a 0-d
+  tensor and the swap is an index tensor built with ``torch.where`` on an
+  ``arange``, as the JAX code builds it), so on the card, where the
+  comparisons run it, it queues its ~45 launches a step without a
+  synchronisation.
+
+Neither makes a host sync; :func:`qrcp_rank` syncs once, after.  Bound on
+the card: A read once and Q and R written once (3 n^2 elements), and
+(8/3) n^3 FLOP at the dtype's peak; at the tails' sizes (n of a few
+hundred) both are microseconds, and the chain of n dependent steps sets the
+time.  :func:`qrcp_factor` is the one entry that the dense-tail
+factorizations call.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["qrcp_device", "qrcp_rank", "qrcp_factor"]
+from ..kernels.build import check, dtype_suffix, kernel_fn, load_kernels
+
+__all__ = ["qrcp_device", "qrcp_device_plain", "qrcp_device_cuda",
+           "qrcp_plan", "qrcp_rank", "qrcp_factor"]
+
+
+def _check(A: torch.Tensor, who: str) -> None:
+    if A.is_complex():
+        raise TypeError(f"{who}: the column-norm sweep is real only; got "
+                        f"{A.dtype} (a complex tail takes the host QRCP)")
+    if A.dim() != 2 or A.shape[0] != A.shape[1]:
+        raise ValueError(f"{who}: square A expected, got {tuple(A.shape)}")
 
 
 def qrcp_device(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
@@ -41,14 +59,25 @@ def qrcp_device(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
 
     Returns (Q, R, piv), piv int64.  Square A only (the HIF dense tail is
     square).  A complex A raises TypeError: the column-norm sweep
-    ``(A * A).sum(0)`` is real only, as in the JAX package."""
-    if A.is_complex():
-        raise TypeError("qrcp_device: the column-norm sweep is real only; "
-                        f"got {A.dtype} (a complex tail takes the host QRCP)")
-    if A.dim() != 2 or A.shape[0] != A.shape[1]:
-        raise ValueError(f"qrcp_device: square A expected, got "
-                         f"{tuple(A.shape)}")
+    ``(A * A).sum(0)`` is real only, as in the JAX package.  Kernel K8 for
+    a CUDA tensor, the plain version for a CPU one;
+    ``qrcp_device.calls`` counts the calls."""
+    _check(A, "qrcp_device")
     qrcp_device.calls += 1
+    if A.device.type == "cpu":
+        return qrcp_device_plain(A)
+    return qrcp_device_cuda(A)
+
+
+qrcp_device.calls = 0
+
+
+def qrcp_device_plain(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor]:
+    """The plain version of K8: the JAX loop as eager torch operations, on
+    A's device.  ``qrcp_device_plain.calls`` counts its calls."""
+    _check(A, "qrcp_device_plain")
+    qrcp_device_plain.calls += 1
     n = A.shape[0]
     dev, dt = A.device, A.dtype
     R = A.clone()
@@ -85,7 +114,71 @@ def qrcp_device(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
     return Q, torch.triu(R), piv
 
 
-qrcp_device.calls = 0
+qrcp_device_plain.calls = 0
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(device_index: int, n: int, suffix: str, cols_per_cta: int):
+    with torch.cuda.device(device_index):
+        out = (ctypes.c_int * 4)()
+        err = load_kernels().fn("qrcp_plan", suffix)(n, cols_per_cta, out)
+    check(err, f"qrcp: plan for n = {n} ({cols_per_cta} columns a CTA)")
+    return tuple(out)
+
+
+def qrcp_plan(n: int, dtype, device="cuda", cols_per_cta: int = 0) -> dict:
+    """K8's launch for an n x n factorization on ``device``: the grid (one
+    CTA per ``cols`` columns of R and rows of Q, all co-resident), the
+    layout of the slabs ("shared" or "global") and the dynamic shared
+    memory a CTA.  ``cols_per_cta`` > 0 asks for that many columns a CTA;
+    a grid that cannot be co-resident raises."""
+    dev = torch.device(device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    grid, cols, slabs, smem = _plan(idx, n, dtype_suffix("qrcp", dtype),
+                                    cols_per_cta)
+    return dict(grid=grid, cols=cols, layout="shared" if slabs else "global",
+                smem=smem)
+
+
+def qrcp_device_cuda(A: torch.Tensor, cols_per_cta: int = 0):
+    """Launch K8 on A's card: (Q, R, piv) as :func:`qrcp_device_plain`
+    gives them, in one cooperative launch on the current stream, with no
+    host sync.  Refuses a complex, non-square or CPU A, and a dtype other
+    than float32 and float64, before it loads the library.
+    ``qrcp_device_cuda.launches`` counts its launches."""
+    _check(A, "qrcp_device_cuda")
+    dtype_suffix("qrcp", A.dtype)
+    if A.device.type != "cuda":
+        raise ValueError(f"qrcp_device_cuda: a CUDA tensor expected, got "
+                         f"one on {A.device}")
+    n = A.shape[0]
+    Q = torch.empty((n, n), dtype=A.dtype, device=A.device)
+    R = torch.empty_like(Q)
+    piv = torch.empty(n, dtype=torch.int64, device=A.device)
+    if n == 0:
+        return Q, R, piv
+    A = A.contiguous()
+    plan = qrcp_plan(n, A.dtype, A.device, cols_per_cta)
+    G = plan["grid"]
+    # R's column-major scratch copy for the global layout; the CTAs'
+    # candidates (two buffers, by the step's parity)
+    rt = A.new_empty(n * n if plan["layout"] == "global" else 0)
+    cand_col = A.new_empty(2 * G * n)
+    cand_norm = A.new_empty(2 * G)
+    cand_pos = torch.empty(2 * G, dtype=torch.int32, device=A.device)
+    fn = kernel_fn("qrcp", index_dtypes=(torch.int64, torch.int32), A=A, Q=Q,
+                   R=R, piv=piv, rt=rt, cand_col=cand_col,
+                   cand_norm=cand_norm, cand_pos=cand_pos)
+    err = fn(A.data_ptr(), n, plan["cols"], G, Q.data_ptr(), R.data_ptr(),
+             piv.data_ptr(), rt.data_ptr(), cand_col.data_ptr(),
+             cand_norm.data_ptr(), cand_pos.data_ptr(),
+             torch.cuda.current_stream(A.device).cuda_stream)
+    check(err, "qrcp")
+    qrcp_device_cuda.launches += 1
+    return Q, R, piv
+
+
+qrcp_device_cuda.launches = 0
 
 
 def qrcp_rank(R: torch.Tensor, rrqr_cond: float = 0.0) -> int:

@@ -97,10 +97,12 @@ def test_qrcp_device_matches_jax(name, dtype):
 
 
 def test_qrcp_device_refuses_complex():
+    calls = qrcp_device.calls
     with pytest.raises(TypeError, match="real only"):
         qrcp_device(torch.eye(4, dtype=torch.complex128))
     with pytest.raises(ValueError, match="square"):
         qrcp_device(torch.ones(3, 4, dtype=torch.float64))
+    assert qrcp_device.calls == calls     # a refused call is not counted
 
 
 def test_qrcp_rank_rule():
