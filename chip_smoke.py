@@ -133,7 +133,12 @@ Phases, in order; any failed gate raises and the script exits non-zero:
    with device_tail=1 against 0 (host seconds, rank, M-solve 1e-8); the
    complex tail's host fallback; the rank rule on 40x40 rank-25 QRCP and
    SYEIG tails: r = rank + 1 equal to r = 0 (1e-12) and to the host's
-   truncated solve (1e-10), both directions.
+   truncated solve (1e-10), both directions.  The "global_x" layout (x,
+   map and inverse in global scratch) forced on Gaussian n = 33 and 736
+   against the plain route, both dtypes, and f64 n = 14465 once, the first
+   n the older layouts refuse on 132 SMs: one launch, no host sync,
+   |AP - QR| / |A| and |Q^T Q - I| <= 1e-11, piv a permutation led by the
+   column of largest norm (the plain route is not run at that n).
 12. 1M (BASELINE config 2), generator --seed + 4, each part counted: the
    native factorize of poisson2d(1024) with bench.py's robust options
    (seconds with the host CPU, levels, nnz(M), fill), packs "auto" in f32
@@ -160,9 +165,13 @@ Phases, in order; any failed gate raises and the script exits non-zero:
    forms, then its halo and all_gather forms on two groups of the one
    card, where K10a runs a chunk a group; the sharded and halo SpMV and
    the IR step on a (2, 4) mesh; the ring Schur (K10b) under dist_schur=1
-   on convdiff2d(128); PartitionedHIF with eight parts; then the rows of
-   K10a, the sweep (one application of level 0's L) and K10b against
-   their plain versions.
+   on convdiff2d(128), one K10b launch a ring step; PartitionedHIF with
+   eight parts; then the rows of K10a, the sweep (one application of
+   level 0's L) and K10b against their plain versions; K10b (generator
+   --seed + 7) also at a seeded shape of its block and global tiers and on
+   edge cases (W = 1, 512, 513, long runs, all-sentinel and padded rows)
+   through every tier that holds them: columns equal, values 1e-12 /
+   1e-5, two launches bitwise equal.
 
 Every torch.profiler breakdown discards one profiled warm-up run, leaves
 PROFILE_PAD_S of idle host at each end of the window (the tracer drops
@@ -1946,6 +1955,13 @@ K8_TOL = {"float64": 1e-12, "float32": 1e-5}
 K8_RESIDUAL = {"float64": 1e-13, "float32": 1e-4}
 K8_SOURCE = ("hifir_tpu_torch/csrc/kernels.cu", "qrcp_kernel",
              "hifir_tpu/small_scale/qrcp_device.py:27")
+# the matrices that also run in the "global_x" layout, forced
+K8_FORCED = ("random33", "random736")
+# the first f64 n whose x, map and inverse leave shared memory on 132 SMs
+# ("global_x"), run once; its gates (n eps ~ 1.6e-12 with margin: the
+# backward error of Householder QR grows with n)
+K8_LARGE = 14465
+K8_LARGE_TOL = 1e-11
 
 
 def k8_matrices(rng) -> list:
@@ -2036,11 +2052,12 @@ def near_tie(torch, A64, prefix, a: int, b: int, dtype: str):
     return ok, gap, delta
 
 
-def k8_check(torch, name, D, lead, rank, dt, plain64):
+def k8_check(torch, name, D, lead, rank, dt, plain64, layout=None):
     """One K8 factorization of D in dtype ``dt`` on the card against the
-    plain version's (see :func:`k8_phase`); ``plain64`` holds the plain
-    f64 factors by name (filled in the f64 pass, read in the f32 one).
-    Returns the record and the card's A."""
+    plain version's (see :func:`k8_phase`), in ``layout`` (default: the
+    plan's); ``plain64`` holds the plain f64 factors by name (filled in the
+    f64 pass at the plan's layout, read in the f32 one).  Returns the
+    record and the card's A."""
     import scipy.linalg as sla
 
     import hifir_tpu_torch as ht
@@ -2051,12 +2068,13 @@ def k8_check(torch, name, D, lead, rank, dt, plain64):
     dname = str(dt).removeprefix("torch.")
     n = D.shape[0]
     Ad = torch.as_tensor(D, dtype=dt, device="cuda")
-    plan = qrcp_plan(n, dt)
+    plan = qrcp_plan(n, dt, layout=layout)
     torch.cuda.synchronize()
     k0, p0 = qrcp_device_cuda.launches, qrcp_device_plain.calls
     torch.cuda.set_sync_debug_mode("error")
     try:
-        F = qrcp_device(Ad)
+        F = (qrcp_device(Ad) if layout is None
+             else qrcp_device_cuda(Ad, layout=layout))
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -2069,7 +2087,7 @@ def k8_check(torch, name, D, lead, rank, dt, plain64):
     Fp = qrcp_device_plain(Ad)
     e.record()
     torch.cuda.synchronize()
-    if dt == torch.float64:
+    if dt == torch.float64 and layout is None:
         plain64[name] = Fp
     Q, R, piv = F
     pk, pp = piv.cpu().numpy(), Fp[2].cpu().numpy()
@@ -2116,6 +2134,7 @@ def k8_check(torch, name, D, lead, rank, dt, plain64):
                compared=m, pivot_tie=tie, q_rel=dq, r_rel=dr,
                max_abs_err=dabs, tol=tol, accuracy=acc, residual=res,
                orthogonality=orth, layout=plan["layout"], grid=plan["grid"],
+               forced=layout is not None,
                cols=plan["cols"], plain_once_ms=s.elapsed_time(e))
     log(f"  K8 {name:14s} {dname} n={n:4d} ({plan['layout']}, "
         f"{plan['grid']} CTAs of {plan['cols']}): pivots equal on {s1} of "
@@ -2300,10 +2319,11 @@ def k8_phase(torch, T, rng, smi):
     qrcp_kernel a factorization and nothing else (:func:`k8_profile`).
     Rows at the fixtures' tails and the largest Gaussian matrix
     (:func:`k8_row`); the layouts (shared at the tails, global at 2000); a
-    grid that cannot be co-resident refused; the K8 path
-    (:func:`k8_path`); the complex tail's host fallback; the rank rule
-    (:func:`rank_rule_phase`).  Returns the rows, the report and the K8
-    path's launches."""
+    grid that cannot be co-resident refused; the "global_x" layout forced
+    on K8_FORCED; the K8 path (:func:`k8_path`); the complex tail's host
+    fallback; the rank rule (:func:`rank_rule_phase`); n = K8_LARGE once
+    (:func:`k8_large`).  Returns the rows, the report and the K8 path's
+    launches."""
     import hifir_tpu_torch as ht
     from hifir_tpu_torch.small_scale.dense import DeviceQRCP
     from hifir_tpu_torch.small_scale.qrcp_device import (qrcp_device,
@@ -2340,8 +2360,16 @@ def k8_phase(torch, T, rng, smi):
          "launched")
     report["refused"] = refused
 
+    # the "global_x" layout forced at small n, against the plain route
+    report["forced_global_x"] = [
+        k8_check(torch, name, D, lead, rank, dt, plain64,
+                 layout="global_x")[0]
+        for dt in (torch.float64, torch.float32)
+        for name, D, lead, rank in mats if name in K8_FORCED]
+
     launches = k8_path(torch, rng, smi, report)
     report.update(rank_rule_phase(torch, rng))
+    rows.append(k8_large(torch, rng, smi, report))
     # the complex fixture's 25x25 tail takes the host QRCP
     Dz = ht.load_prec(CONVDIFF_C).precs[-1].dense_matrix
     calls = qrcp_device.calls
@@ -2352,6 +2380,78 @@ def k8_phase(torch, T, rng, smi):
     log(f"  complex {Dz.shape[0]}x{Dz.shape[0]} tail: host QRCP fallback, "
         f"rank {dz.rank}")
     return rows, report, launches
+
+
+def k8_large(torch, rng, smi, report) -> dict:
+    """K8 once at n = K8_LARGE in f64 on a seeded Gaussian A made on the
+    card, in the "global_x" layout the plan picks there: one launch and no
+    host sync; |A[:, piv] - Q R| / |A| and |Q^T Q - I| within K8_LARGE_TOL
+    (torch.matmul, TF32 off); piv a permutation whose first entry is A's
+    column of largest norm.  The plain route (~3 ms a column step) is not
+    run.  Returns K8's row at this n."""
+    from hifir_tpu_torch.small_scale.qrcp_device import (qrcp_device,
+                                                         qrcp_device_cuda,
+                                                         qrcp_device_plain,
+                                                         qrcp_plan)
+
+    n = K8_LARGE
+    plan = qrcp_plan(n, torch.float64)
+    gate(plan["layout"] == "global_x", f"K8 n = {n}: layout {plan}")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(int(rng.integers(2**62)))
+    A = torch.randn((n, n), generator=g, dtype=torch.float64, device="cuda")
+    torch.cuda.synchronize()
+    k0, p0 = qrcp_device_cuda.launches, qrcp_device_plain.calls
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s.record()
+        Q, R, piv = qrcp_device(A)
+        e.record()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    ms = s.elapsed_time(e)
+    gate(qrcp_device_cuda.launches == k0 + 1
+         and qrcp_device_plain.calls == p0, f"K8 n = {n}: not one launch")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        res = float((A[:, piv] - Q @ R).abs().max() / A.abs().max())
+        Q = Q.T @ Q
+        Q.diagonal().sub_(1.0)
+        orth = float(Q.abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    p = piv.cpu().numpy()
+    perm = bool(np.array_equal(np.sort(p), np.arange(n)))
+    first = int(torch.argmax((A * A).sum(0)))
+    del A, Q, R
+    torch.cuda.empty_cache()
+    # A read once, Q and R written once, piv; (8/3) n^3 FLOP
+    bms, by = bound(3 * n * n * 8 + 8 * n, 8 / 3 * n ** 3, "float64")
+    row = dict(name=f"K8_qrcp_random{n}", route="cuda", source=K8_SOURCE[0],
+               symbol=K8_SOURCE[1], replaces=K8_SOURCE[2], dtype="float64",
+               shape=f"{n}x{n} float64", layout=plan["layout"],
+               grid=plan["grid"], cols=plan["cols"],
+               launches_per_factorization=1, max_abs_err=res, residual=res,
+               orthogonality=orth, ms=ms, us_per_step=ms * 1e3 / n,
+               plain_ms=None, plain_route="not run at this n (~3 ms a "
+               "column step, about a minute)", library_ms=None,
+               library_note="no PyTorch call pivots", bound_ms=bms,
+               bound_by=by)
+    report["large"] = row
+    log(f"  K8 n={n} f64 ({plan['layout']}, {plan['grid']} CTAs of "
+        f"{plan['cols']}): {ms:.1f} ms ({row['us_per_step']:.1f} us a "
+        f"column step); |QR - AP| / |A| {res:.2e}, |Q^T Q - I| {orth:.2e} "
+        f"(tol {K8_LARGE_TOL:.0e}); piv a permutation {perm}, piv[0] {p[0]}"
+        f" (largest column norm {first}); bound {bms:.1f} ms ({by}) [{smi}]")
+    gate(res <= K8_LARGE_TOL and orth <= K8_LARGE_TOL,
+         f"K8 n = {n}: residual {res:.2e} or orthogonality {orth:.2e}")
+    gate(perm and p[0] == first, f"K8 n = {n}: piv is not a permutation "
+         f"led by the column of largest norm ({p[0]} / {first})")
+    return row
 
 
 def deficient_tail(kind: str, n: int = 40, rank: int = 25, seed: int = 0):
@@ -2968,30 +3068,99 @@ def k10a_row(torch, book, rng, dp):
                 simt_peak(dt))
 
 
-def k10b_row(torch, book, rec, mesh, dt):
-    """K10b at the largest level's ring-step shape of the dist_schur
-    factorize (``rec``: that level's C, L_E, d, U_F), every rank at once,
-    in ``dt``, against the plain version; no single PyTorch call computes
-    it."""
+# K10b beside the convdiff2d(128) level-0 shape (warp tier): one seeded
+# shape in each wider tier, and the inputs that break sorts and scans, each
+# through every tier whose range holds it.  (name, ranks, tail rows nm, U_F
+# rows m, panel width cb, KL, KU, live share); W = KL * KU.
+K10B_SHAPES = (("block", 8, 512, 4096, 512, 64, 64, 0.9),
+               ("global", 8, 256, 4000, 1000, 160, 125, 0.9))
+K10B_EDGES = (("w1", 8, 13, 4, 3, 1, 1, 1.0),
+              ("w225", 8, 61, 40, 30, 15, 15, 0.8),
+              ("w512", 8, 29, 60, 40, 32, 16, 0.9),
+              ("w513", 8, 29, 40, 30, 27, 19, 0.9),
+              ("long runs w200", 8, 61, 120, 2, 100, 2, 1.0),
+              ("long runs w900", 8, 37, 400, 3, 300, 3, 1.0),
+              ("long runs w16000", 8, 19, 4100, 4, 4000, 4, 1.0),
+              ("all sentinel", 8, 61, 40, 30, 15, 15, 0.0))
+K10B_TOL = {"float64": 1e-12, "float32": 1e-5}
+
+
+def k10b_inputs(rng, D, nm, m, cb, KL, KU, live):
+    """Seeded K10b operands as ``schur_spgemm_ring`` packs them (numpy,
+    float64): D ranks of nb = ceil(nm / D) rows (rows past nm all sentinel,
+    as the padded tail); an L_E row holds distinct U_F rows l < m, a
+    binomial share ``live`` of its KL slots live, the rest the sentinel m
+    with value 0; a U_F row up to KU distinct local columns below cb,
+    ascending, pads cb with value 0 (row m all pads); d normal + 2, the
+    sentinel's d 0.  (The CPU tests' generator,
+    tests/test_torch_schur_kernel.py.)"""
+    nb = -(-nm // D)
+
+    def distinct(rows, k, hi):
+        x = np.sort(rng.integers(0, hi - k + 1, size=(rows, k)), axis=1)
+        return (x + np.arange(k)).astype(np.int32)
+
+    le_i = np.full((D * nb, KL), m, dtype=np.int32)
+    le_v = np.zeros((D * nb, KL))
+    take = np.arange(KL) < rng.binomial(KL, live, size=(nm, 1))
+    le_i[:nm] = np.where(take, rng.permuted(distinct(nm, KL, m), axis=1), m)
+    le_v[:nm] = np.where(take, rng.standard_normal((nm, KL)), 0.0)
+    uf_i = np.full((D, m + 1, KU), cb, dtype=np.int32)
+    uf_v = np.zeros((D, m + 1, KU))
+    keep = np.arange(KU) < rng.integers(0, KU + 1, size=(D * m, 1))
+    uf_i[:, :m] = np.where(keep, distinct(D * m, KU, cb),
+                           cb).reshape(D, m, KU)
+    uf_v[:, :m] = np.where(keep, rng.standard_normal((D * m, KU)),
+                           0.0).reshape(D, m, KU)
+    d = np.append(rng.standard_normal(m) + 2.0, 0.0)
+    return (le_i.reshape(D, nb, KL), le_v.reshape(D, nb, KL),
+            np.broadcast_to(d, (D, m + 1)), uf_i, uf_v)
+
+
+def k10b_run(torch, ops, cb, dt, what, tier=None):
+    """K10b on numpy operands ``ops`` (le_idx, le_val, d, uf_idx, uf_val)
+    in ``dt`` on the card, in ``tier`` (default: the plan's), against the
+    plain version: columns and masks equal, values within K10B_TOL of the
+    plain version's largest; a second launch bitwise equal to the first.
+    Returns (card args, kernel values, plain values, the plan, the values'
+    relative difference)."""
     from hifir_tpu_torch.parallel import schur
 
-    C, L_E, d, U_F = rec
-    D = mesh.D
-    nm, m = L_E.nrows, L_E.ncols
-    nmp = -(-nm // D) * D
-    nb = cb = nmp // D
-    le_i, le_v, KL = schur._ell_pack(L_E, nmp, sentinel=m)
-    uf_i, uf_v, KU = schur._panelize_uf(U_F, D, cb)
-    d_ext = np.concatenate([np.asarray(d), [0.0]])
     t = lambda a, v=None: torch.as_tensor(  # noqa: E731
         np.ascontiguousarray(a), dtype=v, device="cuda")
-    args = (t(le_i.reshape(D, nb, KL)), t(le_v.reshape(D, nb, KL), dt),
-            t(np.broadcast_to(d_ext, (D, m + 1)), dt), t(uf_i), t(uf_v, dt))
-    kc, kv = schur.schur_partial(*args, cb)
+    args = (t(ops[0]), t(ops[1], dt), t(ops[2], dt), t(ops[3]),
+            t(ops[4], dt))
+    D, nb, KL = ops[0].shape
+    W = KL * ops[3].shape[2]
+    plan = schur.schur_plan(W, D * nb, args[1].element_size(),
+                            torch.cuda.get_device_properties(0)
+                            .multi_processor_count, cb, tier)
+    kc, kv = schur.schur_partial_cuda(*args, cb, tier=tier)
+    kc2, kv2 = schur.schur_partial_cuda(*args, cb, tier=tier)
     pc, pv = schur.schur_partial_plain(*args, cb)
     torch.cuda.synchronize()
-    gate(torch.equal(kc, pc), "K10b: the kernel's columns and masks differ "
-         "from the plain version's")
+    dname = str(dt).removeprefix("torch.")
+    bits = torch.int64 if dt == torch.float64 else torch.int32
+    gate(torch.equal(kc, kc2) and torch.equal(kv.view(bits), kv2.view(bits)),
+         f"K10b {what} {dname} ({plan['tier']} tier): two launches differ")
+    gate(torch.equal(kc, pc), f"K10b {what} {dname} ({plan['tier']} tier): "
+         "the kernel's columns and masks differ from the plain version's")
+    rel = rel_diff(kv, pv)
+    gate(rel <= K10B_TOL[dname], f"K10b {what} {dname} ({plan['tier']} "
+         f"tier): values {rel:.3e} from the plain version's")
+    return args, kv, pv, plan, rel
+
+
+def k10b_record(torch, book, ops, cb, dt, what):
+    """K10b's row at numpy operands ``ops`` (every rank at once, the
+    plan's tier): :func:`k10b_run`'s checks, then the kernel and the plain
+    version timed beside the bound; no single PyTorch call computes it."""
+    from hifir_tpu_torch.parallel import schur
+
+    args, kv, pv, plan, _ = k10b_run(torch, ops, cb, dt, what)
+    le_i, _, _, uf_i, _ = ops
+    D, nb, KL = le_i.shape
+    m, KU = uf_i.shape[1] - 1, uf_i.shape[2]
     W = KL * KU
     es = torch.empty((), dtype=dt).element_size()
     # what this step's data needs: each live L_E entry (index and value),
@@ -3006,13 +3175,60 @@ def k10b_row(torch, book, rec, mesh, dt):
               + D * nb * W * (4 + es))
     flops = rk.size + 2 * n_cand
     book.record("K10b_schur", str(dt).removeprefix("torch."),
-                f"ranks={D} nb={nb} KL={KL} KU={KU} W={W} m={m} "
-                f"nm={nm} cb={cb} live_le={rk.size} uf_rows={used.size} "
+                f"{what} tier={plan['tier']} P={plan['P']} ranks={D} "
+                f"nb={nb} KL={KL} KU={KU} W={W} m={m} cb={cb} "
+                f"live_le={rk.size} uf_rows={used.size} "
                 f"candidates={n_cand}", kv, pv,
                 book.T.ms(lambda: schur.schur_partial(*args, cb)),
-                book.T.ms(lambda: schur.schur_partial_plain(*args, cb)),
+                book.T.ms(lambda: schur.schur_partial_plain(*args, cb),
+                          iters=5),
                 (None, "no single PyTorch call computes it"), nbytes, flops,
-                1e-12 if dt == torch.float64 else 1e-5, simt_peak(dt))
+                K10B_TOL[str(dt).removeprefix("torch.")], simt_peak(dt))
+
+
+def k10b_row(torch, book, rec, mesh, dt):
+    """K10b at the largest level's ring-step shape of the dist_schur
+    factorize (``rec``: that level's C, L_E, d, U_F), every rank at once,
+    in ``dt``, against the plain version."""
+    from hifir_tpu_torch.parallel import schur
+
+    C, L_E, d, U_F = rec
+    D = mesh.D
+    nm, m = L_E.nrows, L_E.ncols
+    nmp = -(-nm // D) * D
+    nb = cb = nmp // D
+    le_i, le_v, KL = schur._ell_pack(L_E, nmp, sentinel=m)
+    uf_i, uf_v, KU = schur._panelize_uf(U_F, D, cb)
+    d_ext = np.concatenate([np.asarray(d), [0.0]])
+    ops = (le_i.reshape(D, nb, KL), le_v.reshape(D, nb, KL),
+           np.broadcast_to(d_ext, (D, m + 1)), uf_i, uf_v)
+    k10b_record(torch, book, ops, cb, dt, f"convdiff2d(128) nm={nm}")
+
+
+def k10b_tiers(torch, book, rng, dt) -> list:
+    """K10b's seeded shapes of the wider tiers (rows of ``book``), and the
+    edge cases of K10B_EDGES through every tier whose range holds them;
+    returns the edge cases' records."""
+    from hifir_tpu_torch.parallel.schur import _P_RANGE, SCHUR_TIERS
+
+    dname = str(dt).removeprefix("torch.")
+    for name, D, nm, m, cb, KL, KU, live in K10B_SHAPES:
+        k10b_record(torch, book, k10b_inputs(rng, D, nm, m, cb, KL, KU,
+                                             live), cb, dt, f"seeded {name}")
+    recs = []
+    for name, D, nm, m, cb, KL, KU, live in K10B_EDGES:
+        ops = k10b_inputs(rng, D, nm, m, cb, KL, KU, live)
+        for tier in SCHUR_TIERS:
+            if KL * KU > (_P_RANGE[tier][1] or KL * KU):
+                continue
+            plan, rel = k10b_run(torch, ops, cb, dt, name, tier)[3:]
+            recs.append(dict(name=name, dtype=dname, W=KL * KU, tier=tier,
+                             P=plan["P"], rel_err=rel))
+    log(f"  K10b {dname}: {len(recs)} edge runs equal to the plain version "
+        f"(columns exactly, values within {K10B_TOL[dname]:.0e}), each "
+        "launch twice bitwise: " + ", ".join(
+            f"{r['name']}/{r['tier']} {r['rel_err']:.1e}" for r in recs))
+    return recs
 
 
 def randn_on(torch, rng, shape, dt):
@@ -3020,7 +3236,7 @@ def randn_on(torch, rng, shape, dt):
                            device="cuda")
 
 
-def dist_phase(torch, T, rng, smi):
+def dist_phase(torch, T, rng, smi, k10b_seed=0):
     """Distribution (``hifir_tpu_torch/parallel``) on eight ranks of one
     card, each part counted: DistPrec at the JAX package's scale leg (one
     group: the sweep; two groups of the card: K10a a chunk), the halo and
@@ -3301,8 +3517,12 @@ def dist_phase(torch, T, rng, smi):
     serr = float(np.abs(Pd.solve(bc) - xch).max() / np.abs(xch).max())
     gate(terr <= 1e-12 and serr <= 1e-12, f"dist_schur tail {terr:.3e}, "
          f"solve {serr:.3e}")
-    gate(launches["dist_schur factorize"]["K10b"] > 0,
-         "dist_schur: no K10b launch")
+    # one K10b launch a ring step: make_mesh's eight ranks on one card are
+    # one group, eight steps a level whose tail has rows
+    steps = 8 * sum(1 for c in calls if c[1].nrows)
+    gate(launches["dist_schur factorize"]["K10b"] == steps > 0,
+         f"dist_schur: {launches['dist_schur factorize']['K10b']} K10b "
+         f"launches for {steps} ring steps")
     big = max(calls, key=lambda c: c[1].nrows)
     report["dist_schur"] = dict(
         levels=[(p.m, p.n) for p in Pd.precs], host_seconds=hsecs,
@@ -3372,6 +3592,9 @@ def dist_phase(torch, T, rng, smi):
         sweep_row(torch, book, rng, dph, hl, P64.precs[hl].L_B,
                   "K10a_sweep_halo")
         k10b_row(torch, book, big, mesh, dp.dtype)
+        # the same seeded operands in both dtypes
+        report.setdefault("k10b_edges", []).extend(k10b_tiers(
+            torch, book, np.random.default_rng(k10b_seed), dp.dtype))
     return report, launches, book.rows
 
 
@@ -3566,7 +3789,8 @@ def main(argv=None) -> int:
     # its own generator, so that its inputs do not move with the rows above
     t_phase = time.perf_counter()
     dreport, dlaunches, drows = dist_phase(
-        torch, T, np.random.default_rng(args.seed + 6), smi)
+        torch, T, np.random.default_rng(args.seed + 6), smi,
+        k10b_seed=args.seed + 7)
     dreport["seconds"] = time.perf_counter() - t_phase
     log(f"  distribution phase {dreport['seconds']:.1f} s [{smi}]")
 

@@ -1737,105 +1737,560 @@ int chunk_sweep(T* x, int64_t xs, int R, int nchunks, int cloc, int K,
 }
 
 // ---------------------------------------------------------------------------
-// K10b: one ring step of the distributed Schur SpGEMM.  Row r of the local
-// L_E blocks (rank r / nb, whose U_F panel starts at uf + rank * ufs and
-// whose d at d + rank * ds) forms its W = KL * KU candidates
+// K10b: one ring step of the distributed Schur SpGEMM; replaces
+// hifir_tpu/parallel/schur.py:_partial_kernel.  Row r of the local L_E
+// blocks (rank r / nb, whose U_F panel starts at uf + rank * ufs and whose
+// d at d + rank * ds) forms its W = KL * KU candidates
 // (uf_idx[l][b], -(le_val[a] * d[l]) * uf_val[l][b]) for l = le_idx[r][a]
 // (the sentinel row m of the panel holds column cb), sorts them by column
 // and writes, at the position of the last entry of each run of equal
-// columns below cb, (column, sum of the run), and (cb, 0) elsewhere.  The
-// JAX kernel sums a run as a difference of cumulative sums; here the run is
-// summed from its first entry to its last, a fixed but different order.
+// columns below cb, (column, sum of the run), and (cb, 0) elsewhere.
 //
-// Bound: bytes (the candidates' gathers).  Design: a block a row, the W
-// pairs in shared memory (padded to a power of two with an unused key),
-// a bitonic sort, then each run's last position sums its run.  The host
-// refuses a W whose pairs do not fit in shared memory.
+// Bound: bytes, as chip_smoke.py:k10b_row counts them: the masked (rows, W)
+// output that the JAX interface fixes, (4 + itemsize) bytes a position,
+// and the gathers (each live L_E entry, each U_F row and d entry that a
+// live entry references, once a rank); 0.0043 ms at convdiff2d(128)'s
+// level 0 in f64.  The first version (a block a row, a bitonic sort in
+// shared memory of 36 rounds each closed by __syncthreads, a serial walk
+// over each run) spent its time in that barrier chain, not in bytes.
+// Design: the W candidates, padded to P = 2^p with a key above every column
+// (INT_MAX; cb + 1 in the warp tier), so that the first W sorted positions
+// hold the real ones, V a thread in registers; a bitonic network whose stages within a thread are
+// register compare-exchanges and across a warp's lanes __shfl_xor; the run
+// sums a segmented scan (in the thread, across lanes by shuffles, across
+// warps through shared memory, with a carry); the results staged in shared
+// memory so that consecutive threads store consecutive positions.  Every
+// row of a launch has the same W, so the host picks the tier once a launch
+// (parallel/schur.py:schur_plan):
+// - warp, P <= 512 and (cb + 2) P <= 2^31: a warp a row, 8 rows a CTA,
+//   V = P / 32; the sort moves one word a pair (the column times P plus
+//   the position; the values wait in shared memory), every stage unrolled
+//   at compile time; no barrier;
+// - block, P <= 8192 (and a row of the warp tier's width whose cb is too
+//   large to pack): a CTA of P / 16 threads a row, V = 16; only the
+//   stages across warps go through shared memory, each closed by a barrier
+//   (6 of the network's 78 at P = 4096);
+// - global, P > 8192: CTAs striding over the rows, each with P pairs of
+//   global scratch; 8192-pair tiles sorted as in the block tier, alternately
+//   ascending and descending, then each merge's stages across tiles on the
+//   scratch and those within a tile as in the block tier, then the run sums
+//   tile by tile with the carry.  No W is refused.
+// No atomics: the sorted order follows from the input order alone, and a
+// run is summed in it (the scan's association, not the JAX kernel's
+// difference of cumulative sums), so the same inputs give the same bits.
+// Columns and masks depend only on the sorted keys and equal the JAX
+// kernel's.
 
-constexpr int kSchurThreads = 256;
+constexpr int kSchurV = 16;                          // pairs a thread, at most
+constexpr int kSchurWarpMax = 32 * kSchurV;          // the warp tier's P
+constexpr int kSchurTile = 8192;  // the block tier's widest P, a global tile
+constexpr int kSchurTileThreads = kSchurTile / kSchurV;
+constexpr int kSchurRowsPerCta = 8;                  // the warp tier
+// the tiers, as the host numbers them ("warp", "block", "global")
+constexpr int kSchurWarp = 0;
+constexpr int kSchurBlock = 1;
+constexpr int kSchurGlobal = 2;
 
 template <typename T>
-__global__ void __launch_bounds__(kSchurThreads)
-schur_partial_kernel(const int* __restrict__ le_idx,
-                     const T* __restrict__ le_val, const T* __restrict__ d,
-                     int64_t ds, const int* __restrict__ uf_idx,
-                     const T* __restrict__ uf_val, int64_t ufs, int nb,
-                     int KL, int KU, int Wp, int cb, int* out_c, T* out_v) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sv = reinterpret_cast<T*>(smem_raw);
-  int* sk = reinterpret_cast<int*>(sv + Wp);
-  const int64_t r = blockIdx.x;
-  const int64_t rank = r / nb;
-  const int W = KL * KU;
-  const int* ui = uf_idx + rank * ufs;
-  const T* uv = uf_val + rank * ufs;
-  const T* dr = d + rank * ds;
-  for (int w = threadIdx.x; w < Wp; w += blockDim.x) {
-    int key = 0x7fffffff;
-    T val = T(0);
-    if (w < W) {
-      const int a = w / KU, b = w % KU;
-      const int l = __ldg(le_idx + r * KL + a);
-      const T ld = __ldg(le_val + r * KL + a) * __ldg(dr + l);
-      key = __ldg(ui + (int64_t)l * KU + b);
-      val = -(ld * __ldg(uv + (int64_t)l * KU + b));
-    }
-    sk[w] = key;
-    sv[w] = val;
-  }
-  __syncthreads();
-  for (int k = 2; k <= Wp; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < Wp; i += blockDim.x) {
-        const int p = i ^ j;
-        if (p > i) {
-          const bool up = (i & k) == 0;
-          const int ki = sk[i], kp = sk[p];
-          if ((ki > kp) == up) {
-            sk[i] = kp;
-            sk[p] = ki;
-            const T t = sv[i];
-            sv[i] = sv[p];
-            sv[p] = t;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    const int key = sk[w];
-    const bool last = w + 1 == Wp || sk[w + 1] != key;
-    int oc = cb;
-    T ov = T(0);
-    if (last && key < cb) {
-      int i = w;
-      while (i > 0 && sk[i - 1] == key) --i;
-      for (; i <= w; ++i) ov += sv[i];
-      oc = key;
-    }
-    out_c[r * W + w] = oc;
-    out_v[r * W + w] = ov;
+struct SchurArgs {
+  const int* le_idx;
+  const T* le_val;
+  const T* d;
+  int64_t ds;
+  const int* uf_idx;
+  const T* uf_val;
+  int64_t ufs;
+  int64_t rows;
+  int nb, KL, KU, W, cb;
+  unsigned ku_magic;  // ceil(2^32 / KU) where w / KU = umulhi(w, it), else 0
+  int* out_c;
+  T* out_v;
+};
+
+// A shared-memory index with a word of padding every 32: a thread's V
+// consecutive pairs and a warp's 32 consecutive ones meet no bank conflict.
+__host__ __device__ __forceinline__ int pad32(int i) { return i + (i >> 5); }
+
+template <typename T>
+__device__ __forceinline__ T shfl_up(T v, int o) {
+  return __shfl_up_sync(0xffffffffu, v, o);
+}
+
+// Candidate w of row r; a pad (w >= W) has key INT_MAX and value 0.
+template <typename T>
+__device__ __forceinline__ void schur_candidate(const SchurArgs<T>& a,
+                                                int64_t r, int w, int& key,
+                                                T& val) {
+  key = INT_MAX;
+  val = T(0);
+  if (w < a.W) {
+    const int64_t rank = r / a.nb;
+    const int ai = a.ku_magic ? (int)__umulhi((unsigned)w, a.ku_magic)
+                              : w / a.KU;
+    const int b = w - ai * a.KU;
+    const int l = __ldg(a.le_idx + r * a.KL + ai);
+    const T ld = __ldg(a.le_val + r * a.KL + ai) * __ldg(a.d + rank * a.ds + l);
+    const int64_t u = rank * a.ufs + (int64_t)l * a.KU + b;
+    key = __ldg(a.uf_idx + u);
+    val = -(ld * __ldg(a.uf_val + u));
   }
 }
 
 template <typename T>
+__device__ __forceinline__ void schur_cswap(int& ka, T& va, int& kb, T& vb,
+                                            bool asc) {
+  if (asc ? ka > kb : ka < kb) {
+    const int k = ka;
+    ka = kb;
+    kb = k;
+    const T v = va;
+    va = vb;
+    vb = v;
+  }
+}
+
+// The warp tier's bitonic sort of the 32 V distinct keys of a warp (key
+// v of lane l at position l V + v), ascending, every stage unrolled at
+// compile time: j < V within a lane, j >= V across lanes by __shfl_xor.
+template <int V>
+__device__ __forceinline__ void schur_warp_sort(int (&key)[V], int lane) {
+  constexpr int LP = 5 + (V >= 2) + (V >= 4) + (V >= 8) + (V >= 16);
+#pragma unroll
+  for (int lk = 1; lk <= LP; ++lk) {
+    const int k = 1 << lk;
+#pragma unroll
+    for (int lj = lk - 1; lj >= 0; --lj) {
+      const int j = 1 << lj;
+      if (j >= V) {
+        // partner lane ^ j / V; the lower lane keeps the smaller key where
+        // ascending
+        const int m = j / V;
+        const bool less = (((lane * V) & k) == 0) == ((lane & m) == 0);
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const int pk = __shfl_xor_sync(0xffffffffu, key[v], m);
+          key[v] = less ? min(key[v], pk) : max(key[v], pk);
+        }
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          if (v & j) continue;
+          const bool asc = (((lane * V) & k) | (v & k)) == 0;
+          const int lo = min(key[v], key[v | j]);
+          const int hi = max(key[v], key[v | j]);
+          key[v] = asc ? lo : hi;
+          key[v | j] = asc ? hi : lo;
+        }
+      }
+    }
+  }
+}
+
+// The bitonic network's stages (k, j) for k = k0 .. k1 and j = min(k / 2,
+// j1) .. 1 (powers of two) on the NT V pairs at row positions base + t V +
+// v, V a thread in registers on entry and on exit; ascending where
+// (position & k) == 0.  j < V: within a thread; V <= j < 32 V: across a
+// warp's lanes; j >= 32 V: through shared memory (sk, sv), each stage
+// closed by a barrier.  Ties never swap, so the order is a function of the
+// input order.
+template <typename T, int V>
+__device__ __forceinline__ void schur_bitonic(int (&key)[V], T (&val)[V],
+                                              int* sk, T* sv, int t, int NT,
+                                              int base, int k0, int k1,
+                                              int j1) {
+  const int lane = t & 31;
+  for (int k = k0; k <= k1; k <<= 1) {
+    int j = min(k >> 1, j1);
+    if (j >= 32 * V) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        sk[pad32(t * V + v)] = key[v];
+        sv[pad32(t * V + v)] = val[v];
+      }
+      __syncthreads();
+      for (; j >= 32 * V; j >>= 1) {
+        for (int q = t; q < NT * V / 2; q += NT) {
+          const int i = ((q & ~(j - 1)) << 1) | (q & (j - 1));
+          const int pi = pad32(i), pp = pad32(i | j);
+          int ka = sk[pi], kb = sk[pp];
+          if (((base + i) & k) == 0 ? ka > kb : ka < kb) {
+            sk[pi] = kb;
+            sk[pp] = ka;
+            const T x = sv[pi];
+            sv[pi] = sv[pp];
+            sv[pp] = x;
+          }
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        key[v] = sk[pad32(t * V + v)];
+        val[v] = sv[pad32(t * V + v)];
+      }
+      __syncthreads();
+    }
+    for (; j >= V; j >>= 1) {
+      // partner lane ^ j / V, same register; the lower lane keeps the
+      // smaller key where ascending
+      const int m = j / V;
+      const bool less = (((base + t * V) & k) == 0) == ((lane & m) == 0);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int pk = __shfl_xor_sync(0xffffffffu, key[v], m);
+        const T pv = shfl_xor(val[v], m);
+        if (less ? pk < key[v] : pk > key[v]) {
+          key[v] = pk;
+          val[v] = pv;
+        }
+      }
+    }
+#pragma unroll
+    for (int jj = V / 2; jj > 0; jj >>= 1) {
+      if (jj <= j) {
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          if ((v & jj) == 0)
+            schur_cswap(key[v], val[v], key[v | jj], val[v | jj],
+                        ((base + t * V + v) & k) == 0);
+      }
+    }
+  }
+}
+
+// The runs of the sorted pairs at row positions base + t V + v (V a thread,
+// NT threads): head and last flags against the neighbours (``prev``, the
+// key before position base; ``next``, the key after the last one), an
+// inclusive segmented scan in ``val`` (in the thread, across lanes by
+// shuffles and, BLOCK, across warps through ``wk`` and ``ws``, starting
+// from ``carry``, the sum of a run that continues from before base), and at
+// each position below W (column, sum) where a run below cb ends, (cb, 0)
+// elsewhere, into oc and ov (the row's outputs), staged through sk and sv.
+// Returns the scan's value at the last position (the next tile's carry).
+template <typename T, int V, bool BLOCK>
+__device__ __forceinline__ T schur_runs(const int (&key)[V], T (&val)[V],
+                                        int prev, T carry, int next, int t,
+                                        int NT, int base, int W, int cb,
+                                        int* sk, T* sv, int* wk, T* ws,
+                                        int* oc, T* ov) {
+  const int lane = t & 31, warp = t >> 5;
+  int pk = __shfl_up_sync(0xffffffffu, key[V - 1], 1);
+  int nk = __shfl_down_sync(0xffffffffu, key[0], 1);
+  if constexpr (BLOCK) {
+    if (lane == 0) wk[warp] = key[0];
+    if (lane == 31) wk[32 + warp] = key[V - 1];
+    __syncthreads();
+    if (lane == 0) pk = warp ? wk[32 + warp - 1] : prev;
+    if (lane == 31) nk = t + 1 < NT ? wk[warp + 1] : next;
+  } else {
+    if (lane == 0) pk = prev;
+    if (lane == 31) nk = next;
+  }
+  unsigned heads = 0;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    if (key[v] != (v ? key[v - 1] : pk))
+      heads |= 1u << v;
+    else if (v)
+      val[v] = val[v - 1] + val[v];
+  }
+  // (has a head, sum since the last head) scanned over the warp's lanes
+  bool f = heads != 0;
+  T x = val[V - 1];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const bool fo = __shfl_up_sync(0xffffffffu, (int)f, o);
+    const T xo = shfl_up(x, o);
+    if (lane >= o) {
+      if (!f) x = xo + x;
+      f = f || fo;
+    }
+  }
+  const bool ef = __shfl_up_sync(0xffffffffu, (int)f, 1);
+  const T ex = shfl_up(x, 1);
+  // the sum before the warp: the carry, then the earlier warps in order
+  T c = carry;
+  if constexpr (BLOCK) {
+    if (lane == 31) {
+      wk[64 + warp] = f;
+      ws[warp] = x;
+    }
+    __syncthreads();
+    for (int w = 0; w < warp; ++w) c = wk[64 + w] ? ws[w] : c + ws[w];
+  }
+  const T e = lane == 0 ? c : (ef ? ex : c + ex);
+  bool seen = false;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    seen = seen || ((heads >> v) & 1u);
+    if (!seen) val[v] = e + val[v];
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const bool keep = key[v] != (v + 1 < V ? key[v + 1] : nk) && key[v] < cb;
+    sk[pad32(t * V + v)] = keep ? key[v] : cb;
+    sv[pad32(t * V + v)] = keep ? val[v] : T(0);
+  }
+  T out = T(0);
+  if constexpr (BLOCK) {
+    if (t == NT - 1) ws[32] = val[V - 1];
+    __syncthreads();
+    out = ws[32];
+  } else {
+    __syncwarp();
+  }
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    const int i = u * NT + t;
+    if (base + i < W) {
+      oc[base + i] = sk[pad32(i)];
+      ov[base + i] = sv[pad32(i)];
+    }
+  }
+  if constexpr (BLOCK)
+    __syncthreads();
+  else
+    __syncwarp();
+  return out;
+}
+
+// The warp tier: a warp a row, P = 32 V.  The sort moves one word a pair,
+// the column times P plus the candidate's position (pads: cb + 1; the host
+// takes this tier only where (cb + 2) P <= 2^31), the values waiting in
+// shared memory by position; so equal columns keep their input order.
+template <typename T, int V>
+__global__ void __launch_bounds__(32 * kSchurRowsPerCta)
+schur_warp_kernel(SchurArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int P = 32 * V, np = 33 * V;  // np: pad32 of P positions
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t r = (int64_t)blockIdx.x * kSchurRowsPerCta + warp;
+  if (r >= a.rows) return;
+  int* sk = reinterpret_cast<int*>(smem_raw) + warp * np;
+  T* sv = reinterpret_cast<T*>(smem_raw +
+                               round16((int64_t)kSchurRowsPerCta * np * 4)) +
+          warp * np;
+  int key[V];
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    const int w = u * 32 + lane;
+    int c;
+    T x;
+    schur_candidate(a, r, w, c, x);
+    sv[pad32(w)] = x;
+    key[u] = (w < a.W ? c : a.cb + 1) * P + w;
+  }
+  schur_warp_sort<V>(key, lane);
+  __syncwarp();
+  T val[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    val[v] = sv[pad32(key[v] % P)];
+    key[v] /= P;
+  }
+  __syncwarp();
+  schur_runs<T, V, false>(key, val, INT_MIN, T(0), INT_MAX, lane, 32, 0, a.W,
+                          a.cb, sk, sv, nullptr, nullptr,
+                          a.out_c + r * a.W, a.out_v + r * a.W);
+}
+
+__host__ __device__ inline int64_t schur_warp_smem(int V, int es) {
+  return round16((int64_t)kSchurRowsPerCta * 33 * V * 4) +
+         (int64_t)kSchurRowsPerCta * 33 * V * es;
+}
+
+// The staging of n pairs, then the warps' first keys, last keys and flags
+// (3 x 32 ints) and sums (32, and the tile's last)
+__host__ __device__ inline int64_t schur_block_smem(int n, int es) {
+  return round16((int64_t)pad32(n) * 4) + round16((int64_t)pad32(n) * es) +
+         round16(96 * 4) + round16(33 * (int64_t)es);
+}
+
+// A tile's NT V pairs between global memory (gk, gv) and the registers
+// (position t V + v), through sk and sv, so that consecutive threads touch
+// consecutive addresses.
+template <typename T, int V>
+__device__ __forceinline__ void schur_tile_load(const int* gk, const T* gv,
+                                                int (&key)[V], T (&val)[V],
+                                                int* sk, T* sv, int t,
+                                                int NT) {
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    sk[pad32(u * NT + t)] = gk[u * NT + t];
+    sv[pad32(u * NT + t)] = gv[u * NT + t];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    key[v] = sk[pad32(t * V + v)];
+    val[v] = sv[pad32(t * V + v)];
+  }
+  __syncthreads();
+}
+template <typename T, int V>
+__device__ __forceinline__ void schur_tile_store(int* gk, T* gv,
+                                                 const int (&key)[V],
+                                                 const T (&val)[V], int* sk,
+                                                 T* sv, int t, int NT) {
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    sk[pad32(t * V + v)] = key[v];
+    sv[pad32(t * V + v)] = val[v];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    gk[u * NT + t] = sk[pad32(u * NT + t)];
+    gv[u * NT + t] = sv[pad32(u * NT + t)];
+  }
+  __syncthreads();
+}
+
+// The block tier (P == blockDim.x * 16: a CTA a row) and, GLOBAL, the
+// global tier (P > 8192: tiles of 8192 pairs, the CTA's rows r =
+// blockIdx.x + gridDim.x i, its P pairs of scratch at scratch + blockIdx.x
+// P (4 + sizeof(T)) bytes); two instances, so that each holds only its own
+// path's registers.
+template <typename T, bool GLOBAL>
+__global__ void __launch_bounds__(kSchurTileThreads)
+schur_block_kernel(SchurArgs<T> a, int P, unsigned char* scratch) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int V = kSchurV;
+  const int t = threadIdx.x, NT = blockDim.x, n = NT * V;
+  unsigned char* p = smem_raw;
+  int* sk = reinterpret_cast<int*>(p);
+  p += round16((int64_t)pad32(n) * 4);
+  T* sv = reinterpret_cast<T*>(p);
+  p += round16((int64_t)pad32(n) * sizeof(T));
+  int* wk = reinterpret_cast<int*>(p);
+  T* ws = reinterpret_cast<T*>(p + round16(96 * 4));
+  int key[V];
+  T val[V];
+  if constexpr (!GLOBAL) {
+    const int64_t r = blockIdx.x;
+#pragma unroll
+    for (int u = 0; u < V; ++u)
+      schur_candidate(a, r, u * NT + t, key[u], val[u]);
+    schur_bitonic<T, V>(key, val, sk, sv, t, NT, 0, 2, n, n);
+    schur_runs<T, V, true>(key, val, INT_MIN, T(0), INT_MAX, t, NT, 0, a.W,
+                           a.cb, sk, sv, wk, ws, a.out_c + r * a.W,
+                           a.out_v + r * a.W);
+    return;
+  }
+  const int tiles = P / n;
+  int* gk = reinterpret_cast<int*>(scratch + (int64_t)blockIdx.x * P *
+                                                 (4 + (int64_t)sizeof(T)));
+  T* gv = reinterpret_cast<T*>(gk + P);
+  for (int64_t r = blockIdx.x; r < a.rows; r += gridDim.x) {
+    // the tiles sorted, alternately ascending and descending
+    for (int tl = 0; tl < tiles; ++tl) {
+      const int base = tl * n;
+#pragma unroll
+      for (int u = 0; u < V; ++u)
+        schur_candidate(a, r, base + u * NT + t, key[u], val[u]);
+      schur_bitonic<T, V>(key, val, sk, sv, t, NT, base, 2, n, n);
+      schur_tile_store(gk + base, gv + base, key, val, sk, sv, t, NT);
+    }
+    __syncthreads();
+    // the merges: stages across tiles on the scratch, then within tiles
+    for (int k = 2 * n; k <= P; k <<= 1) {
+      for (int j = k >> 1; j >= n; j >>= 1) {
+        for (int q = t; q < P / 2; q += NT) {
+          const int i = ((q & ~(j - 1)) << 1) | (q & (j - 1)), ip = i | j;
+          const int ka = gk[i], kb = gk[ip];
+          if ((i & k) == 0 ? ka > kb : ka < kb) {
+            gk[i] = kb;
+            gk[ip] = ka;
+            const T x = gv[i];
+            gv[i] = gv[ip];
+            gv[ip] = x;
+          }
+        }
+        __syncthreads();
+      }
+      for (int tl = 0; tl < tiles; ++tl) {
+        const int base = tl * n;
+        schur_tile_load(gk + base, gv + base, key, val, sk, sv, t, NT);
+        schur_bitonic<T, V>(key, val, sk, sv, t, NT, base, k, k, n / 2);
+        schur_tile_store(gk + base, gv + base, key, val, sk, sv, t, NT);
+      }
+      __syncthreads();
+    }
+    // the runs, tile by tile, with the carry
+    T carry = T(0);
+    for (int tl = 0; tl < tiles; ++tl) {
+      const int base = tl * n;
+      schur_tile_load(gk + base, gv + base, key, val, sk, sv, t, NT);
+      const int prev = tl ? gk[base - 1] : INT_MIN;
+      const int next = tl + 1 < tiles ? gk[base + n] : INT_MAX;
+      carry = schur_runs<T, V, true>(key, val, prev, carry, next, t, NT,
+                                     base, a.W, a.cb, sk, sv, wk, ws,
+                                     a.out_c + r * a.W, a.out_v + r * a.W);
+    }
+  }
+}
+
+template <typename T, int V>
+int schur_warp_launch(const SchurArgs<T>& a, cudaStream_t stream) {
+  const int smem = (int)schur_warp_smem(V, (int)sizeof(T));
+  static int granted = 0;
+  const cudaError_t err = allow_smem(schur_warp_kernel<T, V>, smem, granted);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t grid = (a.rows + kSchurRowsPerCta - 1) / kSchurRowsPerCta;
+  schur_warp_kernel<T, V><<<(unsigned)grid, 32 * kSchurRowsPerCta, smem,
+                            stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// One launch of the tier the host chose: ``P`` the padded width (a power of
+// two >= W within the tier's range), ``grid`` and ``scratch`` (grid P (4 +
+// sizeof(T)) bytes) the global tier's.
+template <typename T>
 int schur_partial(const int* le_idx, const T* le_val, const T* d, int64_t ds,
                   const int* uf_idx, const T* uf_val, int64_t ufs, int rows,
-                  int nb, int KL, int KU, int cb, int* out_c, T* out_v,
+                  int nb, int KL, int KU, int cb, int tier, int P, int grid,
+                  unsigned char* scratch, int* out_c, T* out_v,
                   void* stream) {
   if (rows == 0) return (int)cudaSuccess;
-  int Wp = 1;
-  while (Wp < KL * KU) Wp <<= 1;
-  const int64_t smem = (int64_t)Wp * (sizeof(T) + sizeof(int));
-  static int granted = 0;
+  const int64_t W = (int64_t)KL * KU;
+  if (P < 1 || (P & (P - 1)) != 0 || P < W) return (int)cudaErrorInvalidValue;
+  // w / KU as a multiply-high, exact while W KU < 2^32
+  const unsigned magic =
+      KU > 1 && W * KU < ((int64_t)1 << 32)
+          ? (unsigned)((((uint64_t)1 << 32) + KU - 1) / KU)
+          : 0u;
+  const SchurArgs<T> a{le_idx, le_val, d,  ds, uf_idx, uf_val, ufs, rows,
+                       nb,     KL,     KU, (int)W, cb, magic, out_c, out_v};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (tier == kSchurWarp) {
+    if ((int64_t)(cb + 2) * P > ((int64_t)1 << 31))
+      return (int)cudaErrorInvalidValue;
+    switch (P) {
+      case 32: return schur_warp_launch<T, 1>(a, s);
+      case 64: return schur_warp_launch<T, 2>(a, s);
+      case 128: return schur_warp_launch<T, 4>(a, s);
+      case 256: return schur_warp_launch<T, 8>(a, s);
+      case 512: return schur_warp_launch<T, 16>(a, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  const bool global = tier == kSchurGlobal;
+  if (!(tier == kSchurBlock && P >= kSchurWarpMax && P <= kSchurTile) &&
+      !(global && P > kSchurTile && grid > 0 && scratch != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int n = global ? kSchurTile : P;
+  const int smem = (int)schur_block_smem(n, (int)sizeof(T));
+  static int granted[2] = {0, 0};
   const cudaError_t err =
-      allow_smem(schur_partial_kernel<T>, (int)smem, granted);
+      global ? allow_smem(schur_block_kernel<T, true>, smem, granted[1])
+             : allow_smem(schur_block_kernel<T, false>, smem, granted[0]);
   if (err != cudaSuccess) return (int)err;
-  schur_partial_kernel<T><<<(unsigned)rows, kSchurThreads, (int)smem,
-                            (cudaStream_t)stream>>>(
-      le_idx, le_val, d, ds, uf_idx, uf_val, ufs, nb, KL, KU, Wp, cb, out_c,
-      out_v);
+  if (global)
+    schur_block_kernel<T, true><<<(unsigned)grid, n / kSchurV, smem, s>>>(
+        a, P, scratch);
+  else
+    schur_block_kernel<T, false><<<(unsigned)rows, n / kSchurV, smem, s>>>(
+        a, P, scratch);
   return (int)cudaGetLastError();
 }
 
@@ -1872,15 +2327,19 @@ int schur_partial(const int* le_idx, const T* le_val, const T* d, int64_t ds,
 //   argmax picks it), reads the winning column and builds v redundantly:
 //   one barrier a step.  Data that other CTAs wrote in the launch is read
 //   with ld.global.cg, never through the read-only path.
-// - The slabs of R and Q live in shared memory when they fit (n up to
-//   about 1200 in f64 on 132 SMs), else in global memory (R in a scratch
-//   copy, column-major, and Q in place), where L2 holds them.
+// - Three layouts; the host picks the first whose shared memory fits
+//   (small_scale/qrcp_device.py:qrcp_layout) and qrcp_plan checks it.
+//   kQrcpShared: the slabs of R and Q in shared memory (n up to about 1200
+//   in f64 on 132 SMs).  kQrcpGlobal: the slabs in global memory (R in a
+//   scratch copy, column-major, and Q in place), where L2 holds them
+//   while they fit.  kQrcpGlobalX (n from 14465 in f64, 19313 in f32 on
+//   132 SMs): x, the map and its inverse too, each CTA its own copy in a
+//   global scratch that only it reads and writes, so that ordinary loads
+//   after __syncthreads see its writes; shared memory then holds only the
+//   CTA's norms and the warps' partial sums, and no n is refused for it.
 
 constexpr int kQrcpThreads = 512;
 constexpr int kQrcpWarps = kQrcpThreads / 32;
-// columns (and rows of Q) a CTA, at least: fewer, fuller CTAs shorten the
-// step at the tails' sizes (tools/probe_qrcp.py's sweep, PERF.md section 6)
-constexpr int kQrcpMinCols = 8;
 
 __device__ __forceinline__ int ld_cg(const int* p) {
   int v;
@@ -1909,26 +2368,78 @@ __device__ __forceinline__ bool qrcp_before(T v, int p, T bv, int bp) {
   return v > bv || (v == bv && p < bp);
 }
 
+// A lane's share of a . b over i = i0, i0 + 32, ... < n, one FMA chain in
+// that order, and y[i] -= 2 (x[i] w) over the same i.  U > 1 starts U
+// strides' loads before their arithmetic (the compiler cannot move a load
+// above a store that may alias it): kQrcpGlobalX's columns stream from
+// device memory, where that more than doubled the step's rate, while at
+// the sizes whose columns stay in L2 it was slower, so only kQrcpGlobalX
+// takes it.  The sums and products are the same either way.
+template <int U, typename T>
+__device__ __forceinline__ T qrcp_dot(const T* a, const T* b, int i, int n) {
+  T w = T(0);
+  for (; i + 32 * (U - 1) < n && U > 1; i += 32 * U) {
+    T av[U], bv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      av[u] = a[i + 32 * u];
+      bv[u] = b[i + 32 * u];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) w = fma_rn(av[u], bv[u], w);
+  }
+  for (; i < n; i += 32) w = fma_rn(a[i], b[i], w);
+  return w;
+}
+template <int U, typename T>
+__device__ __forceinline__ void qrcp_update(T* y, const T* x, T w, int i,
+                                            int n) {
+  for (; i + 32 * (U - 1) < n && U > 1; i += 32 * U) {
+    T xv[U], yv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      xv[u] = x[i + 32 * u];
+      yv[u] = y[i + 32 * u];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) y[i + 32 * u] = yv[u] - T(2) * (xv[u] * w);
+  }
+  for (; i < n; i += 32) y[i] = y[i] - T(2) * (x[i] * w);
+}
+
 __device__ __forceinline__ float sqrt_rn(float x) { return __fsqrt_rn(x); }
 __device__ __forceinline__ double sqrt_rn(double x) { return __dsqrt_rn(x); }
 
-// Dynamic shared memory of a CTA: x (then v), the norms of its columns,
-// the warps' partial sums and x_k, the map and its inverse, and (the
-// shared-memory layout) the R slab (cpc columns of n) and the Q slab (cpc
-// rows of n).
+// The layouts of qrcp_kernel, as the host names them ("shared", "global",
+// "global_x")
+constexpr int kQrcpShared = 0;
+constexpr int kQrcpGlobal = 1;
+constexpr int kQrcpGlobalX = 2;
+
+// x (then v), the map and its inverse: n values and two int arrays of n,
+// in shared memory or (kQrcpGlobalX) in each CTA's part of the scratch
+__host__ __device__ inline int64_t qrcp_vec_bytes(int n, int es) {
+  return round16((int64_t)n * es) + 2 * round16((int64_t)n * 4);
+}
+
+// Dynamic shared memory of a CTA: the norms of its columns, the warps'
+// partial sums and x_k, then (not kQrcpGlobalX) x, the map and its
+// inverse, then (kQrcpShared) the R slab (cpc columns of n) and the Q slab
+// (cpc rows of n).  small_scale/qrcp_device.py:qrcp_smem computes the same.
 __host__ __device__ inline int64_t qrcp_smem(int n, int cpc, int es,
-                                             bool slabs) {
-  int64_t b = round16((int64_t)n * es) + round16((int64_t)cpc * es) +
-              round16((int64_t)(kQrcpWarps + 1) * es) +
-              2 * round16((int64_t)n * 4);
-  if (slabs) b += 2 * round16((int64_t)cpc * n * es);
+                                             int layout) {
+  int64_t b = round16((int64_t)cpc * es) +
+              round16((int64_t)(kQrcpWarps + 1) * es);
+  if (layout != kQrcpGlobalX) b += qrcp_vec_bytes(n, es);
+  if (layout == kQrcpShared) b += 2 * round16((int64_t)cpc * n * es);
   return b;
 }
 
-template <typename T, bool SMEM>
+template <typename T, int LAYOUT>
 __global__ void __launch_bounds__(kQrcpThreads, 1)
 qrcp_kernel(const T* __restrict__ A, int n, int cpc, T* Q, T* R,
-            int64_t* piv, T* rt, T* cand_col, T* cand_norm, int* cand_pos) {
+            int64_t* piv, T* rt, unsigned char* vec, T* cand_col,
+            T* cand_norm, int* cand_pos) {
   namespace cg = cooperative_groups;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1937,21 +2448,26 @@ qrcp_kernel(const T* __restrict__ A, int n, int cpc, T* Q, T* R,
   const int c0 = g * cpc;
   const int nc = max(0, min(cpc, n - c0));
   const int es = (int)sizeof(T);
+  constexpr int U = LAYOUT == kQrcpGlobalX ? 4 : 1;  // see qrcp_dot
   unsigned char* p = smem_raw;
-  T* xs = reinterpret_cast<T*>(p);
-  p += round16((int64_t)n * es);
   T* nrm = reinterpret_cast<T*>(p);
   p += round16((int64_t)cpc * es);
   T* part = reinterpret_cast<T*>(p);   // kQrcpWarps partial sums, then x_k
   p += round16((int64_t)(kQrcpWarps + 1) * es);
-  int* map = reinterpret_cast<int*>(p);
-  p += round16((int64_t)n * 4);
-  int* inv = reinterpret_cast<int*>(p);
-  p += round16((int64_t)n * 4);
+  // x, map and inv: here, or this CTA's part of the global scratch
+  unsigned char* q = LAYOUT == kQrcpGlobalX
+                         ? vec + (int64_t)g * qrcp_vec_bytes(n, es)
+                         : p;
+  T* xs = reinterpret_cast<T*>(q);
+  q += round16((int64_t)n * es);
+  int* map = reinterpret_cast<int*>(q);
+  q += round16((int64_t)n * 4);
+  int* inv = reinterpret_cast<int*>(q);
+  q += round16((int64_t)n * 4);
   T* Rs;  // R slab, column-major: Rs[cl * n + i] = R[i, c0 + cl]
   T* Qs;  // Q slab, row-major: Qs[rl * n + l] = Q[c0 + rl, l]
-  if constexpr (SMEM) {
-    Rs = reinterpret_cast<T*>(p);
+  if constexpr (LAYOUT == kQrcpShared) {
+    Rs = reinterpret_cast<T*>(q);
     Qs = Rs + round16((int64_t)cpc * n * es) / es;
   } else {
     Rs = rt + (int64_t)c0 * n;
@@ -2072,11 +2588,8 @@ qrcp_kernel(const T* __restrict__ A, int n, int cpc, T* Q, T* R,
           continue;
         }
         if (inv[c0 + t] < k) continue;  // pivoted at an earlier step
-        T w = T(0);
-        for (int i = k + lane; i < n; i += 32) w = fma_rn(xs[i], col[i], w);
-        w = warp_sum(w);
-        for (int i = k + lane; i < n; i += 32)
-          col[i] = col[i] - T(2) * (xs[i] * w);
+        const T w = warp_sum(qrcp_dot<U>(xs, col, k + lane, n));
+        qrcp_update<U>(col, xs, w, k + lane, n);
         __syncwarp();
         if (lane == 0) {
           const T d = nrm[t] - col[k] * col[k];
@@ -2084,11 +2597,8 @@ qrcp_kernel(const T* __restrict__ A, int n, int cpc, T* Q, T* R,
         }
       } else {
         T* row = Qs + (int64_t)(t - nc) * n;
-        T w = T(0);
-        for (int l = k + lane; l < n; l += 32) w = fma_rn(row[l], xs[l], w);
-        w = warp_sum(w);
-        for (int l = k + lane; l < n; l += 32)
-          row[l] = row[l] - T(2) * (w * xs[l]);
+        const T w = warp_sum(qrcp_dot<U>(row, xs, k + lane, n));
+        qrcp_update<U>(row, xs, w, k + lane, n);
       }
     }
     __syncthreads();
@@ -2104,36 +2614,41 @@ qrcp_kernel(const T* __restrict__ A, int n, int cpc, T* Q, T* R,
     const int pos = inv[c0 + cl];
     R[(int64_t)i * n + pos] = i <= pos ? Rs[(int64_t)cl * n + i] : T(0);
   }
-  if constexpr (SMEM)
+  if constexpr (LAYOUT == kQrcpShared)
     for (int64_t e = tid; e < (int64_t)n * nc; e += kQrcpThreads)
       Q[(int64_t)c0 * n + e] = Qs[e];
   if (g == 0)
     for (int i = tid; i < n; i += kQrcpThreads) piv[i] = map[i];
 }
 
-// The launch plan of an n x n QRCP: out = {grid, columns a CTA, 1 for the
-// shared-memory layout (0: global), dynamic shared memory}.  ``cpc`` > 0
-// asks for that many columns a CTA, 0 takes the default (at least
-// kQrcpMinCols, at most one CTA an SM).  A grid that cannot be co-resident
-// is refused (cudaErrorCooperativeLaunchTooLarge), never shrunk.
 template <typename T>
-int qrcp_plan(int n, int cpc, int* out) {
+const void* qrcp_entry(int layout) {
+  return layout == kQrcpShared   ? (const void*)qrcp_kernel<T, kQrcpShared>
+         : layout == kQrcpGlobal ? (const void*)qrcp_kernel<T, kQrcpGlobal>
+                                 : (const void*)qrcp_kernel<T, kQrcpGlobalX>;
+}
+
+// The launch plan of an n x n QRCP at ``cpc`` columns a CTA in ``layout``,
+// both chosen by the host (small_scale/qrcp_device.py:qrcp_layout): out =
+// {grid, dynamic shared memory}.  Refuses a layout whose shared memory
+// exceeds kMaxSmem (cudaErrorInvalidValue) and a grid that cannot be
+// co-resident (cudaErrorCooperativeLaunchTooLarge), never shrinks it.
+template <typename T>
+int qrcp_plan(int n, int cpc, int layout, int* out) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  if (n < 1 || cpc < 0) return (int)cudaErrorInvalidValue;
-  if (cpc == 0) cpc = std::max(kQrcpMinCols, (n + sms - 1) / sms);
-  cpc = std::min(cpc, n);
+  if (n < 1 || cpc < 1 || cpc > n || layout < kQrcpShared ||
+      layout > kQrcpGlobalX)
+    return (int)cudaErrorInvalidValue;
   const int G = (n + cpc - 1) / cpc;
-  const int es = (int)sizeof(T);
-  const bool slabs = qrcp_smem(n, cpc, es, true) <= kMaxSmem;
-  const int64_t smem = qrcp_smem(n, cpc, es, slabs);
+  const int64_t smem = qrcp_smem(n, cpc, (int)sizeof(T), layout);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kernel = slabs ? qrcp_kernel<T, true> : qrcp_kernel<T, false>;
-  static int granted[2] = {0, 0};
-  err = allow_smem(kernel, (int)smem, granted[slabs]);
+  const void* kernel = qrcp_entry<T>(layout);
+  static int granted[3] = {0, 0, 0};
+  err = allow_smem(kernel, (int)smem, granted[layout]);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
@@ -2143,30 +2658,29 @@ int qrcp_plan(int n, int cpc, int* out) {
   if ((int64_t)per_sm * sms < G)
     return (int)cudaErrorCooperativeLaunchTooLarge;
   out[0] = G;
-  out[1] = cpc;
-  out[2] = slabs ? 1 : 0;
-  out[3] = (int)smem;
+  out[1] = (int)smem;
   return (int)cudaSuccess;
 }
 
 template <typename T>
-int qrcp(const T* A, int n, int cpc, int grid, T* Q, T* R, int64_t* piv,
-         T* rt, T* cand_col, T* cand_norm, int* cand_pos, void* stream) {
-  int plan[4];
-  const int err = qrcp_plan<T>(n, cpc, plan);
+int qrcp(const T* A, int n, int cpc, int layout, int grid, T* Q, T* R,
+         int64_t* piv, T* rt, unsigned char* vec, T* cand_col, T* cand_norm,
+         int* cand_pos, void* stream) {
+  int plan[2];
+  const int err = qrcp_plan<T>(n, cpc, layout, plan);
   if (err != (int)cudaSuccess) return err;
-  // the scratch was sized for ``grid`` CTAs, and the global layout needs R's
-  // scratch copy
-  if (plan[0] != grid || (!plan[2] && rt == nullptr))
+  // the scratch was sized for ``grid`` CTAs; the global layouts need R's
+  // scratch copy, kQrcpGlobalX the CTAs' x, map and inv
+  if (plan[0] != grid || (layout != kQrcpShared && rt == nullptr) ||
+      (layout == kQrcpGlobalX && vec == nullptr))
     return (int)cudaErrorInvalidValue;
-  void* args[] = {(void*)&A, (void*)&n, (void*)&plan[1], (void*)&Q,
-                  (void*)&R, (void*)&piv, (void*)&rt, (void*)&cand_col,
+  void* args[] = {(void*)&A,   (void*)&n,        (void*)&cpc,
+                  (void*)&Q,   (void*)&R,        (void*)&piv,
+                  (void*)&rt,  (void*)&vec,      (void*)&cand_col,
                   (void*)&cand_norm, (void*)&cand_pos};
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      plan[2] ? (const void*)qrcp_kernel<T, true>
-              : (const void*)qrcp_kernel<T, false>,
-      dim3((unsigned)grid), dim3(kQrcpThreads), args, (size_t)plan[3],
-      (cudaStream_t)stream);
+      qrcp_entry<T>(layout), dim3((unsigned)grid), dim3(kQrcpThreads), args,
+      (size_t)plan[1], (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -2180,7 +2694,7 @@ const char* hifir_error_string(int err) {
 }
 
 // The dynamic shared memory a block may hold; the host checks a kernel's
-// need against it before the launch (K10b's row of W candidates).
+// need against it before the launch (K8's layout, the chunk sweep's ring).
 int hifir_max_smem() { return kMaxSmem; }
 
 // The yardstick: read ``nbytes`` at ``p`` once (see read_rate_kernel).
@@ -2241,9 +2755,12 @@ int read_rate(const void* p, int64_t nbytes, unsigned* out,
   int schur_partial_##SUFFIX(const int* le_idx, const T* le_val, const T* d, \
                              int64_t ds, const int* uf_idx, const T* uf_val, \
                              int64_t ufs, int rows, int nb, int KL, int KU,  \
-                             int cb, int* out_c, T* out_v, void* stream) {   \
+                             int cb, int tier, int P, int grid,              \
+                             unsigned char* scratch, int* out_c, T* out_v,   \
+                             void* stream) {                                  \
     return schur_partial<T>(le_idx, le_val, d, ds, uf_idx, uf_val, ufs, rows, \
-                            nb, KL, KU, cb, out_c, out_v, stream);            \
+                            nb, KL, KU, cb, tier, P, grid, scratch, out_c,    \
+                            out_v, stream);                                   \
   }
 
 // The shared memory a chunk sweep's CTA needs (the host checks it against
@@ -2259,14 +2776,15 @@ HIFIR_DEFINE_DIST(f32, float)
 HIFIR_DEFINE_DIST(f64, double)
 
 #define HIFIR_DEFINE_QRCP(SUFFIX, T)                                          \
-  int qrcp_plan_##SUFFIX(int n, int cpc, int* out) {                         \
-    return qrcp_plan<T>(n, cpc, out);                                         \
+  int qrcp_plan_##SUFFIX(int n, int cpc, int layout, int* out) {             \
+    return qrcp_plan<T>(n, cpc, layout, out);                                 \
   }                                                                           \
-  int qrcp_##SUFFIX(const T* A, int n, int cpc, int grid, T* Q, T* R,        \
-                    int64_t* piv, T* rt, T* cand_col, T* cand_norm,          \
-                    int* cand_pos, void* stream) {                           \
-    return qrcp<T>(A, n, cpc, grid, Q, R, piv, rt, cand_col, cand_norm,      \
-                   cand_pos, stream);                                         \
+  int qrcp_##SUFFIX(const T* A, int n, int cpc, int layout, int grid, T* Q,  \
+                    T* R, int64_t* piv, T* rt, unsigned char* vec,           \
+                    T* cand_col, T* cand_norm, int* cand_pos,                \
+                    void* stream) {                                           \
+    return qrcp<T>(A, n, cpc, layout, grid, Q, R, piv, rt, vec, cand_col,    \
+                   cand_norm, cand_pos, stream);                              \
   }
 
 // K8 is real only, as the JAX sweep

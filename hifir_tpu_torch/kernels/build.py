@@ -38,10 +38,10 @@ _SIGNATURES = {
     "chunk_fma": [_P, _L, _I, _I, _P, _P, _L, _I, _I, _I, _P, _P],
     "chunk_sweep": [_P, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
                     _P],
-    "schur_partial": [_P, _P, _P, _L, _P, _P, _L, _I, _I, _I, _I, _I, _P, _P,
-                      _P],
-    "qrcp": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    "qrcp_plan": [_I, _I, _P],
+    "schur_partial": [_P, _P, _P, _L, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _P, _P, _P, _P],
+    "qrcp": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "qrcp_plan": [_I, _I, _I, _P],
 }
 # The value dtypes each entry point is built for (its symbols are
 # ``{name}_{suffix}``): K1 and K2 real and complex, K7 real only, as the TPU

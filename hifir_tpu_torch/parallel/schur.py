@@ -6,7 +6,9 @@ panels rotated around the ring of ranks (:meth:`Mesh.shift`), so that at
 ring step e rank k holds panel ``(k + e) % D`` and computes the partial rows
 ``(L_E D U_F)[rows_k, panel]``.  One step on every rank of a device is one
 launch of kernel K10b (:func:`schur_partial`): per local L_E row the
-KL * KU candidates, sorted by column, runs of equal columns summed.  The
+KL * KU candidates, sorted by column, runs of equal columns summed, in one
+of three tiers by the row's width (:func:`schur_plan`: a warp a row, a CTA
+a row, or a CTA a row on global scratch), so that no width is refused.  The
 host packs the operands (``_ell_pack``, ``_panelize_uf``, copied from the
 JAX package) and compresses each step's output before the next rotation,
 merging the A-tail block C as the JAX package does.
@@ -20,11 +22,11 @@ import numpy as np
 import torch
 
 from ..ds.csr import CSR
-from ..kernels.build import check, kernel_fn, load_kernels
+from ..kernels.build import check, kernel_fn
 from .mesh import Mesh, make_mesh
 
 __all__ = ["schur_spgemm_ring", "schur_partial", "schur_partial_plain",
-           "schur_partial_cuda"]
+           "schur_partial_cuda", "schur_plan", "SCHUR_TIERS"]
 
 
 def _ell_pack(M: CSR, nrows_pad: int, sentinel: int):
@@ -113,35 +115,79 @@ def schur_partial_plain(le_idx, le_val, d, uf_idx, uf_val, cb: int):
 schur_partial_plain.calls = 0
 
 
-def schur_partial_cuda(le_idx, le_val, d, uf_idx, uf_val, cb: int):
-    """Launch K10b for every rank of the group; refuses a row width
-    W = KL * KU whose candidates do not fit in a block's shared memory.
-    ``schur_partial_cuda.launches`` counts its launches."""
+# K10b's tiers (csrc/kernels.cu: kSchurWarp, kSchurBlock, kSchurGlobal) and
+# the padded widths P each takes: a warp a row up to kSchurWarpMax, a CTA a
+# row up to kSchurTile, beyond it a CTA a row on a global scratch of
+# kSchurTile-pair tiles.
+SCHUR_TIERS = ("warp", "block", "global")
+_P_RANGE = {"warp": (32, 512), "block": (512, 8192), "global": (16384, None)}
+_ROWS_PER_CTA = 8      # kernels.cu:kSchurRowsPerCta
+_GLOBAL_CTAS_PER_SM = 2
+
+
+def schur_plan(W: int, rows: int, itemsize: int, sms: int, cb: int,
+               tier=None) -> dict:
+    """K10b's launch for ``rows`` rows of W = KL * KU candidates in panels
+    of ``cb`` columns: the tier (the first of :data:`SCHUR_TIERS` whose
+    range holds W, or ``tier``; the warp tier packs a column and a position
+    in a word, so it also needs (cb + 2) P <= 2**31), the padded width P (a
+    power of two >= W, at least the tier's least), the grid and the bytes
+    of global scratch (the global tier's, P pairs a CTA).  Plain
+    arithmetic; every row of a launch has the same W, so the tier is chosen
+    once a launch, and no W is refused."""
+    if W < 1 or rows < 0 or cb < 0:
+        raise ValueError(f"schur_plan: W = {W}, rows = {rows}, cb = {cb}")
+    P = 1 << (W - 1).bit_length()
+
+    def fits(x):
+        lo, hi = _P_RANGE[x]
+        return ((hi is None or P <= hi)
+                and (x != "warp" or (cb + 2) * max(P, lo) <= 2**31))
+
+    if tier is None:
+        tier = next(x for x in SCHUR_TIERS if fits(x))
+    elif tier not in SCHUR_TIERS:
+        raise ValueError(f"schur_plan: tier {tier!r} not in {SCHUR_TIERS}")
+    elif not fits(tier):
+        raise ValueError(f"schur_plan: W = {W} (cb = {cb}) does not fit the "
+                         f"{tier} tier")
+    P = max(P, _P_RANGE[tier][0])
+    grid = {"warp": -(-rows // _ROWS_PER_CTA), "block": rows,
+            "global": min(rows, _GLOBAL_CTAS_PER_SM * sms)}[tier]
+    scratch = grid * P * (4 + itemsize) if tier == "global" else 0
+    return dict(tier=tier, P=P, grid=grid, scratch=scratch)
+
+
+def schur_partial_cuda(le_idx, le_val, d, uf_idx, uf_val, cb: int,
+                       tier=None):
+    """Launch K10b for every rank of the group, in the tier that
+    :func:`schur_plan` picks for W = KL * KU (or ``tier``); no width is
+    refused.  ``schur_partial_cuda.launches`` counts its launches."""
     _check(le_idx, le_val, d, uf_idx, uf_val)
     R, nb, KL = le_idx.shape
     KU = uf_idx.shape[2]
     W = KL * KU
-    Wp = 1 << max(W - 1, 0).bit_length()
-    need = Wp * (4 + le_val.element_size())   # a key and a value each
-    room = load_kernels().lib.hifir_max_smem()
-    if need > room:
-        raise ValueError(
-            f"schur_partial: W = KL * KU = {KL} * {KU} = {W} candidates a row "
-            f"need {need} bytes of shared memory (padded to {Wp}), more than "
-            f"a block's {room}")
     if R * nb * W >= 2**31 or uf_idx.shape[1] * KU >= 2**31:
         raise ValueError("schur_partial: operands reach 2**31 entries")
-    out_c = torch.empty((R, nb, W), dtype=torch.int32, device=le_idx.device)
+    dev = le_idx.device
+    out_c = torch.empty((R, nb, W), dtype=torch.int32, device=dev)
     out_v = le_val.new_empty((R, nb, W))
-    fn = kernel_fn("schur_partial", index_dtypes=(torch.int32,) * 3,
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 1)
+    plan = schur_plan(W, R * nb, le_val.element_size(), sms, cb, tier)
+    scratch = torch.empty(plan["scratch"], dtype=torch.uint8, device=dev)
+    fn = kernel_fn("schur_partial",
+                   index_dtypes=(torch.int32,) * 2 + (torch.uint8,
+                                                      torch.int32),
                    le_idx=le_idx, le_val=le_val, d=d, uf_idx=uf_idx,
-                   uf_val=uf_val, out_c=out_c, out_v=out_v)
+                   uf_val=uf_val, scratch=scratch, out_c=out_c, out_v=out_v)
     err = fn(le_idx.data_ptr(), le_val.data_ptr(), d.data_ptr(), d.shape[1],
              uf_idx.data_ptr(), uf_val.data_ptr(),
-             uf_idx.shape[1] * KU, R * nb, nb, KL, KU, cb, out_c.data_ptr(),
-             out_v.data_ptr(),
-             torch.cuda.current_stream(le_idx.device).cuda_stream)
-    check(err, "schur_partial")
+             uf_idx.shape[1] * KU, R * nb, nb, KL, KU, cb,
+             SCHUR_TIERS.index(plan["tier"]), plan["P"], plan["grid"],
+             scratch.data_ptr(), out_c.data_ptr(), out_v.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    check(err, f"schur_partial ({plan['tier']} tier, P = {plan['P']})")
     schur_partial_cuda.launches += 1
     return out_c, out_v
 

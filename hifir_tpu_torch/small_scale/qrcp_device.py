@@ -11,7 +11,9 @@ tail (``Options.device_tail``, ``DevicePrec.from_host(tail_on_device=True)``).
 
 - on the card, :func:`qrcp_device_cuda` runs the whole loop as one
   cooperative launch of ``csrc/kernels.cu:qrcp_kernel`` (one grid barrier a
-  column step; the kernel's note gives its design);
+  column step; the kernel's note gives its design), in the first layout of
+  :data:`LAYOUTS` whose shared memory fits (:func:`qrcp_layout`), so that
+  no n is refused for shared memory;
 - on the CPU, :func:`qrcp_device_plain` runs the plain version: one Python
   loop of n steps, each a fixed sequence of tensor operations (masked
   argmax, column swap, reflector, two rank-1 updates, cleanup, norm
@@ -41,7 +43,8 @@ import torch
 from ..kernels.build import check, dtype_suffix, kernel_fn, load_kernels
 
 __all__ = ["qrcp_device", "qrcp_device_plain", "qrcp_device_cuda",
-           "qrcp_plan", "qrcp_rank", "qrcp_factor"]
+           "qrcp_plan", "qrcp_layout", "qrcp_smem", "qrcp_vec_bytes",
+           "qrcp_rank", "qrcp_factor", "LAYOUTS"]
 
 
 def _check(A: torch.Tensor, who: str) -> None:
@@ -117,33 +120,102 @@ def qrcp_device_plain(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
 qrcp_device_plain.calls = 0
 
 
+# The kernel's layouts, in the order the host tries them (csrc/kernels.cu:
+# kQrcpShared, kQrcpGlobal, kQrcpGlobalX): the slabs of R and Q in shared
+# memory; the slabs in global memory; x, the map and its inverse in global
+# memory too, each CTA its own copy.
+LAYOUTS = ("shared", "global", "global_x")
+_WARPS = 16     # kernels.cu:kQrcpWarps
+# columns (and rows of Q) a CTA, at least: fewer, fuller CTAs shorten the
+# step at the tails' sizes (tools/probe_qrcp.py's sweep, PERF.md section 6)
+_MIN_COLS = 8
+
+
+def _round16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def qrcp_vec_bytes(n: int, itemsize: int) -> int:
+    """Bytes of x, the map and its inverse (kernels.cu:qrcp_vec_bytes)."""
+    return _round16(n * itemsize) + 2 * _round16(4 * n)
+
+
+def qrcp_smem(n: int, cols: int, itemsize: int, layout: str) -> int:
+    """A CTA's dynamic shared memory in ``layout`` (kernels.cu:qrcp_smem):
+    its columns' norms and the warps' partial sums, then x, the map and
+    its inverse unless "global_x", then the R and Q slabs if "shared"."""
+    b = _round16(cols * itemsize) + _round16((_WARPS + 1) * itemsize)
+    if layout != "global_x":
+        b += qrcp_vec_bytes(n, itemsize)
+    if layout == "shared":
+        b += 2 * _round16(cols * n * itemsize)
+    return b
+
+
+def qrcp_layout(n: int, itemsize: int, sms: int, max_smem: int,
+                cols_per_cta: int = 0, layout=None) -> dict:
+    """K8's launch shape on a card of ``sms`` SMs whose blocks may hold
+    ``max_smem`` bytes of shared memory: the columns a CTA (``cols_per_cta``
+    or the default, at least 8 and one CTA an SM), the grid, the first
+    layout of :data:`LAYOUTS` that fits (or ``layout``, which must fit) and
+    its shared memory.  Plain arithmetic, the one place the layout is
+    chosen; the C plan checks it against the card."""
+    if n < 1 or cols_per_cta < 0:
+        raise ValueError(f"qrcp_layout: n = {n}, cols_per_cta = "
+                         f"{cols_per_cta}")
+    cols = min(cols_per_cta or max(_MIN_COLS, -(-n // sms)), n)
+    if layout is None:
+        layout = next((x for x in LAYOUTS
+                       if qrcp_smem(n, cols, itemsize, x) <= max_smem),
+                      LAYOUTS[-1])
+    elif layout not in LAYOUTS:
+        raise ValueError(f"qrcp_layout: layout {layout!r} not in {LAYOUTS}")
+    smem = qrcp_smem(n, cols, itemsize, layout)
+    if smem > max_smem:
+        raise ValueError(f"qrcp_layout: n = {n} at {cols} columns a CTA in "
+                         f"the {layout} layout needs {smem} bytes of shared "
+                         f"memory, more than a block's {max_smem}")
+    return dict(grid=-(-n // cols), cols=cols, layout=layout, smem=smem)
+
+
 @functools.lru_cache(maxsize=64)
-def _plan(device_index: int, n: int, suffix: str, cols_per_cta: int):
+def _plan(device_index: int, n: int, dtype, cols_per_cta: int, layout):
     with torch.cuda.device(device_index):
-        out = (ctypes.c_int * 4)()
-        err = load_kernels().fn("qrcp_plan", suffix)(n, cols_per_cta, out)
-    check(err, f"qrcp: plan for n = {n} ({cols_per_cta} columns a CTA)")
-    return tuple(out)
+        kl = load_kernels()
+        sms = torch.cuda.get_device_properties(
+            device_index).multi_processor_count
+        plan = qrcp_layout(n, torch.empty((), dtype=dtype).element_size(),
+                           sms, kl.lib.hifir_max_smem(), cols_per_cta, layout)
+        out = (ctypes.c_int * 2)()
+        err = kl.fn("qrcp_plan", dtype_suffix("qrcp", dtype))(
+            n, plan["cols"], LAYOUTS.index(plan["layout"]), out)
+    check(err, f"qrcp: plan for n = {n} ({plan['cols']} columns a CTA, "
+          f"{plan['layout']} layout)")
+    if (out[0], out[1]) != (plan["grid"], plan["smem"]):
+        raise RuntimeError(f"qrcp: the kernel's plan (grid {out[0]}, "
+                           f"{out[1]} bytes) differs from the host's {plan}")
+    return plan
 
 
-def qrcp_plan(n: int, dtype, device="cuda", cols_per_cta: int = 0) -> dict:
-    """K8's launch for an n x n factorization on ``device``: the grid (one
-    CTA per ``cols`` columns of R and rows of Q, all co-resident), the
-    layout of the slabs ("shared" or "global") and the dynamic shared
-    memory a CTA.  ``cols_per_cta`` > 0 asks for that many columns a CTA;
-    a grid that cannot be co-resident raises."""
+def qrcp_plan(n: int, dtype, device="cuda", cols_per_cta: int = 0,
+              layout=None) -> dict:
+    """K8's launch for an n x n factorization on ``device``
+    (:func:`qrcp_layout` at the card's SMs and shared memory, checked by
+    the kernel's plan): the grid (one CTA per ``cols`` columns of R and
+    rows of Q, all co-resident), the layout and the dynamic shared memory
+    a CTA.  ``cols_per_cta`` > 0 asks for that many columns a CTA and
+    ``layout`` for a layout of :data:`LAYOUTS`; a grid that cannot be
+    co-resident raises."""
     dev = torch.device(device)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    grid, cols, slabs, smem = _plan(idx, n, dtype_suffix("qrcp", dtype),
-                                    cols_per_cta)
-    return dict(grid=grid, cols=cols, layout="shared" if slabs else "global",
-                smem=smem)
+    return dict(_plan(idx, n, dtype, cols_per_cta, layout))
 
 
-def qrcp_device_cuda(A: torch.Tensor, cols_per_cta: int = 0):
+def qrcp_device_cuda(A: torch.Tensor, cols_per_cta: int = 0, layout=None):
     """Launch K8 on A's card: (Q, R, piv) as :func:`qrcp_device_plain`
     gives them, in one cooperative launch on the current stream, with no
-    host sync.  Refuses a complex, non-square or CPU A, and a dtype other
+    host sync (``cols_per_cta`` and ``layout`` as :func:`qrcp_plan` takes
+    them).  Refuses a complex, non-square or CPU A, and a dtype other
     than float32 and float64, before it loads the library.
     ``qrcp_device_cuda.launches`` counts its launches."""
     _check(A, "qrcp_device_cuda")
@@ -158,19 +230,25 @@ def qrcp_device_cuda(A: torch.Tensor, cols_per_cta: int = 0):
     if n == 0:
         return Q, R, piv
     A = A.contiguous()
-    plan = qrcp_plan(n, A.dtype, A.device, cols_per_cta)
-    G = plan["grid"]
-    # R's column-major scratch copy for the global layout; the CTAs'
-    # candidates (two buffers, by the step's parity)
-    rt = A.new_empty(n * n if plan["layout"] == "global" else 0)
+    plan = qrcp_plan(n, A.dtype, A.device, cols_per_cta, layout)
+    G, lay = plan["grid"], plan["layout"]
+    # R's column-major scratch copy for the global layouts, each CTA's x,
+    # map and inverse for "global_x"; the CTAs' candidates (two buffers, by
+    # the step's parity)
+    rt = A.new_empty(n * n if lay != "shared" else 0)
+    vec = torch.empty(G * qrcp_vec_bytes(n, A.element_size())
+                      if lay == "global_x" else 0, dtype=torch.uint8,
+                      device=A.device)
     cand_col = A.new_empty(2 * G * n)
     cand_norm = A.new_empty(2 * G)
     cand_pos = torch.empty(2 * G, dtype=torch.int32, device=A.device)
-    fn = kernel_fn("qrcp", index_dtypes=(torch.int64, torch.int32), A=A, Q=Q,
-                   R=R, piv=piv, rt=rt, cand_col=cand_col,
+    fn = kernel_fn("qrcp", index_dtypes=(torch.int64, torch.uint8,
+                                         torch.int32),
+                   A=A, Q=Q, R=R, piv=piv, rt=rt, vec=vec, cand_col=cand_col,
                    cand_norm=cand_norm, cand_pos=cand_pos)
-    err = fn(A.data_ptr(), n, plan["cols"], G, Q.data_ptr(), R.data_ptr(),
-             piv.data_ptr(), rt.data_ptr(), cand_col.data_ptr(),
+    err = fn(A.data_ptr(), n, plan["cols"], LAYOUTS.index(lay), G,
+             Q.data_ptr(), R.data_ptr(), piv.data_ptr(), rt.data_ptr(),
+             vec.data_ptr(), cand_col.data_ptr(),
              cand_norm.data_ptr(), cand_pos.data_ptr(),
              torch.cuda.current_stream(A.device).cuda_stream)
     check(err, "qrcp")

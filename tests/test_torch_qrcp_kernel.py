@@ -130,6 +130,53 @@ def test_build_lists_qrcp_real_only():
     for dt in (torch.complex64, torch.complex128, torch.float16):
         with pytest.raises(TypeError, match="float32, float64 required"):
             build.dtype_suffix("qrcp", dt)
-    # the launch takes A, n, columns a CTA, the grid, Q, R, piv, R's
-    # scratch, the candidates' columns, norms and positions, the stream
-    assert len(build._SIGNATURES["qrcp"]) == 12
+    # the launch takes A, n, columns a CTA, the layout, the grid, Q, R,
+    # piv, R's scratch, the CTAs' x, map and inverse, the candidates'
+    # columns, norms and positions, the stream
+    assert len(build._SIGNATURES["qrcp"]) == 14
+
+
+# a block's dynamic shared memory on the H100 (kernels.cu:kMaxSmem)
+MAX_SMEM = 227 * 1024
+
+
+@pytest.mark.parametrize("n, itemsize, layout, bytes_global", [
+    (360, 8, "shared", None), (2000, 8, "global", None),
+    (14464, 8, "global", 232448), (14465, 8, "global_x", 232496),
+    (19312, 4, "global", 232416), (19313, 4, "global_x", 232464)])
+def test_layout_thresholds(no_compiler, n, itemsize, layout, bytes_global):
+    """On 132 SMs the tails that fit keep their layout; x, the map and its
+    inverse leave shared memory from n = 14465 in f64 and 19313 in f32,
+    where the global layout would need more than a block holds."""
+    plan = qd.qrcp_layout(n, itemsize, 132, MAX_SMEM)
+    assert plan["layout"] == layout
+    assert plan["cols"] == max(8, -(-n // 132))
+    assert plan["grid"] == -(-n // plan["cols"])
+    assert plan["smem"] == qd.qrcp_smem(n, plan["cols"], itemsize, layout)
+    if bytes_global is not None:
+        assert qd.qrcp_smem(n, plan["cols"], itemsize,
+                            "global") == bytes_global
+    if layout == "global_x":
+        # the norms and the warps' partial sums only
+        assert plan["smem"] < 5000
+
+
+def test_no_n_refused_for_shared_memory(no_compiler):
+    for itemsize in (4, 8):
+        worst = max(qd.qrcp_layout(n, itemsize, 132, MAX_SMEM)["smem"]
+                    for n in range(1, 65537))
+        assert worst <= MAX_SMEM
+
+
+def test_forced_layout(no_compiler):
+    """A layout asked for is taken where it fits and refused, naming the
+    limit, where it does not."""
+    plan = qd.qrcp_layout(33, 8, 132, MAX_SMEM, layout="global_x")
+    assert (plan["layout"], plan["cols"], plan["grid"]) == ("global_x", 8, 5)
+    assert qd.qrcp_layout(736, 4, 132, MAX_SMEM,
+                          layout="global_x")["layout"] == "global_x"
+    with pytest.raises(ValueError, match="more than a block's 232448"):
+        qd.qrcp_layout(2000, 8, 132, MAX_SMEM, layout="shared")
+    with pytest.raises(ValueError, match="not in"):
+        qd.qrcp_layout(33, 8, 132, MAX_SMEM, layout="registers")
+    assert qd.qrcp_vec_bytes(14465, 8) == 115728 + 2 * 57872
