@@ -172,6 +172,36 @@ Phases, in order; any failed gate raises and the script exits non-zero:
    edge cases (W = 1, 512, 513, long runs, all-sentinel and padded rows)
    through every tier that holds them: columns equal, values 1e-12 /
    1e-5, two launches bitwise equal.
+15. Entry points (hifir_tpu_torch.entry, the counterpart of
+   __graft_entry__.py), each part counted: entry()'s fn(*args), the f32
+   M-solve of convdiff2d(12) on 8 columns of ones, against the host f64
+   solve (1e-4 of max|X|) with K1 and K2 launches by the pack's forms;
+   dryrun_multichip(8) with its asserts as gates (IR residual falls, halo
+   engaged with >= 8 chunks a level, exchange below the all_gather's,
+   DistPrec solve within 1e-8), one sweep launch a factor application, no
+   plain-version call, and its DistPrec solve's time.
+16. The DistPrec path matrix, generator --seed + 8, eight ranks: the
+   symmetric (LDL^T, poisson2d(64), is_symm=1), general nonsymmetric and
+   pivoting (convdiff2d(64), pivot on) factorizations with the JAX
+   distribution tests' options, each in the halo and the all_gather form,
+   f64 and f32, against the host solve (1e-12 / 1e-4 of max|x|), one sweep
+   launch a factor application, each form's solve time.
+17. The device demos (hifir_tpu_torch.examples) in-process:
+   demo_device_batch (poisson2d(128), f32 64-RHS solve within 1e-4 of the
+   host on 8 columns, fgmres_hifir flag 0 and residual within 1.01 rtol)
+   and demo_pseudoinverse_device (the null space found; relative residual
+   and distance to pinv within the module's bounds; one f32 filtered apply
+   within 1e-4 of the host's filtered solve).
+18. 3D, generator --seed + 9, each part counted: the native factorize of
+   poisson3d(64) (n = 262144) with Options(verbose=0) (seconds with the
+   host CPU, levels, tail, fill), packs "auto" in f32 and f64 (seconds,
+   bytes by operand, schedule counts; the f64 adjoint pack), the forward
+   M-solve at 128 and 1 RHS in both dtypes and the adjoint at 128 RHS in
+   f64 against the host native solves on 8 spread columns (1e-4 / 1e-10
+   of max|X|) with K1 and K2 launches by the packs' forms, their times,
+   K2 alone on each schedule, a torch.profiler breakdown of the 128-RHS
+   f32 solve, and gmres_hif in f64 against the host gmres_np (flag 0,
+   true residual within 1.01 rtol, iterations within one).
 
 Every torch.profiler breakdown discards one profiled warm-up run, leaves
 PROFILE_PAD_S of idle host at each end of the window (the tracer drops
@@ -2596,54 +2626,61 @@ def k2_breakdown(torch, dp, B, smi) -> list:
     return out
 
 
-def million_phase(torch, rng, smi):
-    """BASELINE config 2 on the card, from the matrix: the port's native
-    factorize of poisson2d(1024) with bench.py's robust options
-    (``Options(verbose=0)``), packs ``auto`` in f32 and f64 with their
-    seconds, bytes and schedule counts, the device M-solve at 64 RHS and at
-    1 RHS against the host native f64 solve (1e-4 / 1e-10 of max|X|) with
-    K1 and K2 launches per solve from the packs' forms, their times beside
-    the host single-RHS solve (bench.py's baseline), a torch.profiler
-    breakdown of the 64-RHS f32 solve, gmres_hif with the device M against
-    the host gmres_np with the host M (flag 0, true residual within 1.01
-    rtol, counts within one), and HIFIR nirs = 4 in f64 with A as sliced
-    ELL (the residual falls every step for every column).  Returns the
-    report, the launches of each part and what each must be."""
+def robust_cell(torch, rng, smi, A, name, tag, nrhs, adjoint=False):
+    """One robust-configuration cell on the card, from the matrix ``A``
+    (named ``name``; its report keys start with ``tag``): the port's native
+    factorize with ``Options(verbose=0)`` (seconds with the host CPU,
+    levels, tail, fill), packs ``auto`` in f32 and f64 (seconds, bytes by
+    operand, schedule counts; with ``adjoint`` the f64 adjoint pack), the
+    device M-solve at ``nrhs`` and at 1 RHS in both dtypes (with
+    ``adjoint`` the f64 adjoint at ``nrhs`` too) against the host's native
+    f64 single-RHS solves of 8 columns spread over the block (1e-4 / 1e-10
+    of max|X|; the host's 2-D ``solve_mrhs`` takes tens of seconds at these
+    sizes), K1 and K2 launches per solve from the packs' forms, the solves'
+    CUDA-event times beside the host single-RHS solve (bench.py's
+    baseline), K2 alone on each schedule, a torch.profiler breakdown of the
+    ``nrhs`` f32 solve, and gmres_hif with a sliced-ELL A and the device M
+    (f64) against the host gmres_np with the host M (restart 30, rtol 1e-6,
+    one RHS: flag 0, true residual within 1.01 rtol, counts within one).
+    Returns the report, the launches of each part, what each must be, the
+    host factorization, the packs, the block B on the card and A as sliced
+    ELL."""
     import hifir_tpu_torch as ht
-    from hifir_tpu_torch.models.problems import poisson2d
-    from hifir_tpu_torch.ops.spmv import (sliced_ell_from_csr,
-                                          sliced_ell_sub_mrhs)
+    from hifir_tpu_torch.ops.spmv import sliced_ell_from_csr
     from hifir_tpu_torch.solvers.gmres_np import gmres_hif as host_gmres
 
     launches, want, report = {}, {}, {}
     cpu = cpu_model()
-    A = poisson2d(MILLION_NX)
     n = A.nrows
     t0 = time.perf_counter()
     P = ht.HIF().factorize(A, ht.Options(verbose=0))
     secs = time.perf_counter() - t0
     lv = [(p.m, p.n) for p in P.precs]
-    tail = P.precs[-1].dense_matrix
+    last = P.precs[-1]
+    tail = None if last.dense_matrix is None else last.dense_matrix.shape[0]
+    kind = None if tail is None else last.dense_solver.kind
+    rank = None if tail is None else last.dense_solver.rank
     report["factorize"] = dict(
         seconds=secs, cpu=cpu, levels=lv, nnz_M=P.nnz(), nnz_A=A.nnz,
-        fill=P.nnz() / A.nnz, nnz_A_per_s=A.nnz / secs,
-        tail=None if tail is None else tail.shape[0])
-    log(f"  factorize poisson2d({MILLION_NX}) (native, Options(verbose=0)): "
-        f"{secs:.2f} s ({A.nnz / secs / 1e6:.3f} Mnnz(A)/s) on the host "
-        f"({cpu}); levels {lv}, tail {None if tail is None else tail.shape}, "
+        fill=P.nnz() / A.nnz, nnz_A_per_s=A.nnz / secs, tail=tail,
+        tail_kind=kind, tail_rank=rank)
+    log(f"  factorize {name} (native, Options(verbose=0)): n={n} "
+        f"nnz(A)={A.nnz}; {secs:.2f} s ({A.nnz / secs / 1e6:.3f} Mnnz(A)/s) "
+        f"on the host ({cpu}); levels {lv}, tail {tail} {kind} rank {rank}, "
         f"nnz(M)={P.nnz()}, fill {P.nnz() / A.nnz:.4f} [{smi}]")
 
     # the host reference: single-RHS native solves of 8 columns spread
-    # over the block (the host's 64-column solve_mrhs takes ~50 s in
-    # numpy's 2-D products), each timed: bench.py's baseline
-    B = rng.standard_normal((n, MILLION_NRHS))
-    cols = np.linspace(0, MILLION_NRHS - 1, 8).astype(int)
-    ref, host = [], []
-    for c in cols:
-        t0 = time.perf_counter()
-        ref.append(P.solve(B[:, c]))
-        host.append(time.perf_counter() - t0)
-    ref = np.stack(ref, axis=1)
+    # over the block, each timed: bench.py's baseline
+    B = rng.standard_normal((n, nrhs))
+    cols = np.linspace(0, nrhs - 1, 8).astype(int)
+    ref, host = {}, []
+    for trans in (False, True) if adjoint else (False,):
+        r = []
+        for c in cols:
+            t0 = time.perf_counter()
+            r.append(P.solve(B[:, c], trans=trans))
+            host.append(time.perf_counter() - t0)
+        ref[trans] = np.stack(r, axis=1)
     report["host_solve_ms"] = [t * 1e3 for t in host]
     log(f"  host native f64 M-solve at 1 RHS (bench.py's baseline): "
         f"{min(host) * 1e3:.2f} ms, min of {len(host)} "
@@ -2656,13 +2693,23 @@ def million_phase(torch, rng, smi):
         t0 = time.perf_counter()
         packs[dt] = dp = P.to_device(dtype=npdt)
         torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        nb = pack_bytes(torch, dp)["forward"]
-        report[f"pack {dt}"] = dict(seconds=secs, bytes=nb,
-                                    total_bytes=sum(nb.values()))
-        log(f"  pack dense_inv=auto {dt}: {secs:.2f} s (host); "
-            f"{sum(nb.values())} bytes on the card, by operand {nb} "
-            f"[{smi}]")
+        psecs = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if adjoint and dt == "float64":
+            dp.pack_transpose(P.precs)
+            torch.cuda.synchronize()
+        tsecs = time.perf_counter() - t0
+        nb = pack_bytes(torch, dp)
+        report[f"pack {dt}"] = dict(
+            seconds=psecs, bytes=nb["forward"],
+            total_bytes=sum(nb["forward"].values()),
+            transpose_seconds=tsecs if "adjoint" in nb else None,
+            adjoint_bytes=nb.get("adjoint"))
+        log(f"  pack dense_inv=auto {dt}: {psecs:.2f} s (host); "
+            f"{sum(nb['forward'].values())} bytes on the card, by operand "
+            f"{nb['forward']}"
+            + (f"; pack_transpose {tsecs:.2f} s, adjoint bytes "
+               f"{nb['adjoint']}" if "adjoint" in nb else "") + f" [{smi}]")
     report["schedules"] = schedule_counts(packs["float32"])
     for i, row in enumerate(report["schedules"]):
         log(f"  level {i}: L {row['L']}, U {row['U']}, nnz(E) "
@@ -2673,36 +2720,42 @@ def million_phase(torch, rng, smi):
     bd = {dt: X[:, 0].contiguous() for dt, X in Bd.items()}
     runs = {}
     for dt, dp in packs.items():
-        runs[f"1M {dt} nrhs={MILLION_NRHS}"] = (
-            lambda dp=dp, dt=dt: dp.solve_mrhs(Bd[dt]), ref, cols)
-        runs[f"1M {dt} nrhs=1"] = (
-            lambda dp=dp, dt=dt: dp.solve(bd[dt]), ref[:, 0], None)
-    for key, (run, r, cs) in runs.items():
+        runs[f"{tag} {dt} nrhs={nrhs}"] = (
+            lambda dp=dp, dt=dt: dp.solve_mrhs(Bd[dt]), False, cols)
+        runs[f"{tag} {dt} nrhs=1"] = (
+            lambda dp=dp, dt=dt: dp.solve(bd[dt]), False, None)
+    if adjoint:
+        runs[f"{tag} float64 adjoint nrhs={nrhs}"] = (
+            lambda: packs["float64"].solve_mrhs(Bd["float64"], trans=True),
+            True, cols)
+    for key, (run, trans, cs) in runs.items():
         dp = packs[key.split()[1]]
         X = count_launches(torch, launches, key, run)
         gate(bool(torch.isfinite(X).all()), f"{key}: non-finite")
-        shape = (n,) if cs is None else (n, MILLION_NRHS)
+        shape = (n,) if cs is None else (n, nrhs)
         gate(tuple(X.shape) == shape, f"{key}: shape {tuple(X.shape)}")
+        r = ref[trans] if cs is not None else ref[trans][:, 0]
         X = X if cs is None else X[:, torch.as_tensor(cs, device=X.device)]
         d = float(np.abs(X.double().cpu().numpy() - r).max()
                   / np.abs(r).max())
         tol = 1e-4 if "float32" in key else 1e-10
-        want[key] = want_launches([(v.L, v.U, v.E, v.F) for v in dp.levels])
+        forms = ([(t.LT, t.UT, t.FT, t.ET) for t in dp.tran] if trans
+                 else [(v.L, v.U, v.E, v.F) for v in dp.levels])
+        want[key] = want_launches(forms)
         report[key] = dict(rel_diff=d, tol=tol)
-        log(f"  M-solve {key:22s}: rel diff vs host native f64 {d:.3e} "
+        log(f"  M-solve {key:30s}: rel diff vs host native f64 {d:.3e} "
             f"({'column 0' if cs is None else f'columns {cs.tolist()}'}) "
             f"(tol {tol:.0e}); launches {launches[key]}, by the pack's "
             f"forms {want[key]}")
         gate(d <= tol, f"{key}: {d:.3e} > {tol}")
     for key, (run, _, _) in runs.items():
-        nrhs = int(key.rsplit("=", 1)[1])
+        k = int(key.rsplit("=", 1)[1])
         ms = timed(torch, run, 5)
-        report[key].update(ms=ms, us_per_rhs=ms * 1e3 / nrhs)
-        log(f"  {key:22s}: {ms:.4f} ms, {ms * 1e3 / nrhs:.2f} us/RHS "
-            f"[{smi}]")
+        report[key].update(ms=ms, us_per_rhs=ms * 1e3 / k)
+        log(f"  {key:30s}: {ms:.4f} ms, {ms * 1e3 / k:.2f} us/RHS [{smi}]")
     report["k2_schedules"] = k2_breakdown(torch, packs["float32"],
                                           Bd["float32"], smi)
-    key = f"1M float32 nrhs={MILLION_NRHS}"
+    key = f"{tag} float32 nrhs={nrhs}"
     report["profile"] = device_profile(torch, runs[key][0], 3)
     log_profile(key, report["profile"], report[key]["ms"])
     log(f"  device busy share of the {key} solve: "
@@ -2712,10 +2765,10 @@ def million_phase(torch, rng, smi):
     # host M, on the same A and b
     As = sliced_ell_from_csr(A, device="cuda")
     b = B[:, 0]
+    key = f"{tag} gmres_hif"
     t0 = time.perf_counter()
-    x, flag, it = count_launches(
-        torch, launches, "1M gmres_hif", lambda: ht.gmres_hif(
-            As, packs["float64"], b, restart=30, rtol=1e-6))
+    x, flag, it = count_launches(torch, launches, key, lambda: ht.gmres_hif(
+        As, packs["float64"], b, restart=30, rtol=1e-6))
     secs = time.perf_counter() - t0
     t0 = time.perf_counter()
     _, flag_h, it_h = host_gmres(A, P, b, restart=30, rtol=1e-6)
@@ -2726,17 +2779,39 @@ def million_phase(torch, rng, smi):
                            host_flag=flag_h, host_iterations=it_h,
                            host_seconds=secs_h, true_rel_residual=res)
     log(f"  gmres_hif (sliced-ELL A, device M f64, restart 30, rtol 1e-6): "
-        f"flag {flag}, {it} iterations, {secs:.2f} s, true relative "
-        f"residual {res:.3e}; host gmres_np with the host M: flag {flag_h}, "
-        f"{it_h} iterations, {secs_h:.2f} s; launches "
-        f"{launches['1M gmres_hif']} [{smi}]")
-    gate(flag == 0 and flag_h == 0, f"1M gmres: flags {flag} / {flag_h}")
-    gate(res <= 1.01e-6, f"1M gmres: true residual {res:.3e}")
-    gate(abs(it - it_h) <= 1, f"1M gmres: {it} iterations against the "
-         f"host's {it_h}")
-    gate(launches["1M gmres_hif"]["K1"] > 0
-         and launches["1M gmres_hif"]["K2"] > 0,
-         f"1M gmres: launches {launches['1M gmres_hif']}")
+        f"flag {flag}, {it} iterations, {secs * 1e3:.2f} ms (host clock), "
+        f"true relative residual {res:.3e}; host gmres_np with the host M: "
+        f"flag {flag_h}, {it_h} iterations, {secs_h:.2f} s; launches "
+        f"{launches[key]} [{smi}]")
+    gate(flag == 0 and flag_h == 0, f"{key}: flags {flag} / {flag_h}")
+    gate(res <= 1.01e-6, f"{key}: true residual {res:.3e}")
+    gate(abs(it - it_h) <= 1, f"{key}: {it} iterations against the host's "
+         f"{it_h}")
+    gate(launches[key]["K1"] > 0 and launches[key]["K2"] > 0,
+         f"{key}: launches {launches[key]}")
+    return report, launches, want, P, packs, Bd, As
+
+
+def check_launches(launches, want) -> None:
+    """Every counted part made the launches its packs' forms call for."""
+    for key, w in want.items():
+        for k, v in w.items():
+            gate(launches[key][k] == v, f"{key}: {launches[key][k]} {k} "
+                 f"launches, expected {v}")
+
+
+def million_phase(torch, rng, smi):
+    """BASELINE config 2 on the card: :func:`robust_cell` on poisson2d(1024)
+    at 64 RHS, then HIFIR nirs = 4 in f64 with A as sliced ELL (the
+    residual falls every step for every column).  Returns the report, the
+    launches of each part and what each must be."""
+    import hifir_tpu_torch as ht
+    from hifir_tpu_torch.models.problems import poisson2d
+    from hifir_tpu_torch.ops.spmv import sliced_ell_sub_mrhs
+
+    report, launches, want, P, packs, Bd, As = robust_cell(
+        torch, rng, smi, poisson2d(MILLION_NX), f"poisson2d({MILLION_NX})",
+        "1M", MILLION_NRHS)
     per = want_launches([(v.L, v.U, v.E, v.F) for v in
                          packs["float64"].levels])
 
@@ -2750,7 +2825,7 @@ def million_phase(torch, rng, smi):
     rn = np.array([torch.linalg.vector_norm(sliced_ell_sub_mrhs(As, Xk, Bt),
                                             dim=0).cpu().numpy()
                    for Xk in Xs])
-    rel = rn / np.linalg.norm(B, axis=0)
+    rel = rn / torch.linalg.vector_norm(Bt, dim=0).cpu().numpy()
     report["hifir rel residual"] = list(map(float, rel.max(axis=1)))
     log(f"  HIFIR poisson2d({MILLION_NX}) (sliced-ELL A, f64, "
         f"{MILLION_NRHS} RHS) max relative "
@@ -2763,10 +2838,7 @@ def million_phase(torch, rng, smi):
     report["hifir_ms"] = ms
     log(f"  HIFIR nirs=4 f64, {MILLION_NRHS} RHS: {ms:.4f} ms an apply "
         f"[{smi}]")
-    for key, w in want.items():
-        for k, v in w.items():
-            gate(launches[key][k] == v, f"{key}: {launches[key][k]} {k} "
-                 f"launches, expected {v}")
+    check_launches(launches, want)
     return report, launches, want
 
 
@@ -3598,6 +3670,232 @@ def dist_phase(torch, T, rng, smi, k10b_seed=0):
     return report, launches, book.rows
 
 
+# ---------------------------------------------------------------------------
+# the entry points, the DistPrec path matrix, the device demos, poisson3d
+
+def entry_phase(torch, smi):
+    """``hifir_tpu_torch.entry`` on the card: ``entry()``'s ``fn(*args)``
+    against the host f64 solve of the same factorization (1e-4 of max|X|,
+    float32) with K1 and K2 launched as the pack's forms say, then
+    ``dryrun_multichip(8)`` with its asserts as gates, one sweep launch a
+    factor application of its DistPrec solve and no plain-version call, and
+    that solve's time (CUDA events).  Returns the report and the launches
+    of each part."""
+    from hifir_tpu_torch.entry import _small_prec, dryrun_multichip, entry
+
+    launches, report = {}, {}
+    fn, args = entry()
+    X = count_launches(torch, launches, "entry", lambda: fn(*args))
+    gate(bool(torch.isfinite(X).all()), "entry: non-finite")
+    _, M = _small_prec(nx=12)
+    n = M.precs[0].n
+    gate(tuple(X.shape) == (n, 8) and X.dtype == torch.float32,
+         f"entry: {tuple(X.shape)} {X.dtype}")
+    ref = M.solve_mrhs(np.ones((n, 8)))
+    d = float(np.abs(X.double().cpu().numpy() - ref).max()
+              / np.abs(ref).max())
+    want = want_launches([(v.L, v.U, v.E, v.F) for v in args[0]])
+    ms = timed(torch, lambda: fn(*args), 20)
+    report["entry"] = dict(n=n, levels=[(p.m, p.n) for p in M.precs],
+                           rel_diff=d, tol=1e-4, ms=ms,
+                           launches=launches["entry"], want=want)
+    log(f"  entry(): convdiff2d(12), levels {report['entry']['levels']}, "
+        f"f32 chunk=1024, B = ones(({n}, 8)): rel diff vs host f64 {d:.3e} "
+        f"(tol 1e-4); {ms:.4f} ms a call (CUDA events); launches "
+        f"{launches['entry']}, by the pack's forms {want} [{smi}]")
+    gate(d <= 1e-4, f"entry: {d:.3e} > 1e-4")
+    for k, v in want.items():
+        gate(launches["entry"][k] == v, f"entry: {launches['entry'][k]} {k} "
+             f"launches, expected {v}")
+    gate(launches["entry"]["K1"] > 0, "entry: no K1 launch")
+
+    t0 = time.perf_counter()
+    rep = dist_count(torch, launches, "dryrun_multichip(8)",
+                     lambda: dryrun_multichip(8))
+    secs = time.perf_counter() - t0
+    dp = rep["dist"]
+    shape = dist_solve_factors(dp)
+    per = launches["dryrun_multichip(8)"]
+    ones = np.ones(dp.levels[0].n)
+    solve = dist_count(torch, launches, "dryrun DistPrec solve",
+                       lambda: dp.solve(ones))
+    sweep_gates(launches["dryrun DistPrec solve"], shape,
+                "dryrun_multichip(8) DistPrec")
+    gate(per["sweep"] == launches["dryrun DistPrec solve"]["sweep"]
+         and per["K1"] > 0, f"dryrun_multichip(8): launches {per}")
+    err = float(np.abs(solve.cpu().numpy() - rep["x_host"]).max()
+                / np.abs(rep["x_host"]).max())
+    ms = timed(torch, lambda: dp.solve(ones), 5)
+    report["dryrun"] = dict(
+        seconds=secs, ir_residual0=rep["ir_residual0"],
+        ir_residual2=rep["ir_residual2"], n_halo=dp.n_halo,
+        comm_elems=dp.comm_elems, allgather_elems=dp.allgather_elems,
+        **shape, err_vs_host=err, solve_ms=ms, launches=per)
+    log(f"  dryrun_multichip(8): {secs:.2f} s (host clock, with the two "
+        f"factorizes); IR residual {rep['ir_residual0']:.4g} -> "
+        f"{rep['ir_residual2']:.4g}; DistPrec convdiff2d(40) chunk 32: "
+        f"{dp.n_halo} halo factors, comm {dp.comm_elems} < allgather "
+        f"{dp.allgather_elems}, {shape['chunks_per_solve']} chunks a solve; "
+        f"rel err vs host {err:.3e} (tol 1e-8); solve {ms:.4f} ms (CUDA "
+        f"events); launches {per} [{smi}]")
+    gate(err <= 1e-8, f"dryrun DistPrec solve {err:.3e}")
+    return report, launches
+
+
+PATHS_NX = 64
+
+
+def paths_phase(torch, rng, smi):
+    """The DistPrec path matrix on eight ranks of the card: the symmetric
+    (LDL^T, poisson2d(64)), general nonsymmetric and pivoting
+    (convdiff2d(64)) factorizations, each in the halo and the all_gather
+    form, float64 and float32, against the host solve (1e-12 / 1e-4 of
+    max|x|), one sweep launch a factor application and no K10a or plain
+    call, with each form's solve time (CUDA events).  Returns the report
+    and the launches of each form."""
+    import hifir_tpu_torch as ht
+    from hifir_tpu_torch.models import problems
+    from hifir_tpu_torch.options import PIVOTING_ON
+    from hifir_tpu_torch.parallel import DistPrec, make_mesh
+
+    # path -> (operator, the options beyond RED_OPTS): the factorizations
+    # tests/test_torch_parallel_paths.py holds to the JAX DistPrec
+    paths = {"symmetric": ("poisson2d", dict(is_symm=1)),
+             "nonsymmetric": ("convdiff2d", {}),
+             "pivoting": ("convdiff2d", dict(pivot=PIVOTING_ON))}
+    mesh = make_mesh(DIST_RANKS)
+    launches, report = {}, {}
+    for path, (op, extra) in paths.items():
+        A = getattr(problems, op)(PATHS_NX)
+        t0 = time.perf_counter()
+        P = ht.HIF().factorize(A, ht.Options(**dict(RED_OPTS, **extra)))
+        secs = time.perf_counter() - t0
+        b = rng.standard_normal(A.nrows)
+        xh = P.solve(b)
+        rep = report[path] = dict(
+            operator=f"{op}({PATHS_NX})", factorize_seconds=secs,
+            levels=[(p.m, p.n) for p in P.precs],
+            tail=P.precs[-1].dense_solver.kind
+            if P.precs[-1].dense_solver is not None else None)
+        for form, halo in (("halo", True), ("all_gather", False)):
+            for npdt, tol in ((np.float64, 1e-12), (np.float32, 1e-4)):
+                dt = np.dtype(npdt).name
+                key = f"{path} {form} {dt}"
+                dp = DistPrec.from_host(mesh, P, dtype=npdt, chunk=64,
+                                        halo=halo)
+                shape = dist_solve_factors(dp)
+                x = dist_count(torch, launches, key,
+                               lambda: dp.solve(b)).double().cpu().numpy()
+                per = launches[key]
+                err = float(np.abs(x - xh).max() / np.abs(xh).max())
+                ms = timed(torch, lambda: dp.solve(b), 5)
+                rep[f"{form} {dt}"] = dict(
+                    err=err, tol=tol, ms=ms, n_halo=dp.n_halo,
+                    comm_elems=dp.comm_elems,
+                    allgather_elems=dp.allgather_elems, **shape,
+                    launches=per)
+                log(f"  {path:12s} {form:10s} {dt}: levels {rep['levels']} "
+                    f"tail {rep['tail']}; rel err vs host {err:.3e} (tol "
+                    f"{tol:.0e}); {dp.n_halo} halo factors, "
+                    f"{shape['chunks_per_solve']} chunks a solve; solve "
+                    f"{ms:.4f} ms (CUDA events); launches {per} [{smi}]")
+                gate(err <= tol, f"DistPrec {key}: {err:.3e} > {tol}")
+                sweep_gates(per, shape, f"DistPrec {key}")
+                gate(per["sweep"] > 0, f"DistPrec {key}: no sweep launch")
+                if halo:
+                    gate(dp.n_halo > 0 and dp.comm_elems
+                         < dp.allgather_elems, f"DistPrec {key}: halo "
+                         f"{dp.n_halo}, comm {dp.comm_elems} / "
+                         f"{dp.allgather_elems}")
+    return report, launches
+
+
+def demos_phase(torch, smi):
+    """The two device demos of ``hifir_tpu_torch.examples`` run in-process
+    on the card, each counted: ``demo_device_batch`` (poisson2d(128), a
+    float32 64-RHS M-solve, fgmres_hifir to rtol 1e-8: flag 0, residual
+    within 1.01 rtol, the solve within 1e-4 of the host's on 8 columns) and
+    ``demo_pseudoinverse_device`` (the 40x40 rank-deficient system: the
+    null space found, the relative residual and the distance to pinv within
+    the module's bounds, and one float32 filtered apply within 1e-4 of the
+    host's filtered solve, since 50 steps of IR with float64 residuals
+    converge even from a poor apply).  Returns the report and the launches
+    of each."""
+    from hifir_tpu_torch.examples import (demo_device_batch,
+                                          demo_pseudoinverse_device)
+
+    launches, report = {}, {}
+    t0 = time.perf_counter()
+    r = count_launches(torch, launches, "demo_device_batch",
+                       lambda: demo_device_batch.main([]))
+    secs = time.perf_counter() - t0
+    cols = np.linspace(0, r["X"].shape[1] - 1, 8).astype(int)
+    Bh = r["B"].double().cpu().numpy()
+    ref = np.stack([r["M"].solve(Bh[:, c]) for c in cols], axis=1)
+    d = float(np.abs(r["X"][:, torch.as_tensor(cols, device=r["X"].device)]
+                     .double().cpu().numpy() - ref).max() / np.abs(ref).max())
+    per = launches["demo_device_batch"]
+    report["demo_device_batch"] = dict(
+        seconds=secs, solve_ms_host_clock=r["solve_ms"], flag=r["flag"],
+        iters=r["iters"], res=r["res"], rel_diff=d, launches=per)
+    log(f"  demo_device_batch: {secs:.2f} s in all (host clock); 64-RHS f32 "
+        f"solve {r['solve_ms']:.2f} ms (host clock around a sync), rel diff "
+        f"vs host f64 {d:.3e} on columns {cols.tolist()} (tol 1e-4); FGMRES "
+        f"flag {r['flag']}, {r['iters']} iterations, res {r['res']:.3e}; "
+        f"launches {per} [{smi}]")
+    gate(r["flag"] == 0 and r["res"] <= 1.01e-8,
+         f"demo_device_batch: flag {r['flag']}, res {r['res']:.3e}")
+    gate(d <= 1e-4, f"demo_device_batch solve: {d:.3e} > 1e-4")
+    gate(per["K1"] > 0, f"demo_device_batch: launches {per}")
+
+    t0 = time.perf_counter()
+    r = count_launches(torch, launches, "demo_pseudoinverse_device",
+                       lambda: demo_pseudoinverse_device.main([]))
+    secs = time.perf_counter() - t0
+    M, dp = r["M"], r["dp"]
+    M.nsp = dp.nsp
+    xh = M.solve(r["b"])
+    xd = dp.solve(torch.as_tensor(r["b"], dtype=torch.float64,
+                                  device=dp.device)).double().cpu().numpy()
+    da = float(np.abs(xd - xh).max() / np.abs(xh).max())
+    report["demo_pseudoinverse_device"] = dict(
+        seconds=secs, rank=r["rank"], tail_n=r["tail_n"],
+        rel_res=r["rel_res"], pinv_err=r["pinv_err"], apply_rel_diff=da,
+        res_bound=demo_pseudoinverse_device.RES_BOUND,
+        pinv_bound=demo_pseudoinverse_device.PINV_BOUND,
+        launches=launches["demo_pseudoinverse_device"])
+    log(f"  demo_pseudoinverse_device: {secs:.2f} s; tail rank {r['rank']} "
+        f"of {r['tail_n']}; rel.res {r['rel_res']:.3e} (bound "
+        f"{demo_pseudoinverse_device.RES_BOUND:.0e}), vs pinv "
+        f"{r['pinv_err']:.3e} (bound "
+        f"{demo_pseudoinverse_device.PINV_BOUND:.0e}); f32 apply vs host "
+        f"{da:.3e} (tol 1e-4); launches "
+        f"{launches['demo_pseudoinverse_device']} [{smi}]")
+    gate(r["rank"] < r["tail_n"], "pseudoinverse: the null space was not "
+         "found")
+    gate(r["rel_res"] <= demo_pseudoinverse_device.RES_BOUND
+         and r["pinv_err"] <= demo_pseudoinverse_device.PINV_BOUND,
+         f"pseudoinverse: {r['rel_res']:.3e} / {r['pinv_err']:.3e}")
+    gate(da <= 1e-4, f"pseudoinverse apply: {da:.3e} > 1e-4")
+    return report, launches
+
+
+P3_NX = 64
+P3_NRHS = 128
+
+
+def poisson3d_phase(torch, rng, smi):
+    """poisson3d(64) (n = 262144) on the card: :func:`robust_cell` at 128
+    RHS with the f64 adjoint.  Returns the report, the launches of each
+    part and what each must be."""
+    from hifir_tpu_torch.models.problems import poisson3d
+
+    report, launches, want, *_ = robust_cell(
+        torch, rng, smi, poisson3d(P3_NX), f"poisson3d({P3_NX})", "3D",
+        P3_NRHS, adjoint=True)
+    check_launches(launches, want)
+    return report, launches, want
+
 _SOURCES = {
     "K7": ("K7_bsr", "cuda", "hifir_tpu_torch/csrc/kernels.cu",
            "hifir_tpu/ops/pallas_spmv.py:133"),
@@ -3794,6 +4092,55 @@ def main(argv=None) -> int:
     dreport["seconds"] = time.perf_counter() - t_phase
     log(f"  distribution phase {dreport['seconds']:.1f} s [{smi}]")
 
+    log("== entry points: entry() and dryrun_multichip(8) on the card "
+        "(hifir_tpu_torch.entry)")
+    t_phase = time.perf_counter()
+    ereport, elaunches = entry_phase(torch, smi)
+    ereport["seconds"] = time.perf_counter() - t_phase
+    etotal = {k: sum(c.get(k, 0) for c in elaunches.values())
+              for k in ("K7", "K1", "K2", "K10a", "sweep", "K10b")}
+    log(f"  launches on the entry path: {etotal}; phase "
+        f"{ereport['seconds']:.1f} s")
+
+    log("== DistPrec path matrix: symmetric, nonsymmetric and pivoting "
+        "factorizations, halo and all_gather forms, eight ranks")
+    # its own generator, so that its inputs do not move with the rows above
+    t_phase = time.perf_counter()
+    preport, plaunches = paths_phase(
+        torch, np.random.default_rng(args.seed + 8), smi)
+    preport["seconds"] = time.perf_counter() - t_phase
+    ptotal = {k: sum(c[k] for c in plaunches.values())
+              for k in ("K7", "K1", "K2", "K10a", "sweep", "K10b")}
+    log(f"  launches on the path matrix: {ptotal}; phase "
+        f"{preport['seconds']:.1f} s")
+    for k in ("K1", "sweep"):
+        gate(ptotal[k] > 0, f"kernel {k} was not launched on the path "
+             f"matrix")
+
+    log("== device demos: demo_device_batch and demo_pseudoinverse_device "
+        "(hifir_tpu_torch.examples)")
+    t_phase = time.perf_counter()
+    demreport, demlaunches = demos_phase(torch, smi)
+    demreport["seconds"] = time.perf_counter() - t_phase
+    demtotal = {k: sum(c[k] for c in demlaunches.values())
+                for k in ("K7", "K1", "K2")}
+    log(f"  launches on the demos: {demtotal}; phase "
+        f"{demreport['seconds']:.1f} s")
+
+    log(f"== 3D: poisson3d({P3_NX}) from the matrix, native factorize, "
+        f"M-solve at {P3_NRHS} and 1 RHS, adjoint, GMRES on the card")
+    # its own generator, so that its inputs do not move with the rows above
+    t_phase = time.perf_counter()
+    p3report, p3launches, p3want = poisson3d_phase(
+        torch, np.random.default_rng(args.seed + 9), smi)
+    p3report["seconds"] = time.perf_counter() - t_phase
+    p3total = {k: sum(c[k] for c in p3launches.values())
+               for k in ("K7", "K1", "K2")}
+    log(f"  launches on the 3D path: {p3total}; phase "
+        f"{p3report['seconds']:.1f} s [{smi}]")
+    for k in ("K1", "K2"):
+        gate(p3total[k] > 0, f"kernel {k} was not launched on the 3D path")
+
     offs = [w["offset_ms"] for w in PROFILE_WINDOWS
             if w["offset_ms"] is not None]
     log(f"== profiler: {len(PROFILE_WINDOWS)} windows, "
@@ -3811,7 +4158,9 @@ def main(argv=None) -> int:
             name=name, route=route, source=src, replaces=repl,
             launches=launches[k], launches_surface=stotal[k],
             launches_factorize=ftotal[k], launches_1m=mtotal[k],
-            launches_saddle=sir_total[k],
+            launches_saddle=sir_total[k], launches_entry=etotal[k],
+            launches_paths=ptotal[k], launches_demos=demtotal[k],
+            launches_3d=p3total[k],
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
@@ -3837,7 +4186,8 @@ def main(argv=None) -> int:
                    and r["dtype"] == "float64")
         kernels.append(dict(
             name=name, route=route, source=src, replaces=repl,
-            launches=dlaunches[run][k], max_abs_err=row["max_abs_err"],
+            launches=dlaunches[run][k], launches_entry=etotal[k],
+            launches_paths=ptotal[k], max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], library_note=row["library_note"],
@@ -3882,6 +4232,12 @@ def main(argv=None) -> int:
                            distribution=dreport,
                            distribution_launches=dlaunches,
                            distribution_kernel_rows=drows,
+                           entry=ereport, entry_launches=elaunches,
+                           paths=preport, paths_launches=plaunches,
+                           demos=demreport, demos_launches=demlaunches,
+                           poisson3d=p3report,
+                           poisson3d_launches=p3launches,
+                           poisson3d_want=p3want,
                            profile_windows=PROFILE_WINDOWS,
                            seconds=time.perf_counter() - t_start), f,
                       indent=1)

@@ -11,9 +11,13 @@ M-solve and its adjoint, with a runtime rank and null-space filters, the
 products M x and M^H x, HIFIR refinement and the GMRES drivers, in
 float32, float64, complex64 and complex128.  ``parallel`` distributes the
 M-solve, the SpMV, the Schur complement and a partitioned factorization
-over a mesh of ranks (eight on one card by default).  Device entry points
-run on the card unless the caller passes ``device="cpu"``.  The package
-imports torch, numpy and scipy, never jax or hifir_tpu.
+over a mesh of ranks (eight on one card by default).  ``entry`` holds the
+counterparts of ``__graft_entry__.py``'s entry points (the M-solve and a
+multi-rank dry run), ``capi`` the
+handle API behind the C ABI shim of ``native/capi`` (a host surface), and
+``examples`` the device demos.  Device entry points run on the card unless
+the caller passes ``device="cpu"``.  The package imports torch, numpy and
+scipy, never jax or hifir_tpu.
 """
 
 from . import device

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -286,6 +287,9 @@ def rcm(n: int, indptr: np.ndarray, indices: np.ndarray) -> Optional[np.ndarray]
     return perm
 
 
+_dump_counter = [0]  # HT_DUMP_CROUT call index (see crout below)
+
+
 def crout(Ahat, d0: np.ndarray, m2: int, pars: Tuple[float, float, float,
                                                      float, float, float],
           row_ref: np.ndarray, col_ref: np.ndarray,
@@ -312,6 +316,27 @@ def crout(Ahat, d0: np.ndarray, m2: int, pars: Tuple[float, float, float,
         a = np.ascontiguousarray(a, dtype=vdt)
         return a.view(scal)
 
+    dump = os.environ.get("HT_DUMP_CROUT")
+    if dump and vdt == np.float64:
+        # "<call_idx>:<path>": dump this crout call's inputs as the raw
+        # binary that native/bench/bench_crout replays (controlled kernel
+        # replays on a noisy host).  The port of the JAX package's switch of
+        # the same name (hifir_tpu/pre/_native.py), in its byte format and
+        # with all of its fields, f64 only as there; not a new option.
+        di, dpath = dump.split(":", 1)
+        if _dump_counter[0] == int(di):
+            with open(dpath, "wb") as f:
+                np.array([n, m2, Ahat.indptr[-1], int(symmetric)],
+                         dtype=np.int64).tofile(f)
+                np.array(list(pars) + [schur_aL, schur_aU],
+                         dtype=np.float64).tofile(f)
+                np.ascontiguousarray(Ahat.indptr, dtype=np.int64).tofile(f)
+                np.ascontiguousarray(Ahat.indices, dtype=np.int32).tofile(f)
+                np.ascontiguousarray(Ahat.data, dtype=np.float64).tofile(f)
+                np.ascontiguousarray(d0, dtype=np.float64).tofile(f)
+                np.ascontiguousarray(row_ref, dtype=np.int64).tofile(f)
+                np.ascontiguousarray(col_ref, dtype=np.int64).tofile(f)
+        _dump_counter[0] += 1
     fn = getattr(lib, sym)
     h = fn(n, m2, Ahat.indptr, Ahat.indices, _as_scal(Ahat.data),
            _as_scal(np.asarray(d0, dtype=vdt)),
