@@ -163,11 +163,24 @@ Phases, in order; any failed gate raises and the script exits non-zero:
    one chunk sweep (K10a redesigned) a factor application and no
    per-chunk K10a; poisson2d(64)'s halo, all_gather and whole-vector
    forms, then its halo and all_gather forms on two groups of the one
-   card, where K10a runs a chunk a group; the sharded and halo SpMV and
+   card, where K10a runs a chunk a group (form="chunk"); poisson2d(512)
+   and poisson2d(64) on the same two groups in the peer form (the
+   layout's own: one peer-sweep launch a factor application, the two
+   groups as two clusters of one launch, no K10a), f64 and f32, halo and
+   all_gather forms, timed beside the chunk form, and each poisson2d(64)
+   peer form's level-0 L against the plain peer sweep; the sharded and
+   halo SpMV and
    the IR step on a (2, 4) mesh; the ring Schur (K10b) under dist_schur=1
    on convdiff2d(128), one K10b launch a ring step; PartitionedHIF with
-   eight parts; then the rows of K10a, the sweep (one application of
-   level 0's L) and K10b against their plain versions; K10b (generator
+   eight parts; then the rows of K10a, the sweep and the peer sweep (one
+   application of level 0's L) and K10b against their plain versions;
+   then, with two cards or more, the multi-card legs on one group a card
+   over 4 cards (2 with two or three): the peer-access matrix, the
+   poisson2d(512) DistPrec solve with the same gates (one peer-sweep
+   launch a card a factor application), dryrun_multichip with one rank a
+   card, the IR step on a (2, 4) mesh over the cards and a dist_schur=1
+   factorize whose ring runs over them (one K10b launch a group a ring
+   step); with one card one line says they did not run; K10b (generator
    --seed + 7) also at a seeded shape of its block and global tiers and on
    edge cases (W = 1, 512, 513, long runs, all-sentinel and padded rows)
    through every tier that holds them: columns equal, values 1e-12 /
@@ -2908,7 +2921,7 @@ def dist_counters():
     from hifir_tpu_torch.parallel import schur
 
     return {"K10a": chunk.ChunkSweep, "sweep": chunk.ChunkSweepKernel,
-            "K10b": schur.schur_partial_cuda}
+            "peer": chunk.PeerSweepKernel, "K10b": schur.schur_partial_cuda}
 
 
 def dist_reset():
@@ -2928,7 +2941,9 @@ def dist_plain_calls() -> int:
     from hifir_tpu_torch.parallel import schur
 
     return (plain_calls() + chunk.chunk_fma_plain.calls
-            + chunk.chunk_sweep_plain.calls + schur.schur_partial_plain.calls)
+            + chunk.chunk_sweep_plain.calls
+            + chunk.chunk_sweep_peer_plain.calls
+            + schur.schur_partial_plain.calls)
 
 
 def dist_count(torch, launches, what, fn):
@@ -2940,17 +2955,24 @@ def dist_count(torch, launches, what, fn):
     from hifir_tpu_torch.parallel import schur
 
     for f in (chunk.chunk_fma_plain, chunk.chunk_sweep_plain,
-              schur.schur_partial_plain, spmv.sliced_ell_sub_mrhs_plain,
-              trsv.trsv_apply_plain, bsr_matvec_mrhs_plain):
+              chunk.chunk_sweep_peer_plain, schur.schur_partial_plain,
+              spmv.sliced_ell_sub_mrhs_plain, trsv.trsv_apply_plain,
+              bsr_matvec_mrhs_plain):
         f.calls = 0
-    torch.cuda.synchronize()
+    sync_all(torch)
     dist_reset()
     out = fn()
-    torch.cuda.synchronize()
+    sync_all(torch)
     launches[what] = dist_read()
     plain = dist_plain_calls()
     gate(plain == 0, f"{what}: {plain} plain-version calls on the card")
     return out
+
+
+def sync_all(torch) -> None:
+    """Wait for every card (a mesh may span several)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
 
 
 def dist_solve_factors(dp) -> dict:
@@ -2958,9 +2980,11 @@ def dist_solve_factors(dp) -> dict:
     (each factor runs twice, down and up)."""
     from hifir_tpu_torch.parallel.trsv_halo import HaloOp
 
-    kinds = [type(op).__name__ for lv in dp.levels
-             for op in (lv.L_op, lv.U_op) if op.nchunks]
+    ops = [op for lv in dp.levels for op in (lv.L_op, lv.U_op)
+           if op.nchunks]
+    kinds = [type(op).__name__ for op in ops]
     return dict(factors=len(kinds), halo_factors=kinds.count(HaloOp.__name__),
+                forms=sorted({op.plan.form for op in ops}),
                 ag_factors=kinds.count("AGTrsvOp"),
                 chunks_per_solve=2 * sum(op.nchunks for lv in dp.levels
                                          for op in (lv.L_op, lv.U_op)),
@@ -2971,45 +2995,72 @@ def sweep_gates(per: dict, shape: dict, what: str) -> None:
     """On the one-group mesh every factor application is one sweep launch
     (each factor with chunks runs twice a solve, down and up) and no K10a
     launch runs."""
-    gate(per["sweep"] == 2 * shape["factors"] and per["K10a"] == 0,
+    gate(per["sweep"] == 2 * shape["factors"] and per["K10a"] == 0
+         and per["peer"] == 0 and shape["forms"] == ["sweep"],
          f"{what}: {per['sweep']} sweep launches for {shape['factors']} "
-         f"factors with chunks, {per['K10a']} K10a launches")
+         f"factors with chunks, {per['K10a']} K10a launches, "
+         f"{per['peer']} peer sweeps, forms {shape['forms']}")
 
 
 def k10a_gates(per: dict, shape: dict, ngroups: int, what: str) -> None:
     """On a mesh of several groups every chunk step is one K10a launch a
     group and no sweep runs."""
     gate(per["K10a"] == ngroups * shape["chunks_per_solve"]
-         and per["sweep"] == 0,
-         f"{what}: {per['K10a']} K10a launches, {per['sweep']} sweeps for "
-         f"{shape['chunks_per_solve']} chunk steps of {ngroups} groups")
+         and per["sweep"] == 0 and per["peer"] == 0
+         and shape["forms"] == ["chunk"],
+         f"{what}: {per['K10a']} K10a launches, {per['sweep']} sweeps, "
+         f"{per['peer']} peer sweeps for {shape['chunks_per_solve']} chunk "
+         f"steps of {ngroups} groups, forms {shape['forms']}")
 
 
-def sweep_bytes(sw, es: int) -> tuple:
-    """What one application of a sweep must move, and its entries: each
+def peer_gates(per: dict, shape: dict, ncards: int, what: str) -> None:
+    """On a mesh of several groups whose devices reach each other's memory
+    every factor application is one peer-sweep launch a card (the groups
+    of a card are the clusters of its launch) and no K10a launch or
+    one-group sweep runs."""
+    gate(per["peer"] == ncards * 2 * shape["factors"] and per["K10a"] == 0
+         and per["sweep"] == 0 and shape["forms"] == ["peer"],
+         f"{what}: {per['peer']} peer-sweep launches for "
+         f"{shape['factors']} factors with chunks on {ncards} cards, "
+         f"{per['K10a']} K10a launches, {per['sweep']} sweeps, forms "
+         f"{shape['forms']}")
+
+
+def sweep_bytes(sws, es: int) -> tuple:
+    """What one application of a chunk loop must move over its groups'
+    sweeps ``sws`` (one for the one-group sweep), and its entries: each
     live entry's index and value once, each x entry it reads once (a
     rank's distinct dependencies and its own slots), and each slot written
     once a rank copy (halo form: the own slots and the legs' receivers)."""
-    R, cloc = sw.ranks, sw.cloc
-    keys, nnz = [], 0
-    if sw.form == "all_gather":
-        cols, vals = sw.cols.cpu().numpy(), sw.vals.cpu().numpy()
-        live = vals != 0
-        rk = np.broadcast_to(np.arange(R)[None, :, None, None], cols.shape)
-        keys.append(rk[live].astype(np.int64) * sw.min_len + cols[live])
-        own = sw.nchunks * sw.chunk
-        written = own * R
-    else:
-        written = 0
-        for c in range(sw.nchunks):
-            cols, vals, _ = (t.cpu().numpy() for t in sw.halo_chunk(c))
+    D = sum(sw.ranks for sw in sws)
+    sw0 = sws[0]
+    keys, lo = [], 0
+    for sw in sws:
+        R = sw.ranks
+        if sw.form == "all_gather":
+            cols, vals = sw.cols.cpu().numpy(), sw.vals.cpu().numpy()
             live = vals != 0
-            rk = np.broadcast_to(np.arange(R)[:, None, None], cols.shape)
+            rk = np.broadcast_to(lo + np.arange(R)[None, :, None, None],
+                                 cols.shape)
             keys.append(rk[live].astype(np.int64) * sw.min_len + cols[live])
-            _, Wl, _, Wr, _, Wag = sw.desc_host[c, 3:9].tolist()
-            written += (Wl + Wr) * (R - 1) + Wag * R * R
-        own = sw.nchunks * cloc * R
-        written += own
+        else:
+            for c in range(sw.nchunks):
+                cols, vals, _ = (t.cpu().numpy() for t in sw.halo_chunk(c))
+                live = vals != 0
+                rk = np.broadcast_to(lo + np.arange(R)[:, None, None],
+                                     cols.shape)
+                keys.append(rk[live].astype(np.int64) * sw.min_len
+                            + cols[live])
+        lo += R
+    if sw0.form == "all_gather":
+        own = sw0.nchunks * sw0.chunk
+        written = own * D
+    else:
+        own = sw0.nchunks * sw0.cloc * D
+        written = own
+        for c in range(sw0.nchunks):
+            _, Wl, _, Wr, _, Wag = sw0.desc_host[c, 3:9].tolist()
+            written += (Wl + Wr) * (D - 1) + Wag * D * D
     nnz = sum(k.size for k in keys)
     uniq = np.unique(np.concatenate(keys)).size
     return nnz * (4 + es) + (uniq + own) * es + written * es, nnz
@@ -3024,8 +3075,9 @@ def sweep_pair(torch, rng, op, dt):
     from hifir_tpu_torch.parallel.trsv_halo import HaloOp
 
     halo = isinstance(op, HaloOp)
-    sw = op.packed[0] if halo else op.plan
-    gate(sw is not None, "the factor has no sweep plan (several groups)")
+    gate(op.plan.form == "sweep", f"the factor's loop is {op.plan.form}, "
+         "not the one-group sweep")
+    sw = op.plan.sweeps[0]
     own = op.own_len if halo else op.nslots
     x0 = torch.zeros((sw.ranks, sw.min_len), dtype=dt, device=sw.vals.device)
     x0[:, :own] = randn_on(torch, rng, (sw.ranks, own), dt)
@@ -3063,7 +3115,7 @@ def sweep_row(torch, book, rng, dp, lvl, Th, name):
         f"{name} {dname} level-{lvl} L torch.triangular_solve (CSR)",
         lambda: torch.triangular_solve(b, Tcsr, upper=False,
                                        unitriangular=True)[0], ref, stol)
-    nbytes, nnz = sweep_bytes(sw, es)
+    nbytes, nnz = sweep_bytes([sw], es)
     xw, xq = x0.clone(), x0.clone()
     ms = book.T.ms(lambda: chunk.chunk_sweep(xw, sw))
     plain_ms = book.T.ms(lambda: chunk.chunk_sweep_plain(xq, sw), iters=3,
@@ -3092,7 +3144,8 @@ def k10a_row(torch, book, rng, dp):
 
     lvl, op = next((i, lv.L_op) for i, lv in enumerate(dp.levels)
                    if isinstance(lv.L_op, AGTrsvOp) and lv.L_op.nchunks)
-    gate(op.plan is None, "K10a row: the factor runs the sweep (one group)")
+    gate(op.plan.form == "chunk", f"K10a row: the factor's loop is "
+         f"{op.plan.form}, not K10a a chunk")
     dt = dp.dtype
     dname = str(dt).removeprefix("torch.")
     es = torch.empty((), dtype=dt).element_size()
@@ -3137,6 +3190,81 @@ def k10a_row(torch, book, rng, dp):
                 f"cloc={cloc} K={K} nnz={nnz} slots={L} form=all_gather "
                 f"level={lvl} L chunk={c}", Y, Yp, ms, plain_ms, lib,
                 nbytes, 2.0 * nnz, 1e-12 if dt == torch.float64 else 1e-5,
+                simt_peak(dt))
+
+
+def peer_pair(torch, rng, op, dt):
+    """One application of factor ``op``'s peer sweep by the kernel and by
+    ``chunk_sweep_peer_plain`` on the same slot vectors (per group: random
+    own slots, the halo regions and the zero slot zero).  Returns the
+    plan, the entry vectors and both results, each as the groups' rows
+    stacked on the first group's card."""
+    from hifir_tpu_torch.ops import chunk
+    from hifir_tpu_torch.parallel.trsv_halo import HaloOp
+
+    plan = op.plan
+    gate(plan.form == "peer", f"the factor's loop is {plan.form}, not the "
+         "peer sweep")
+    own = op.own_len if isinstance(op, HaloOp) else op.nslots
+    x0 = []
+    for sw in plan.sweeps:
+        x = torch.zeros((sw.ranks, sw.min_len), dtype=dt,
+                        device=sw.vals.device)
+        x[:, :own] = randn_on(torch, rng, (sw.ranks, own), dt).to(x.device)
+        x0.append(x)
+    xk = [x.clone() for x in x0]
+    xp = [x.clone() for x in x0]
+    chunk.chunk_sweep_peer(xk, plan)
+    chunk.chunk_sweep_peer_plain(xp, plan)
+    sync_all(torch)
+    dev = x0[0].device
+    stack = lambda xs: torch.cat([x.to(dev) for x in xs])  # noqa: E731
+    return plan, x0, stack(xk), stack(xp)
+
+
+def peer_row(torch, book, rng, dp, lvl, Th, name):
+    """The peer sweep: one application of level ``lvl``'s L factor of
+    ``dp`` (on a mesh of several groups) on every rank, one launch a card,
+    against ``chunk_sweep_peer_plain`` on the same slot vectors; the
+    library call is ``torch.triangular_solve`` with the factor as CSR on
+    one copy, as the sweep's row."""
+    import scipy.sparse as sp
+
+    from hifir_tpu_torch.ops import chunk
+    from hifir_tpu_torch.parallel.prec_sharded import _trsv_op_kernel
+
+    op = dp.levels[lvl].L_op
+    dt = dp.dtype
+    dname = str(dt).removeprefix("torch.")
+    es = torch.empty((), dtype=dt).element_size()
+    plan, x0, Y, Yp = peer_pair(torch, rng, op, dt)
+    tol, stol = (1e-12, 1e-10) if dt == torch.float64 else (1e-5, 1e-4)
+    dev = x0[0].device
+    Ts = sp.tril(Th.to_scipy().tocsr(), -1).tocsr()
+    Tcsr = csr_tensor(torch, (Ts + sp.eye(op.n, format="csr")).tocsr()
+                      .sorted_indices(), dt, dev)
+    b = randn_on(torch, rng, (op.n, 1), dt).to(dev)
+    ref = _trsv_op_kernel(op, dp.mesh.replicate(b[:, 0]))[0][0][:, None]
+    lib = book.library(
+        f"{name} {dname} level-{lvl} L torch.triangular_solve (CSR)",
+        lambda: torch.triangular_solve(b, Tcsr, upper=False,
+                                       unitriangular=True)[0], ref, stol)
+    nbytes, nnz = sweep_bytes(plan.sweeps, es)
+    xw = [x.clone() for x in x0]
+    xq = [x.clone() for x in x0]
+    ms = book.T.ms(lambda: chunk.chunk_sweep_peer(xw, plan))
+    plain_ms = book.T.ms(lambda: chunk.chunk_sweep_peer_plain(xq, plan),
+                         iters=3, warmup=1)
+    sw, k = plan.sweeps[0], plan._kernel
+    K = (sw.cols.shape[3] if sw.form == "all_gather"
+         else int(sw.desc_host[:, 1].max()))
+    cards = sorted({s.vals.device.index for s in plan.sweeps})
+    book.record(name, dname,
+                f"groups={[s.ranks for s in plan.sweeps]} cards={cards} "
+                f"chunks={sw.nchunks} cloc={sw.cloc} K={K} nnz={nnz} "
+                f"slots={sw.min_len} form={sw.form} level={lvl} L "
+                f"stages={k.stages} smem={k.smem}",
+                Y, Yp, ms, plain_ms, lib, nbytes, 2.0 * nnz, tol,
                 simt_peak(dt))
 
 
@@ -3388,11 +3516,11 @@ def dist_phase(torch, T, rng, smi, k10b_seed=0):
             f"rel err vs host {err_h:.3e}, vs DevicePrec {err_s:.3e} "
             f"(tol {tol:.0e}); solve {ms} ms (CUDA events); launches/solve "
             f"{per} [{smi}]")
-    # K10a a chunk at the shape a mesh over several devices gives it: the
-    # same solve on two groups of the one card ("cuda:0" and "cuda" are
-    # distinct devices to the mesh, as "cpu" and "cpu:0" in the tests), four
-    # ranks x 128 slots a group, the all_gather legs as copies between
-    # launches
+    # K10a a chunk at the shape a mesh over several devices without peer
+    # access gives it: the same solve on two groups of the one card
+    # ("cuda:0" and "cuda" are distinct devices to the mesh, as "cpu" and
+    # "cpu:0" in the tests), four ranks x 128 slots a group, the legs as
+    # copies between launches (form="chunk", asked for)
     mesh2 = make_mesh(devices=["cuda:0"] * 4 + ["cuda"] * 4)
     ngroups = len(mesh2.groups())
     gate(ngroups == 2, f"the split layout has {ngroups} groups")
@@ -3402,7 +3530,8 @@ def dist_phase(torch, T, rng, smi, k10b_seed=0):
         what = f"distprec {name} solve two groups"
         t0 = time.perf_counter()
         dp = dps2[name] = DistPrec.from_host(
-            mesh2, P, dtype=npdt, chunk=DIST_CHUNK, max_halo_chunks=128)
+            mesh2, P, dtype=npdt, chunk=DIST_CHUNK, max_halo_chunks=128,
+            form="chunk")
         build = time.perf_counter() - t0
         shape = dist_solve_factors(dp)
         x = dist_count(torch, launches, what,
@@ -3419,9 +3548,41 @@ def dist_phase(torch, T, rng, smi, k10b_seed=0):
                                          err_vs_host=err_h, solve_ms=ms,
                                          launches_per_solve=per)
         log(f"  DistPrec poisson2d({DIST_NX}) {name} on two groups of one "
-            f"card: build {build:.2f} s (host); rel err vs host {err_h:.3e} "
-            f"(tol {tol:.0e}); solve {ms} ms (CUDA events); launches/solve "
-            f"{per} [{smi}]")
+            f"card, chunk form: build {build:.2f} s (host); rel err vs host "
+            f"{err_h:.3e} (tol {tol:.0e}); solve {ms} ms (CUDA events); "
+            f"launches/solve {per} [{smi}]")
+    # the same two groups in the peer form, the layout's own (the groups
+    # share a card: two clusters of one launch a factor application)
+    dps_peer = {}
+    for npdt, tol in ((np.float64, 1e-12), (np.float32, 1e-4)):
+        name = np.dtype(npdt).name
+        for form, halo in (("halo", True), ("all_gather", False)):
+            key = f"{name} peer {form}"
+            what = f"distprec {key}"
+            t0 = time.perf_counter()
+            dp = DistPrec.from_host(mesh2, P, dtype=npdt, chunk=DIST_CHUNK,
+                                    max_halo_chunks=128, halo=halo)
+            build = time.perf_counter() - t0
+            if halo:
+                dps_peer[name] = dp
+            shape = dist_solve_factors(dp)
+            x = dist_count(torch, launches, what,
+                           lambda: dp.solve(b)).double().cpu().numpy()
+            per = launches[what]
+            err_h = float(np.abs(x - xh).max() / xmax)
+            gate(err_h <= tol, f"DistPrec {key}, two groups, vs host solve "
+                 f"{err_h:.3e}")
+            peer_gates(per, shape, 1, what)
+            ms = timed(torch, lambda: dp.solve(b), 3)
+            rep[f"{key} two groups"] = dict(
+                **shape, build_seconds=build, err_vs_host=err_h,
+                solve_ms=ms, launches_per_solve=per)
+            log(f"  DistPrec poisson2d({DIST_NX}) {key} on two groups of one "
+                f"card: build {build:.2f} s (host); rel err vs host "
+                f"{err_h:.3e} (tol {tol:.0e}); solve {ms:.4f} ms (CUDA "
+                f"events; chunk form f64 "
+                f"{rep['float64 two groups']['solve_ms']} ms); "
+                f"launches/solve {per} [{smi}]")
     report["distprec"] = rep
 
     report["distprec"]["seconds"] = time.perf_counter() - t_part
@@ -3468,7 +3629,7 @@ def dist_phase(torch, T, rng, smi, k10b_seed=0):
     # K10a a chunk in both forms: the same operator on the two groups
     for form, kw in (("halo", {}), ("all_gather", dict(halo=False))):
         what = f"p64 {form} two groups"
-        dp = DistPrec.from_host(mesh2, P64, chunk=64, **kw)
+        dp = DistPrec.from_host(mesh2, P64, chunk=64, form="chunk", **kw)
         x = dist_count(torch, launches, what,
                        lambda: dp.solve(b64)).cpu().numpy()
         err = float(np.abs(x - xh64).max() / np.abs(xh64).max())
@@ -3478,8 +3639,34 @@ def dist_phase(torch, T, rng, smi, k10b_seed=0):
              f"{err:.3e}")
         k10a_gates(per, shape, ngroups, what)
         rep[f"{form} two groups"] = dict(err=err, **shape, launches=per)
-        log(f"  poisson2d(64) DistPrec {form}, two groups of one card: rel "
-            f"err {err:.3e} (tol 1e-12); launches {per}")
+        log(f"  poisson2d(64) DistPrec {form}, two groups of one card, chunk "
+            f"form: rel err {err:.3e} (tol 1e-12); launches {per}")
+    # the peer sweep in both forms on the two groups, each form's first
+    # factor with chunks (level 0's L, halo-carried in the halo form) also
+    # against the plain peer sweep
+    for form, kw in (("halo", {}), ("all_gather", dict(halo=False))):
+        for npdt, tol, ktol in ((np.float64, 1e-12, 1e-12),
+                                (np.float32, 1e-4, 1e-5)):
+            dname = np.dtype(npdt).name
+            what = f"p64 {form} {dname} peer"
+            dp = DistPrec.from_host(mesh2, P64, chunk=64, dtype=npdt, **kw)
+            x = dist_count(torch, launches, what,
+                           lambda: dp.solve(b64)).double().cpu().numpy()
+            err = float(np.abs(x - xh64).max() / np.abs(xh64).max())
+            shape = dist_solve_factors(dp)
+            per = launches[what]
+            gate(err <= tol, f"poisson2d(64) DistPrec {what}: {err:.3e}")
+            peer_gates(per, shape, 1, what)
+            _, _, Y, Yp = peer_pair(torch, rng, dp.levels[0].L_op, dp.dtype)
+            kerr = rel_diff(Y, Yp)
+            gate(kerr <= ktol, f"{what}: the level-0 L peer sweep differs "
+                 f"from its plain version by {kerr:.3e}")
+            rep[what] = dict(err=err, peer_vs_plain=kerr, **shape,
+                             launches=per)
+            log(f"  poisson2d(64) DistPrec {form} {dname}, two groups of one "
+                f"card, peer form: rel err {err:.3e} (tol {tol:.0e}); "
+                f"level-0 L peer sweep vs plain {kerr:.3e} (tol {ktol:.0e});"
+                f" launches {per}")
     # the sweep's wider clusters: 16 ranks (a non-portable cluster of 16
     # CTAs), 17 and 32 (two ranks a CTA, the last CTA of 17 with one)
     for R in SWEEP_WIDE_RANKS:
@@ -3631,8 +3818,10 @@ def dist_phase(torch, T, rng, smi, k10b_seed=0):
          "the partitioned adjoint left the host path")
     gate(e_d <= 1e-12 and e_a <= 1e-12, f"partitioned device forms vs host "
          f"RAS: {e_d:.3e} / {e_a:.3e}")
-    shape = dict(factors=sum(dist_solve_factors(p.M_dist)["factors"]
-                             for p in PP.parts if p.M_dist is not None))
+    parts = [dist_solve_factors(p.M_dist) for p in PP.parts
+             if p.M_dist is not None]
+    shape = dict(factors=sum(f["factors"] for f in parts),
+                 forms=sorted({x for f in parts for x in f["forms"]}))
     gate(shape["factors"] > 0, "partitioned DistPrec: no distributed factor")
     sweep_gates(launches["partitioned DistPrec"], shape,
                 "partitioned DistPrec")
@@ -3659,6 +3848,8 @@ def dist_phase(torch, T, rng, smi, k10b_seed=0):
     for name, dp in dps.items():
         k10a_row(torch, book, rng, dps2[name])
         sweep_row(torch, book, rng, dp, 0, P.precs[0].L_B, "K10a_sweep")
+        peer_row(torch, book, rng, dps_peer[name], 0, P.precs[0].L_B,
+                 "K10a_peer")
         dph = dp64_halo if name == "float64" else DistPrec.from_host(
             mesh, P64, dtype=np.float32, chunk=64)
         sweep_row(torch, book, rng, dph, hl, P64.precs[hl].L_B,
@@ -3667,7 +3858,204 @@ def dist_phase(torch, T, rng, smi, k10b_seed=0):
         # the same seeded operands in both dtypes
         report.setdefault("k10b_edges", []).extend(k10b_tiers(
             torch, book, np.random.default_rng(k10b_seed), dp.dtype))
-    return report, launches, book.rows
+    # what the multi-card legs reuse
+    ctx = dict(P=P, A=A, b=b, xh=xh, single=single, Ac=Ac, Ph=Ph,
+               base=base)
+    return report, launches, book.rows, ctx
+
+
+def multicard_phase(torch, rng, smi, ctx):
+    """The distribution with one group of ranks a card, when the machine has
+    two cards or more (one line says it did not run otherwise): over 4
+    cards (2 with two or three), the peer-access matrix; the poisson2d(512)
+    DistPrec solve of ``dist_phase`` (``ctx``) on eight ranks in the halo
+    and all_gather forms, f64 and f32, against the host solve (1e-12 /
+    1e-4), one peer-sweep launch a card a factor application (K10a a chunk
+    where a pair of cards lacks peer access), timed beside the chunk form;
+    level 0's L against the plain peer sweep (1e-12); dryrun_multichip with
+    one rank a card, its asserts as gates; five IR steps on a (2, 4) mesh
+    over the cards (the residual falls every step); and a dist_schur=1
+    factorize of convdiff2d(128) whose ring runs over the cards (levels
+    and tail equal to the host Schur's, one K10b launch a group a ring
+    step).  Returns the report and the launches of each part."""
+    import hifir_tpu_torch as ht
+    from hifir_tpu_torch.entry import dryrun_multichip
+    from hifir_tpu_torch.ops.spmv import (sliced_ell_from_csr,
+                                          sliced_ell_sub_mrhs)
+    from hifir_tpu_torch.parallel import (DistPrec, make_mesh,
+                                          make_sharded_ir_step,
+                                          shard_ell_rows)
+    from hifir_tpu_torch.parallel import schur as pschur
+
+    count = torch.cuda.device_count()
+    launches, report = {}, dict(cards=count)
+    if count < 2:
+        log(f"  multi-card legs not run: the machine has {count} card "
+            f"(torch.cuda.device_count() = {count}) [{smi}]")
+        return report, launches
+    k = 4 if count >= 4 else 2
+    cards = [f"cuda:{i}" for i in range(k)]
+    access = [[i == j or torch.cuda.can_device_access_peer(i, j)
+               for j in range(count)] for i in range(count)]
+    report.update(used=k, peer_access=access,
+                  names=[torch.cuda.get_device_name(i) for i in range(k)])
+    log(f"  peer access, {count} cards (row i: card i can reach card j):")
+    for i, row in enumerate(access):
+        log(f"    cuda:{i} " + " ".join("1" if a else "0" for a in row))
+    reach = all(access[i][j] for i in range(k) for j in range(k))
+    devices = [c for c in cards for _ in range(DIST_RANKS // k)]
+    mesh = make_mesh(devices=devices)
+    gate(len(mesh.groups()) == k, f"{k} cards give {len(mesh.groups())} "
+         "groups")
+    P, b, xh = ctx["P"], ctx["b"], ctx["xh"]
+    xmax = np.abs(xh).max()
+    t_part = time.perf_counter()
+    dps = {}
+    for npdt, tol in ((np.float64, 1e-12), (np.float32, 1e-4)):
+        for form, halo in (("halo", True), ("all_gather", False)):
+            key = f"{np.dtype(npdt).name} {form}"
+            what = f"{k} cards distprec {key}"
+            t0 = time.perf_counter()
+            dp = dps[key] = DistPrec.from_host(
+                mesh, P, dtype=npdt, chunk=DIST_CHUNK, max_halo_chunks=128,
+                halo=halo)
+            build = time.perf_counter() - t0
+            shape = dist_solve_factors(dp)
+            x = dist_count(torch, launches, what,
+                           lambda: dp.solve(b)).double().cpu().numpy()
+            per = launches[what]
+            err = float(np.abs(x - xh).max() / xmax)
+            gate(err <= tol, f"DistPrec {key} on {k} cards vs host solve "
+                 f"{err:.3e}")
+            if reach:
+                peer_gates(per, shape, k, what)
+            else:
+                k10a_gates(per, shape, k, what)
+            ms = timed(torch, lambda: dp.solve(b), 3)
+            report[key] = dict(**shape, build_seconds=build, err_vs_host=err,
+                               solve_ms=ms, launches_per_solve=per)
+            log(f"  DistPrec poisson2d({DIST_NX}) {key} on {k} cards, "
+                f"{DIST_RANKS // k} ranks a card: forms {shape['forms']}; "
+                f"build {build:.2f} s (host); rel err vs host {err:.3e} (tol "
+                f"{tol:.0e}); solve {ms:.4f} ms (CUDA events on cuda:0); "
+                f"launches/solve {per} [{smi}]")
+    # the chunk form on the same cards, for its time
+    what = f"{k} cards distprec float64 halo chunk form"
+    dpc = DistPrec.from_host(mesh, P, chunk=DIST_CHUNK, max_halo_chunks=128,
+                             form="chunk")
+    shape = dist_solve_factors(dpc)
+    x = dist_count(torch, launches, what, lambda: dpc.solve(b)).cpu().numpy()
+    err = float(np.abs(x - xh).max() / xmax)
+    gate(err <= 1e-12, f"{what}: {err:.3e}")
+    k10a_gates(launches[what], shape, k, what)
+    ms = timed(torch, lambda: dpc.solve(b), 1)
+    report["float64 halo chunk form"] = dict(err_vs_host=err, solve_ms=ms)
+    log(f"  the same f64 halo solve, chunk form (K10a a chunk, legs as "
+        f"copies between cards): rel err {err:.3e}; solve {ms:.4f} ms "
+        f"(CUDA events on cuda:0) [{smi}]")
+    if reach:
+        _, _, Y, Yp = peer_pair(torch, rng, dps["float64 halo"].levels[0]
+                                .L_op, torch.float64)
+        kerr = rel_diff(Y, Yp)
+        gate(kerr <= 1e-12, f"{k} cards: the level-0 L peer sweep differs "
+             f"from its plain version by {kerr:.3e}")
+        report["peer_vs_plain"] = kerr
+        log(f"  level-0 L peer sweep over {k} cards vs plain {kerr:.3e} "
+            f"(tol 1e-12)")
+    report["distprec_seconds"] = time.perf_counter() - t_part
+
+    # the dry run with one rank a card
+    t0 = time.perf_counter()
+    what = f"dryrun_multichip({k}) one rank a card"
+    r = dist_count(torch, launches, what,
+                   lambda: dryrun_multichip(k, devices=cards))
+    secs = time.perf_counter() - t0
+    dp = r["dist"]
+    shape = dist_solve_factors(dp)
+    ones = np.ones(dp.levels[0].n)
+    x = dist_count(torch, launches, f"{what} DistPrec solve",
+                   lambda: dp.solve(ones)).cpu().numpy()
+    err = float(np.abs(x - r["x_host"]).max() / np.abs(r["x_host"]).max())
+    gate(err <= 1e-8, f"{what}: DistPrec solve {err:.3e}")
+    if reach:
+        peer_gates(launches[f"{what} DistPrec solve"], shape, k, what)
+    report["dryrun"] = dict(seconds=secs, ir_residual0=r["ir_residual0"],
+                            ir_residual2=r["ir_residual2"], err_vs_host=err,
+                            **shape, launches=launches[what])
+    log(f"  {what}: {secs:.2f} s (host clock, with the two factorizes); IR "
+        f"residual {r['ir_residual0']:.4g} -> {r['ir_residual2']:.4g}; "
+        f"DistPrec solve rel err {err:.3e} (tol 1e-8), forms "
+        f"{shape['forms']}; launches {launches[what]}")
+
+    # five IR steps on a (2, 4) mesh over the cards, A = poisson2d(512)
+    A, single = ctx["A"], ctx["single"]
+    n = A.nrows
+    mesh24 = make_mesh(DIST_RANKS, rhs=2, devices=devices)
+    Ae = shard_ell_rows(mesh24, A)
+    Aw = sliced_ell_from_csr(A, dtype=np.float64, device="cuda:0")
+    step = make_sharded_ir_step(mesh24, n)
+    B = randn_on(torch, rng, (Ae.nrows, 4), torch.float64)
+    B[n:] = 0
+    X = torch.zeros_like(B)
+    res = [1.0]
+
+    def ir():
+        nonlocal X
+        for _ in range(5):
+            X = step(Ae, single.levels, single.tail, X, B)
+            R = sliced_ell_sub_mrhs(Aw, X[:n], B[:n])
+            res.append(float((R.norm(dim=0) / B[:n].norm(dim=0)).max()))
+
+    what = f"ir_step x5 on {k} cards"
+    dist_count(torch, launches, what, ir)
+    gate(all(b2 < a2 for a2, b2 in zip(res, res[1:])),
+         f"{what}: the residual did not fall every step: {res}")
+    gate(launches[what]["K1"] > 0, f"{what}: no K1 launch")
+    report["ir"] = dict(residuals=res, launches=launches[what])
+    log(f"  {what} ((2, 4) mesh): residuals {['%.3e' % v for v in res]}; "
+        f"launches {launches[what]}")
+
+    # dist_schur=1 with the ring over the cards
+    Ac, Ph, base = ctx["Ac"], ctx["Ph"], ctx["base"]
+    calls = []
+    ring = pschur.schur_spgemm_ring
+
+    def over_cards(C, L_E, d, U_F, mesh=None, device="cuda"):
+        calls.append(L_E.nrows)
+        return ring(C, L_E, d, U_F, mesh=make_mesh(devices=devices))
+
+    what = f"dist_schur factorize on {k} cards"
+    pschur.schur_spgemm_ring = over_cards
+    try:
+        t0 = time.perf_counter()
+        Pd = dist_count(torch, launches, what, lambda: ht.HIF().factorize(
+            Ac, ht.Options(dist_schur=1, **base), device="cuda:0"))
+        dsecs = time.perf_counter() - t0
+    finally:
+        pschur.schur_spgemm_ring = ring
+    gate([(p.m, p.n) for p in Pd.precs] == [(p.m, p.n) for p in Ph.precs],
+         f"{what}: levels differ from the host Schur's")
+    terr = 0.0
+    if Ph.precs[-1].dense_matrix is not None:
+        dh, dd = Ph.precs[-1].dense_matrix, Pd.precs[-1].dense_matrix
+        terr = float(np.abs(dd - dh).max() / np.abs(dh).max())
+    bc = rng.standard_normal(Ac.nrows)
+    xch = Ph.solve(bc)
+    serr = float(np.abs(Pd.solve(bc) - xch).max() / np.abs(xch).max())
+    gate(terr <= 1e-12 and serr <= 1e-12, f"{what}: tail {terr:.3e}, solve "
+         f"{serr:.3e}")
+    steps = k * DIST_RANKS * sum(1 for rows in calls if rows)
+    gate(launches[what]["K10b"] == steps > 0, f"{what}: "
+         f"{launches[what]['K10b']} K10b launches for {steps} group ring "
+         "steps")
+    report["dist_schur"] = dict(levels=[(p.m, p.n) for p in Pd.precs],
+                                seconds=dsecs, ring_calls=len(calls),
+                                tail_err=terr, solve_err=serr,
+                                launches=launches[what])
+    log(f"  {what}: levels {report['dist_schur']['levels']}, {len(calls)} "
+        f"ring SpGEMMs, {dsecs:.2f} s; tail rel err {terr:.3e}, solve "
+        f"{serr:.3e} (tol 1e-12); launches {launches[what]} [{smi}]")
+    return report, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3915,6 +4303,9 @@ _DIST_SOURCES = {
     "sweep": ("K10a_sweep", "cuda", "hifir_tpu_torch/csrc/kernels.cu",
               "hifir_tpu/parallel/prec_sharded.py:77",
               "distprec float64 solve", "K10a_sweep"),
+    "peer": ("K10a_peer", "cuda", "hifir_tpu_torch/csrc/kernels.cu",
+             "hifir_tpu/parallel/prec_sharded.py:92",
+             "distprec float64 peer halo", "K10a_peer"),
     "K10b": ("K10b_schur", "cuda", "hifir_tpu_torch/csrc/kernels.cu",
              "hifir_tpu/parallel/schur.py:96", "dist_schur factorize",
              "K10b_schur"),
@@ -4086,11 +4477,20 @@ def main(argv=None) -> int:
         "parallel)")
     # its own generator, so that its inputs do not move with the rows above
     t_phase = time.perf_counter()
-    dreport, dlaunches, drows = dist_phase(
+    dreport, dlaunches, drows, dctx = dist_phase(
         torch, T, np.random.default_rng(args.seed + 6), smi,
         k10b_seed=args.seed + 7)
     dreport["seconds"] = time.perf_counter() - t_phase
     log(f"  distribution phase {dreport['seconds']:.1f} s [{smi}]")
+
+    log("== several cards: one group of ranks a card (the multi-card legs)")
+    # its own generator, so that its inputs do not move with the rows above
+    t_phase = time.perf_counter()
+    mcreport, mclaunches = multicard_phase(
+        torch, np.random.default_rng(args.seed + 10), smi, dctx)
+    mcreport["seconds"] = time.perf_counter() - t_phase
+    del dctx
+    log(f"  multi-card phase {mcreport['seconds']:.1f} s")
 
     log("== entry points: entry() and dryrun_multichip(8) on the card "
         "(hifir_tpu_torch.entry)")
@@ -4098,7 +4498,7 @@ def main(argv=None) -> int:
     ereport, elaunches = entry_phase(torch, smi)
     ereport["seconds"] = time.perf_counter() - t_phase
     etotal = {k: sum(c.get(k, 0) for c in elaunches.values())
-              for k in ("K7", "K1", "K2", "K10a", "sweep", "K10b")}
+              for k in ("K7", "K1", "K2", "K10a", "sweep", "peer", "K10b")}
     log(f"  launches on the entry path: {etotal}; phase "
         f"{ereport['seconds']:.1f} s")
 
@@ -4110,7 +4510,7 @@ def main(argv=None) -> int:
         torch, np.random.default_rng(args.seed + 8), smi)
     preport["seconds"] = time.perf_counter() - t_phase
     ptotal = {k: sum(c[k] for c in plaunches.values())
-              for k in ("K7", "K1", "K2", "K10a", "sweep", "K10b")}
+              for k in ("K7", "K1", "K2", "K10a", "sweep", "peer", "K10b")}
     log(f"  launches on the path matrix: {ptotal}; phase "
         f"{preport['seconds']:.1f} s")
     for k in ("K1", "sweep"):
@@ -4187,7 +4587,9 @@ def main(argv=None) -> int:
         kernels.append(dict(
             name=name, route=route, source=src, replaces=repl,
             launches=dlaunches[run][k], launches_entry=etotal[k],
-            launches_paths=ptotal[k], max_abs_err=row["max_abs_err"],
+            launches_paths=ptotal[k],
+            launches_multicard=sum(c.get(k, 0) for c in mclaunches.values()),
+            max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], library_note=row["library_note"],
@@ -4232,6 +4634,7 @@ def main(argv=None) -> int:
                            distribution=dreport,
                            distribution_launches=dlaunches,
                            distribution_kernel_rows=drows,
+                           multicard=mcreport, multicard_launches=mclaunches,
                            entry=ereport, entry_launches=elaunches,
                            paths=preport, paths_launches=plaunches,
                            demos=demreport, demos_launches=demlaunches,

@@ -21,6 +21,10 @@
 //      chunk_sweep K10a redesigned: the same solves' whole chunk loop
 //                  (lax.scan over the chunks, the exchange legs inside) in
 //                  one cluster launch, for the ranks of one device
+//      chunk_peer  the same loop over several groups of ranks (several
+//                  cards, or several groups of one): a cluster a group, one
+//                  launch a card, the legs stored through peer pointers and
+//                  the steps ordered by flags across the groups
 // K10b schur_partial replaces hifir_tpu/parallel/schur.py:_partial_kernel
 //                  (one ring step of the Schur SpGEMM: candidates, sort by
 //                  column, runs of equal columns summed)
@@ -157,15 +161,27 @@ __device__ __forceinline__ Cplx<R> shfl_xor(Cplx<R> v, int o) {
 constexpr int kStaticSmem = 48 * 1024;
 constexpr int kMaxSmem = 227 * 1024;  // a block's dynamic shared memory
 
-// Raise a kernel's dynamic shared-memory limit to ``bytes`` (needed above
-// 48 KB) the first time a launch needs it; ``granted`` is the kernel's own
-// record of what was set.
+constexpr int kMaxDevices = 16;  // cards a process keeps records for
+
+// What a kernel's dynamic shared-memory limit was raised to, a card at a
+// time: a function attribute belongs to the current device's context.
+struct Granted {
+  int bytes[kMaxDevices] = {};
+};
+
+// Raise a kernel's dynamic shared-memory limit on the current device to
+// ``bytes`` (needed above 48 KB) the first time a launch there needs it;
+// ``granted`` is the kernel's own record of what was set.
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, int& granted) {
-  if (bytes <= kStaticSmem || bytes <= granted) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
+cudaError_t allow_smem(Kernel kernel, int bytes, Granted& granted) {
+  if (bytes <= kStaticSmem) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && bytes <= granted.bytes[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) granted = bytes;
+  if (err == cudaSuccess && dev < kMaxDevices) granted.bytes[dev] = bytes;
   return err;
 }
 
@@ -1148,7 +1164,7 @@ template <typename M, int VEC, typename T = typename M::T>
 int bsr_mma(const T* blocks, const int* bcols, const T* X, T* Y, int nbr,
             int kb, int bs, int nrhs, cudaStream_t stream) {
   using S = TileShape<M>;
-  static int granted = 0;
+  static Granted granted;
   const cudaError_t err =
       allow_smem(bsr_mma_kernel<M, VEC>, S::kSmemBytes, granted);
   if (err != cudaSuccess) return (int)err;
@@ -1273,7 +1289,7 @@ int trsv_launch(const T* B, T* X, const int* in_rows, const int* cols,
       xbytes + (RING ? kRingBarBytes + cap * kRingSlots * K *
                                            (int)(sizeof(int) + sizeof(T))
                      : 0);
-  static int granted = 0;
+  static Granted granted;
   const cudaError_t err =
       allow_smem(trsv_solve_kernel<T, SMEM, RING>, smem, granted);
   if (err != cudaSuccess) return (int)err;
@@ -1419,6 +1435,31 @@ int chunk_fma(T* x, int64_t xs, int out_off, int out_step, const int* cols,
 // A span of a flat operand is copied as the 16-byte lines that cover it;
 // the host leaves 16 bytes of slack after each operand and 16-byte aligns
 // each chunk's block, so a copy never leaves the allocation.
+//
+// The peer sweep (PEER): the same loop when the rows axis's ranks lie in G
+// groups (the JAX package's multi-chip scan, whose ppermute and all_gather
+// run chip to chip; the per-chunk K10a, with the host issuing a launch a
+// group and the copies every step, is bound by the host).  A cluster a
+// group, as above; the groups' slot vectors are reached through the table
+// of base pointers (a peer pointer for a group on another card, with peer
+// access enabled), so a step writes its values straight into the
+// receiving ranks' vectors: every rank's copy (all_gather form), and in
+// the halo form the legs of boundary ranks whose neighbour lies in
+// another group and the Wag leg to every rank.  After its cluster barrier
+// each group's leader releases "chunk c done" into every other group's
+// flag slot (one fence.acq_rel.sys, then st.relaxed.sys a slot: the
+// release pattern; a st.release.sys after the fence repeated the fence,
+// ~1.9 us a step on the H100, tools/probe_peer_step.py; the value epoch <<
+// 32 | c + 1, monotone over launches, so nothing is reset), and a thread
+// of each CTA acquires every other group's slot (ld.acquire.sys) before
+// the CTA reads x again.  One extra round, epoch << 32, comes before the
+// first step (a group writes into vectors only once their card has made
+// them), and the round after the last step keeps every group until all
+// writes into it have landed.  Groups that share a card run in one launch
+// of one cluster each (their co-residency checked first); groups on other
+// cards in a launch a card, all issued before the host waits.  Bound: the
+// chain again, now with one flag handoff a step (through L2 on one card,
+// over NVLink across cards).
 
 constexpr int kSweepMaxCluster = 16;  // CTAs of a non-portable cluster
 constexpr int kSweepPortable = 8;     // CTAs of a portable cluster
@@ -1430,6 +1471,9 @@ constexpr int kSweepMaxThreads = 512;
 constexpr int kSweepRec = 10;         // int64 fields of a chunk's record
 constexpr int kSweepRecBytes = kSweepRec * 8;  // 80: whole 16-byte lines
 constexpr int kSweepBatch = 8;        // x loads in flight a slot
+constexpr int kPeerMaxGroups = 16;    // groups in a peer sweep's table
+// a wait for another group that has not ended in 30 s traps
+constexpr unsigned long long kPeerWaitNs = 30000000000ull;
 
 __host__ __device__ inline int64_t round16(int64_t b) {
   return (b + 15) / 16 * 16;
@@ -1528,28 +1572,112 @@ __device__ __forceinline__ SweepChunk sweep_chunk(const int64_t* rec, int c,
   return d;
 }
 
-template <typename T, bool HALO>
+// The chunk loop's arguments, one __grid_constant__ parameter (read from
+// the constant bank): the table of the groups of the rows axis in rank
+// order, and the operands of the group each cluster of the launch runs.
+// The one-group sweep is the table of one group.
+template <typename T>
+struct SweepArgs {
+  T* x[kPeerMaxGroups];      // each group's slot vectors (row q of group h
+                             // is rank lo[h] + q); a peer pointer on another
+                             // card
+  unsigned long long* flags[kPeerMaxGroups];  // each group's G flag slots
+  int lo[kPeerMaxGroups + 1];  // group h holds ranks lo[h] .. lo[h + 1] - 1
+  int G;                       // groups in the table
+  int gid[kPeerMaxGroups];     // the group that cluster i of the launch runs
+  const int* cols[kPeerMaxGroups];  // cluster i's group's packed operands
+  const T* vals[kPeerMaxGroups];
+  const int64_t* sends[kPeerMaxGroups];
+  const int64_t* desc[kPeerMaxGroups];
+  int64_t xs;                  // the rows' stride, every group's
+  unsigned long long epoch;    // the launch's; above every earlier launch's
+  int ncta, rpc, nchunks, cloc, K, chunk, kmax, wmax, stages;
+};
+
+__device__ __forceinline__ unsigned long long globaltimer_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ unsigned long long ld_acquire_sys(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.sys.global.u64 %0, [%1];\n"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_relaxed_sys(unsigned long long* p,
+                                               unsigned long long v) {
+  asm volatile("st.relaxed.sys.global.u64 [%0], %1;\n" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+template <typename T, bool HALO, bool PEER>
 __global__ void __launch_bounds__(kSweepMaxThreads, 1)
-chunk_sweep_kernel(T* x, int64_t xs, int R, int rpc, int nchunks, int cloc,
-                   int K, int chunk, const int* __restrict__ cols,
-                   const T* __restrict__ vals,
-                   const int64_t* __restrict__ sends,
-                   const int64_t* __restrict__ desc, int kmax, int wmax,
-                   int stages) {
+chunk_sweep_kernel(const __grid_constant__ SweepArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ci = PEER ? (int)blockIdx.x / a.ncta : 0;  // the launch's cluster
+  const int g = PEER ? a.gid[ci] : 0;                  // and its group
+  const int G = PEER ? a.G : 1;
+  const int lo = a.lo[g], R = a.lo[g + 1] - lo;  // the group's ranks
+  const int D = PEER ? a.lo[G] : R;               // the rows axis
+  const int* __restrict__ cols = a.cols[ci];
+  const T* __restrict__ vals = a.vals[ci];
+  const int64_t* __restrict__ sends = a.sends[ci];
+  const int64_t* __restrict__ desc = a.desc[ci];
+  T* x = a.x[g];
+  const int64_t xs = a.xs;
+  const int rpc = a.rpc, nchunks = a.nchunks, cloc = a.cloc, K = a.K,
+            chunk = a.chunk, stages = a.stages;
   const SweepLayout lay =
-      sweep_layout(rpc, cloc, kmax, wmax, (int)sizeof(T), HALO, stages);
+      sweep_layout(rpc, cloc, a.kmax, a.wmax, (int)sizeof(T), HALO, stages);
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
   unsigned char* ring = smem_raw + lay.bars;
   T* ys = reinterpret_cast<T*>(ring + lay.ring);
-  const int r0 = blockIdx.x * rpc;  // this CTA's first rank
-  const int nr = min(rpc, R - r0);
+  const int cta = PEER ? (int)blockIdx.x % a.ncta : (int)blockIdx.x;
+  const int r0 = cta * rpc;         // this CTA's first rank in the group
+  const int nr = min(rpc, R - r0);  // none in a smaller group's spare CTAs
   const int nw = blockDim.x - 32;   // the computing threads
   const bool producer = threadIdx.x >= nw;
   const bool issuer = threadIdx.x == nw;  // the producer warp's lane 0
   const int rec0 = HALO ? kSweepRecBytes : 0;
   auto rank_base = [&](unsigned char* st, int i) {
     return st + rec0 + i * (lay.cbytes + lay.vbytes + lay.sbytes);
+  };
+  // rank q's row: the group's own, or a neighbour group's (the legs)
+  auto row = [&](int q) -> T* {
+    if (!PEER || (q >= lo && q < lo + R)) return x + (int64_t)(q - lo) * xs;
+    const int h = q < lo ? g - 1 : g + 1;
+    return a.x[h] + (int64_t)(q - a.lo[h]) * xs;
+  };
+  // v into slot o of every rank's vector
+  auto to_all = [&](int64_t o, T v) {
+    for (int h = 0; h < G; ++h) {
+      T* xh = PEER ? a.x[h] : x;
+      const int nh = PEER ? a.lo[h + 1] - a.lo[h] : R;
+      for (int p = 0; p < nh; ++p) xh[p * xs + o] = v;
+    }
+  };
+  // the group tells every other group it reached v (its CTAs' writes,
+  // ordered before by the cluster barrier, visible to the system first:
+  // the fence and the strong stores after it are a release pattern), then
+  // each CTA waits until every other group has reached v
+  const bool leader = PEER && cta == 0 && threadIdx.x == 0;
+  auto sync_groups = [&](unsigned long long v) {
+    if (leader) {
+      asm volatile("fence.acq_rel.sys;\n" ::: "memory");
+      for (int h = 0; h < G; ++h)
+        if (h != g) st_relaxed_sys(a.flags[h] + g, v);
+    }
+    if (threadIdx.x == 0) {
+      const unsigned long long t0 = globaltimer_ns();
+      for (int h = 0; h < G; ++h)
+        while (h != g && ld_acquire_sys(a.flags[g] + h) < v)
+          if (globaltimer_ns() - t0 > kPeerWaitNs) __trap();
+    }
+    __syncthreads();
   };
 
   // the issuer: copy chunk c (its record d) into stage q
@@ -1558,9 +1686,9 @@ chunk_sweep_kernel(T* x, int64_t xs, int R, int rpc, int nchunks, int cloc,
     const unsigned b = smem_u32(&bar[q]);
     unsigned total = HALO ? kSweepRecBytes : 0;
     for (int i = 0; i < nr; ++i) {
-      const int64_t a = d.coff + (int64_t)(r0 + i) * cloc * d.K;
+      const int64_t a0 = d.coff + (int64_t)(r0 + i) * cloc * d.K;
       const int64_t n = (int64_t)cloc * d.K;
-      total += Span<int>(cols, a, n).bytes + Span<T>(vals, a, n).bytes;
+      total += Span<int>(cols, a0, n).bytes + Span<T>(vals, a0, n).bytes;
       if constexpr (HALO) {
         const int W = d.Wl + d.Wr + d.Wag;
         total += Span<int64_t>(sends, d.soff + (int64_t)(r0 + i) * W, W)
@@ -1576,10 +1704,10 @@ chunk_sweep_kernel(T* x, int64_t xs, int R, int rpc, int nchunks, int cloc,
       bulk_copy(st, desc + (int64_t)c * kSweepRec, kSweepRecBytes, b);
     for (int i = 0; i < nr; ++i) {
       unsigned char* rb = rank_base(st, i);
-      const int64_t a = d.coff + (int64_t)(r0 + i) * cloc * d.K;
+      const int64_t a0 = d.coff + (int64_t)(r0 + i) * cloc * d.K;
       const int64_t n = (int64_t)cloc * d.K;
-      const Span<int> sc(cols, a, n);
-      const Span<T> sv(vals, a, n);
+      const Span<int> sc(cols, a0, n);
+      const Span<T> sv(vals, a0, n);
       if (sc.bytes) bulk_copy(rb, (const void*)sc.lo, sc.bytes, b);
       if (sv.bytes)
         bulk_copy(rb + lay.cbytes, (const void*)sv.lo, sv.bytes, b);
@@ -1606,6 +1734,8 @@ chunk_sweep_kernel(T* x, int64_t xs, int R, int rpc, int nchunks, int cloc,
       fill(c, c, sweep_chunk<HALO>(HALO ? desc + (int64_t)c * kSweepRec
                                         : nullptr,
                                    c, R, cloc, K));
+  // every group's slot vectors are in place before any group writes them
+  if constexpr (PEER) sync_groups(a.epoch << 32);
 
   for (int c = 0; c < nchunks; ++c) {
     // this iteration's refill: chunk c - 1 + stages into the stage of
@@ -1622,15 +1752,15 @@ chunk_sweep_kernel(T* x, int64_t xs, int R, int rpc, int nchunks, int cloc,
     }
     const int Kc = d.K;
     for (int i = 0; i < nr && !producer; ++i) {
-      const int r = r0 + i;
+      const int r = r0 + i, rg = lo + r;
       unsigned char* rb = rank_base(st, i);
-      const int64_t a = d.coff + (int64_t)r * cloc * Kc;
+      const int64_t a0 = d.coff + (int64_t)r * cloc * Kc;
       const int* sc = reinterpret_cast<const int*>(rb) +
-                      Span<int>(cols, a, 0).shift;
+                      Span<int>(cols, a0, 0).shift;
       const T* sv = reinterpret_cast<const T*>(rb + lay.cbytes) +
-                    Span<T>(vals, a, 0).shift;
+                    Span<T>(vals, a0, 0).shift;
       T* xr = x + r * xs;
-      const int own = HALO ? c * cloc : c * chunk + r * cloc;
+      const int own = HALO ? c * cloc : c * chunk + rg * cloc;
       for (int j = threadIdx.x; j < cloc; j += nw) {
         const int* cj = sc + j * Kc;
         const T* vj = sv + j * Kc;
@@ -1649,7 +1779,7 @@ chunk_sweep_kernel(T* x, int64_t xs, int R, int rpc, int nchunks, int cloc,
           xr[own + j] = y;
           ys[i * cloc + j] = y;
         } else {
-          for (int p = 0; p < R; ++p) x[p * xs + own + j] = y;
+          to_all(own + j, y);
         }
       }
     }
@@ -1658,7 +1788,7 @@ chunk_sweep_kernel(T* x, int64_t xs, int R, int rpc, int nchunks, int cloc,
       const int W = d.Wl + d.Wr + d.Wag;
       const int own = c * cloc;
       for (int i = 0; i < nr && !producer; ++i) {
-        const int r = r0 + i;
+        const int r = r0 + i, rg = lo + r;
         const int64_t b0 = d.soff + (int64_t)r * W;
         const int64_t* ss =
             reinterpret_cast<const int64_t*>(rank_base(st, i) + lay.cbytes +
@@ -1670,19 +1800,18 @@ chunk_sweep_kernel(T* x, int64_t xs, int R, int rpc, int nchunks, int cloc,
           const T v = s >= own && s < own + cloc ? ys[i * cloc + (s - own)]
                                                  : ld_cg(xr + s);
           if (w < d.Wl) {
-            if (r + 1 < R) x[(r + 1) * xs + d.off_l + w] = v;
+            if (rg + 1 < D) row(rg + 1)[d.off_l + w] = v;
           } else if (w < d.Wl + d.Wr) {
-            if (r >= 1) x[(r - 1) * xs + d.off_r + (w - d.Wl)] = v;
+            if (rg >= 1) row(rg - 1)[d.off_r + (w - d.Wl)] = v;
           } else {
-            const int64_t o =
-                d.off_ag + (int64_t)r * d.Wag + (w - d.Wl - d.Wr);
-            for (int p = 0; p < R; ++p) x[p * xs + o] = v;
+            to_all(d.off_ag + (int64_t)rg * d.Wag + (w - d.Wl - d.Wr), v);
           }
         }
       }
     }
-    if (c + 1 < nchunks) {
-      // every CTA's writes of this chunk before any CTA's next reads
+    if (PEER || c + 1 < nchunks) {
+      // every CTA's writes of this chunk before any CTA's next reads (and,
+      // across groups, before the leader's release)
       asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
       if (refill)
         fill(cn, cn % stages,
@@ -1691,7 +1820,56 @@ chunk_sweep_kernel(T* x, int64_t xs, int R, int rpc, int nchunks, int cloc,
                                cn, R, cloc, K));
       asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
     }
+    // after the last chunk too: no group leaves while another may still
+    // write its vectors
+    if constexpr (PEER) sync_groups((a.epoch << 32) | (unsigned)(c + 1));
   }
+}
+
+// The launch of one or several clusters of ``ncta`` CTAs, each running a
+// group of ``a``'s table; the co-residency of the clusters is checked
+// first where they wait on each other (several).
+template <typename T>
+int sweep_launch(SweepArgs<T>& a, int nclusters, bool halo, bool peer,
+                 void* stream) {
+  const SweepLayout lay = sweep_layout(a.rpc, a.cloc, a.kmax, a.wmax,
+                                       (int)sizeof(T), halo, a.stages);
+  if (a.stages < 2 || lay.total > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int smem = (int)lay.total;
+  auto kernel = halo ? (peer ? chunk_sweep_kernel<T, true, true>
+                             : chunk_sweep_kernel<T, true, false>)
+                     : (peer ? chunk_sweep_kernel<T, false, true>
+                             : chunk_sweep_kernel<T, false, false>);
+  static Granted granted[4];
+  cudaError_t err = allow_smem(kernel, smem, granted[2 * halo + peer]);
+  if (err != cudaSuccess) return (int)err;
+  if (a.ncta > kSweepPortable) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(nclusters * a.ncta));
+  cfg.blockDim = dim3((unsigned)sweep_threads(a.cloc));
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)a.ncta;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (nclusters > 1) {
+    // a cluster that waits for one that cannot be resident never ends
+    int fit = 0;
+    err = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (fit < nclusters) return (int)cudaErrorCooperativeLaunchTooLarge;
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -1701,39 +1879,99 @@ int chunk_sweep(T* x, int64_t xs, int R, int nchunks, int cloc, int K,
                 int stages, void* stream) {
   if (nchunks == 0 || R == 0 || cloc == 0) return (int)cudaSuccess;
   const bool halo = desc != nullptr;
-  const int rpc = sweep_rpc(R);
-  const unsigned ncta = (unsigned)((R + rpc - 1) / rpc);
-  const int km = halo ? kmax : K;  // the widest chunk's fan-in
-  const SweepLayout lay =
-      sweep_layout(rpc, cloc, km, wmax, (int)sizeof(T), halo, stages);
-  if (stages < 2 || lay.total > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const int smem = (int)lay.total;
-  auto kernel = halo ? chunk_sweep_kernel<T, true>
-                     : chunk_sweep_kernel<T, false>;
-  static int granted[2] = {0, 0};
-  cudaError_t err = allow_smem(kernel, smem, granted[halo]);
-  if (err != cudaSuccess) return (int)err;
-  if (ncta > kSweepPortable) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
+  SweepArgs<T> a = {};
+  a.x[0] = x;
+  a.lo[1] = R;
+  a.G = 1;
+  a.cols[0] = cols;
+  a.vals[0] = vals;
+  a.sends[0] = sends;
+  a.desc[0] = desc;
+  a.xs = xs;
+  a.rpc = sweep_rpc(R);
+  a.ncta = (R + a.rpc - 1) / a.rpc;
+  a.nchunks = nchunks;
+  a.cloc = cloc;
+  a.K = K;
+  a.chunk = chunk;
+  a.kmax = halo ? kmax : K;  // the widest chunk's fan-in
+  a.wmax = wmax;
+  a.stages = stages;
+  return sweep_launch(a, 1, halo, false, stream);
+}
+
+// Peer access from the current card to every other card of the table (a
+// kernel's stores into another card's memory need it), once a pair.
+inline cudaError_t enable_peers(const int* cards, int G) {
+  static bool enabled[kMaxDevices][kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  for (int h = 0; h < G; ++h) {
+    const int c = cards[h];
+    if (c == dev) continue;
+    if (dev < 0 || dev >= kMaxDevices || c < 0 || c >= kMaxDevices)
+      return cudaErrorInvalidDevice;
+    if (enabled[dev][c]) continue;
+    err = cudaDeviceEnablePeerAccess(c, 0);
+    if (err == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();  // not a fault: clear it
+      err = cudaSuccess;
+    }
+    if (err != cudaSuccess) return err;
+    enabled[dev][c] = true;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ncta);
-  cfg.blockDim = dim3((unsigned)sweep_threads(cloc));
-  cfg.dynamicSmemBytes = (size_t)smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = ncta;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, x, xs, R, rpc, nchunks, cloc, K,
-                           chunk, cols, vals, sends, desc, km, wmax, stages);
+  return cudaSuccess;
+}
+
+// The peer sweep on the current card: one cluster for each of the ``nloc``
+// groups ``gids`` of the G-group table that live on it.  ``xptr``,
+// ``flagptr`` and ``cards`` hold every group's slot vectors, flag slots and
+// card, ``lo`` the groups' first ranks and the rank count, and the
+// operand pointers the local groups' (host arrays).
+template <typename T>
+int chunk_peer(int G, const int64_t* xptr, const int64_t* flagptr,
+               const int* lo, const int* cards, int64_t xs, int nloc,
+               const int* gids, const int64_t* colptr, const int64_t* valptr,
+               const int64_t* sendptr, const int64_t* descptr, int nchunks,
+               int cloc, int K, int chunk, int kmax, int wmax, int stages,
+               int halo, int64_t epoch, void* stream) {
+  if (G < 1 || G > kPeerMaxGroups || nloc < 1 || nloc > G || epoch < 1)
+    return (int)cudaErrorInvalidValue;
+  if (nchunks == 0 || cloc == 0) return (int)cudaSuccess;
+  cudaError_t err = enable_peers(cards, G);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  SweepArgs<T> a = {};
+  a.G = G;
+  for (int h = 0; h < G; ++h) {
+    a.x[h] = reinterpret_cast<T*>(xptr[h]);
+    a.flags[h] = reinterpret_cast<unsigned long long*>(flagptr[h]);
+  }
+  for (int h = 0; h <= G; ++h) a.lo[h] = lo[h];
+  int rmax = 0;
+  for (int i = 0; i < nloc; ++i) {
+    const int h = gids[i];
+    if (h < 0 || h >= G || lo[h + 1] <= lo[h])
+      return (int)cudaErrorInvalidValue;
+    rmax = std::max(rmax, lo[h + 1] - lo[h]);
+    a.gid[i] = h;
+    a.cols[i] = reinterpret_cast<const int*>(colptr[i]);
+    a.vals[i] = reinterpret_cast<const T*>(valptr[i]);
+    a.sends[i] = reinterpret_cast<const int64_t*>(sendptr[i]);
+    a.desc[i] = reinterpret_cast<const int64_t*>(descptr[i]);
+  }
+  a.xs = xs;
+  a.epoch = (unsigned long long)epoch;
+  a.rpc = sweep_rpc(rmax);
+  a.ncta = (rmax + a.rpc - 1) / a.rpc;
+  a.nchunks = nchunks;
+  a.cloc = cloc;
+  a.K = K;
+  a.chunk = chunk;
+  a.kmax = halo ? kmax : K;
+  a.wmax = wmax;
+  a.stages = stages;
+  return sweep_launch(a, nloc, halo != 0, true, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -2233,7 +2471,7 @@ schur_block_kernel(SchurArgs<T> a, int P, unsigned char* scratch) {
 template <typename T, int V>
 int schur_warp_launch(const SchurArgs<T>& a, cudaStream_t stream) {
   const int smem = (int)schur_warp_smem(V, (int)sizeof(T));
-  static int granted = 0;
+  static Granted granted;
   const cudaError_t err = allow_smem(schur_warp_kernel<T, V>, smem, granted);
   if (err != cudaSuccess) return (int)err;
   const int64_t grid = (a.rows + kSchurRowsPerCta - 1) / kSchurRowsPerCta;
@@ -2280,7 +2518,7 @@ int schur_partial(const int* le_idx, const T* le_val, const T* d, int64_t ds,
     return (int)cudaErrorInvalidValue;
   const int n = global ? kSchurTile : P;
   const int smem = (int)schur_block_smem(n, (int)sizeof(T));
-  static int granted[2] = {0, 0};
+  static Granted granted[2];
   const cudaError_t err =
       global ? allow_smem(schur_block_kernel<T, true>, smem, granted[1])
              : allow_smem(schur_block_kernel<T, false>, smem, granted[0]);
@@ -2647,7 +2885,7 @@ int qrcp_plan(int n, int cpc, int layout, int* out) {
   const int64_t smem = qrcp_smem(n, cpc, (int)sizeof(T), layout);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   const void* kernel = qrcp_entry<T>(layout);
-  static int granted[3] = {0, 0, 0};
+  static Granted granted[3];
   err = allow_smem(kernel, (int)smem, granted[layout]);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0;
@@ -2752,6 +2990,17 @@ int read_rate(const void* p, int64_t nbytes, unsigned* out,
     return chunk_sweep<T>(x, xs, R, nchunks, cloc, K, chunk, cols, vals,     \
                           sends, desc, kmax, wmax, stages, stream);          \
   }                                                                           \
+  int chunk_peer_##SUFFIX(int G, const int64_t* xptr, const int64_t* flagptr, \
+                          const int* lo, const int* cards, int64_t xs,       \
+                          int nloc, const int* gids, const int64_t* colptr,  \
+                          const int64_t* valptr, const int64_t* sendptr,     \
+                          const int64_t* descptr, int nchunks, int cloc,     \
+                          int K, int chunk, int kmax, int wmax, int stages,  \
+                          int halo, int64_t epoch, void* stream) {           \
+    return chunk_peer<T>(G, xptr, flagptr, lo, cards, xs, nloc, gids, colptr, \
+                         valptr, sendptr, descptr, nchunks, cloc, K, chunk,   \
+                         kmax, wmax, stages, halo, epoch, stream);           \
+  }                                                                           \
   int schur_partial_##SUFFIX(const int* le_idx, const T* le_val, const T* d, \
                              int64_t ds, const int* uf_idx, const T* uf_val, \
                              int64_t ufs, int rows, int nb, int KL, int KU,  \
@@ -2764,7 +3013,8 @@ int read_rate(const void* p, int64_t nbytes, unsigned* out,
   }
 
 // The shared memory a chunk sweep's CTA needs (the host checks it against
-// hifir_max_smem before it builds a sweep, and picks the ring's stages).
+// hifir_max_smem before it builds a sweep, and picks the ring's stages; a
+// peer sweep's R is its largest group's).
 int64_t chunk_sweep_smem(int R, int cloc, int kmax, int wmax, int es,
                          int halo, int stages) {
   return sweep_layout(sweep_rpc(R), cloc, kmax, wmax, es, halo != 0, stages)

@@ -2,9 +2,10 @@
 
 The port's copy of the parts of ``hifir_tpu/ds/csr.py`` that loading,
 packing, the host factorize and the host solves use: construction
-(``from_coo``, ``csr_from_dense``), scipy round trips, validation, the
-explicit transpose (and its cached CSC view), row and column scalings, the
-leading block, the diagonal, the pattern-symmetry ratio, the products
+(``from_coo``, ``csr_from_dense``, ``identity``), scipy round trips,
+``copy``, validation, the explicit transpose (and its cached CSC view),
+row and column scalings, ``permute``, ``prune``, the leading block, the
+diagonal, the pattern-symmetry ratio, the products
 ``A x`` and ``A^T x`` / ``A^H x`` and the unit strict-triangular solves.
 The diagonal, the ratio and the solves run in the native host library
 (:mod:`..pre._native`) when it is loaded, as in the JAX package.
@@ -68,6 +69,11 @@ class CSR:
         return sp.csr_matrix((self.data, self.indices, self.indptr),
                              shape=(self.nrows, self.ncols))
 
+    @classmethod
+    def identity(cls, n: int, dtype=np.float64) -> "CSR":
+        return cls(n, n, np.arange(n + 1), np.arange(n, dtype=np.int32),
+                   np.ones(n, dtype=dtype))
+
     # -- basics -------------------------------------------------------------
     @property
     def nnz(self) -> int:
@@ -83,6 +89,10 @@ class CSR:
 
     def row_nnz(self) -> np.ndarray:
         return np.diff(self.indptr)
+
+    def copy(self) -> "CSR":
+        return CSR(self.nrows, self.ncols, self.indptr.copy(),
+                   self.indices.copy(), self.data.copy())
 
     def astype(self, dtype) -> "CSR":
         return CSR(self.nrows, self.ncols, self.indptr, self.indices,
@@ -169,6 +179,31 @@ class CSR:
     def scale_diag_right(self, t: np.ndarray) -> "CSR":
         return CSR(self.nrows, self.ncols, self.indptr, self.indices,
                    self.data * t[self.indices])
+
+    def permute(self, p: np.ndarray, q_inv: np.ndarray) -> "CSR":
+        """A[p, :] with columns remapped by q_inv, each row's columns sorted
+        (ref ``compute_perm``, ``CompressedStorage.hpp:551,1680``)."""
+        p = np.asarray(p, dtype=np.int64)
+        counts = self.row_nnz()[p]
+        indptr = np.zeros(self.nrows + 1, dtype=np.int64)
+        np.cumsum(counts, out=indptr[1:])
+        # the source position of every entry, row after row of A[p, :]
+        src = (np.repeat(self.indptr[p] - indptr[:-1], counts)
+               + np.arange(indptr[-1]))
+        cols = np.asarray(q_inv, dtype=np.int64)[self.indices[src]]
+        rows = np.repeat(np.arange(self.nrows, dtype=np.int64), counts)
+        order = np.lexsort((cols, rows))
+        return CSR(self.nrows, self.ncols, indptr, cols[order],
+                   self.data[src[order]])
+
+    def prune(self, tol: float = 0.0) -> "CSR":
+        """Drop entries with magnitude <= tol (ref ``prune``, ``:1733``)."""
+        keep = np.abs(self.data) > tol
+        rows = np.repeat(np.arange(self.nrows, dtype=np.int64),
+                         self.row_nnz())
+        return CSR.from_coo(self.nrows, self.ncols, rows[keep],
+                            self.indices[keep].astype(np.int64),
+                            self.data[keep])
 
     def extract_leading(self, m: int) -> "CSR":
         """Leading m-by-m block (ref ``extract_leading``, ``:1712``)."""

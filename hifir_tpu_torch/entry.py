@@ -8,11 +8,12 @@ steps (row-sharded SpMV, all_gather, batched M-solve) and a fully
 distributed M-solve (:class:`~hifir_tpu_torch.parallel.DistPrec`) on small
 shapes.
 
-Left out, as the port has no counterpart: the XLA compile cache, the
-``XLA_FLAGS`` / ``jax_platforms`` handling and the ``len(jax.devices())``
-check.  In the port a mesh's ranks are the rows of one tensor on a device,
-so every rank count runs on one card (or on the CPU with
-``device="cpu"``).
+Left out, as the port has no counterpart: the XLA compile cache and the
+``XLA_FLAGS`` / ``jax_platforms`` handling.  In the port the ranks of a
+device are the rows of one tensor, so every rank count runs on one card (or
+on the CPU with ``device="cpu"``); given ``devices``, the dry run puts one
+rank on each listed device, as the JAX dry run's ``make_mesh(n_devices)``
+puts one on each chip.
 """
 
 from __future__ import annotations
@@ -59,9 +60,11 @@ def entry(device="cuda"):
     return prec_solve_mrhs, (dp.levels, dp.tail, B)
 
 
-def dryrun_multichip(n_ranks: int, device="cuda") -> dict:
+def dryrun_multichip(n_ranks: int, device="cuda", devices=None) -> dict:
     """Two sharded IR steps and one distributed M-solve over ``n_ranks``
-    ranks on ``device``, with the asserts of the JAX dry run.
+    ranks on ``device`` or, given ``devices`` (``n_ranks`` of them, which
+    may repeat), rank k on ``devices[k]``, with the asserts of the JAX dry
+    run.
 
     The IR steps run on convdiff2d(16), A row-sharded, on a mesh with
     ``rhs=2`` for an even rank count above one (else 1): the result is
@@ -79,9 +82,12 @@ def dryrun_multichip(n_ranks: int, device="cuda") -> dict:
                            shard_ell_rows)
     from .parallel.trsv_halo import HaloOp
 
-    dev = resolve_device(device)
+    if devices is not None and len(devices) != n_ranks:
+        raise ValueError(f"{len(devices)} devices for {n_ranks} ranks: the "
+                         "dry run puts one rank on each")
+    dev = resolve_device(device if devices is None else devices[0])
     rhs_axis = 2 if n_ranks % 2 == 0 and n_ranks > 1 else 1
-    mesh = make_mesh(n_ranks, rhs=rhs_axis, device=dev)
+    mesh = make_mesh(n_ranks, rhs=rhs_axis, device=dev, devices=devices)
     A, M = _small_prec()
     n = A.nrows
     Ae = shard_ell_rows(mesh, A)
@@ -109,7 +115,7 @@ def dryrun_multichip(n_ranks: int, device="cuda") -> dict:
     # runs many chunks a level (>= 8) over >= 3 levels
     A2, M2 = _small_prec(nx=40)
     n2 = A2.nrows
-    mesh_rows = make_mesh(n_ranks, rhs=1, device=dev)
+    mesh_rows = make_mesh(n_ranks, rhs=1, device=dev, devices=devices)
     dpp = DistPrec.from_host(mesh_rows, M2, chunk=4 * n_ranks)
     if n_ranks > 1:
         assert dpp.n_halo > 0, "halo trsv did not engage"

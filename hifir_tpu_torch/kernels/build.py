@@ -38,6 +38,8 @@ _SIGNATURES = {
     "chunk_fma": [_P, _L, _I, _I, _P, _P, _L, _I, _I, _I, _P, _P],
     "chunk_sweep": [_P, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
                     _P],
+    "chunk_peer": [_I, _P, _P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                   _I, _I, _I, _I, _I, _L, _P],
     "schur_partial": [_P, _P, _P, _L, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
                       _I, _P, _P, _P, _P],
     "qrcp": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
@@ -53,6 +55,7 @@ SUFFIXES = {"bsr_spmv": ("f32", "f64"),
             "trsv_solve": ("f32", "f64", "c64", "c128"),
             "chunk_fma": ("f32", "f64"),
             "chunk_sweep": ("f32", "f64"),
+            "chunk_peer": ("f32", "f64"),
             "schur_partial": ("f32", "f64"),
             "qrcp": ("f32", "f64"),
             "qrcp_plan": ("f32", "f64")}

@@ -144,9 +144,11 @@ def bsr_spmv_cuda(A: BSR, X: torch.Tensor, path: str = None) -> torch.Tensor:
     v = 16 // X.element_size()
     vec = (A.bs % v == 0 and (stream or nrhs % v == 0)
            and all(t.data_ptr() % 16 == 0 for t in (A.blocks, X)))
-    err = fn(A.blocks.data_ptr(), A.block_cols.data_ptr(), X.data_ptr(),
-             Y.data_ptr(), A.nbr, A.kb, A.bs, nrhs, int(stream), int(vec),
-             torch.cuda.current_stream(X.device).cuda_stream)
+    with torch.cuda.device(X.device):
+        err = fn(A.blocks.data_ptr(), A.block_cols.data_ptr(),
+                 X.data_ptr(), Y.data_ptr(), A.nbr, A.kb, A.bs, nrhs,
+                 int(stream), int(vec),
+                 torch.cuda.current_stream(X.device).cuda_stream)
     check(err, "bsr_spmv")
     bsr_spmv_cuda.launches += 1
     return Y

@@ -43,12 +43,23 @@ tensor :func:`chunk_sweep_plain` (the chunk steps with K10a's plain
 arithmetic and the legs as torch copies), on a CUDA tensor one launch of
 the redesigned K10a (``csrc/kernels.cu:chunk_sweep``, one thread block
 cluster a group, the legs inside) through :class:`ChunkSweepKernel`.
+
+A :class:`SweepPlan` says how a factor's chunk loop runs on its mesh
+(``form``): ``"sweep"`` (one group), ``"peer"`` (several groups whose
+devices reach each other's memory: :func:`chunk_sweep_peer`, one
+:class:`Sweep` a group, in which a group's operands are its ranks' share of
+every chunk) or ``"chunk"`` (K10a a chunk, the legs as the mesh's copies).
+The peer sweep runs on CPU tensors as :func:`chunk_sweep_peer_plain` (each
+chunk's steps in every group, then the stores into the receiving groups'
+vectors as torch copies) and on the card as ``csrc/kernels.cu:chunk_peer``
+through :class:`PeerSweepKernel`: a cluster a group, one launch a card, the
+stores through peer pointers and the steps ordered across groups by flags.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,7 +67,9 @@ import torch
 from ..kernels.build import check, dtype_suffix, kernel_fn, load_kernels
 
 __all__ = ["chunk_fma_plain", "ChunkSweep", "Sweep", "chunk_sweep",
-           "chunk_sweep_plain", "ChunkSweepKernel", "with_slack"]
+           "chunk_sweep_plain", "ChunkSweepKernel", "with_slack",
+           "SweepPlan", "chunk_sweep_peer", "chunk_sweep_peer_plain",
+           "PeerSweepKernel"]
 
 # Bytes of storage a sweep operand keeps past its last element: the sweep's
 # TMA copies move whole 16-byte lines.
@@ -64,6 +77,8 @@ SLACK = 16
 # Stages of the sweep's ring (chunks of operands in shared memory ahead of
 # the step); fewer when they do not fit, at least 2.
 SWEEP_STAGES = 4
+# Groups a peer sweep's table holds (``kernels.cu:kPeerMaxGroups``).
+PEER_MAX_GROUPS = 16
 
 
 def _check(x, cols, vals, out_off, out_step, pkg=None):
@@ -154,9 +169,10 @@ class ChunkSweep:
                 f"and {x.dtype} on {x.device}")
         _check(x, cols, vals, out_off, out_step, self.pkg)
         R, cloc, K = cols.shape
-        err = self.fn(x.data_ptr(), x.shape[1], out_off, out_step,
-                      cols.data_ptr(), vals.data_ptr(), cloc * K, R, cloc, K,
-                      self.pkg_ptr, self.stream)
+        with torch.cuda.device(x.device):
+            err = self.fn(x.data_ptr(), x.shape[1], out_off, out_step,
+                          cols.data_ptr(), vals.data_ptr(), cloc * K, R,
+                          cloc, K, self.pkg_ptr, self.stream)
         check(err, "chunk_fma")
         ChunkSweep.launches += 1
         return x
@@ -196,13 +212,16 @@ class Sweep:
 
     @classmethod
     def all_gather(cls, cols: torch.Tensor, vals: torch.Tensor,
-                   chunk: int) -> "Sweep":
+                   chunk: int, ranks: Optional[int] = None) -> "Sweep":
         """The tiled-all_gather loop over ``cols``/``vals`` (nchunks, R,
-        cloc, K) with chunks of ``chunk`` = R * cloc slots."""
+        cloc, K) with chunks of ``chunk`` = ``ranks`` * cloc slots: the
+        group's R ranks are all ``ranks`` (default) or, in a peer sweep,
+        some of them."""
         nchunks, R, cloc, _ = cols.shape
-        if chunk != R * cloc:
+        D = R if ranks is None else ranks
+        if chunk != D * cloc or R > D:
             raise ValueError(f"chunk_sweep: a chunk of {chunk} slots is not "
-                             f"{R} ranks x {cloc}: the group must hold "
+                             f"{D} ranks x {cloc}: the groups must hold "
                              "every rank")
         return cls("all_gather", R, nchunks, cloc, cols, vals,
                    nchunks * chunk + 1, chunk=chunk)
@@ -288,46 +307,8 @@ class ChunkSweepKernel:
     launches = 0
 
     def __init__(self, sw: Sweep):
-        halo = sw.form == "halo"
-        ops = dict(cols=sw.cols, vals=sw.vals)
-        idx = (torch.int32,)
-        if halo:
-            ops.update(sends=sw.sends, desc=sw.desc)
-            idx += (torch.int64, torch.int64)
-        kernel_fn("chunk_sweep", index_dtypes=idx, **ops)
-        for k, t in ops.items():
-            if t.data_ptr() % 16:
-                raise ValueError(f"chunk_sweep: {k} is not 16-byte aligned")
-            if k != "desc" and _tail_room(t) < SLACK:
-                raise ValueError(f"chunk_sweep: {k} needs {SLACK} bytes of "
-                                 "storage after it (build it with "
-                                 "with_slack)")
-        if sw.min_len >= 2**31:
-            raise ValueError("chunk_sweep: a rank's slots reach 2**31, "
-                             "beyond the kernel's 32-bit indices")
-        if halo:
-            d = sw.desc_host
-            self.K = 0
-            self.kmax = int(d[:, 1].max())
-            self.wmax = int((d[:, 4] + d[:, 6] + d[:, 8]).max())
-        else:
-            self.K = self.kmax = int(sw.cols.shape[3])
-            self.wmax = 0
-        lib = load_kernels().lib
-        room = lib.hifir_max_smem()
-        es = sw.vals.element_size()
-        need = {s: lib.chunk_sweep_smem(sw.ranks, sw.cloc, self.kmax,
-                                        self.wmax, es, int(halo), s)
-                for s in range(SWEEP_STAGES, 1, -1)}
-        fits = [s for s, b in need.items() if b <= room]
-        if not fits:
-            raise ValueError(
-                f"chunk_sweep: a ring of 2 stages of {sw.cloc} slots x K "
-                f"{self.kmax} (and {self.wmax} send coordinates) a rank "
-                f"needs {need[2]} bytes of shared memory a CTA, more than "
-                f"the {room} a block may hold")
-        self.stages = fits[0]
-        self.smem = need[self.stages]
+        self.K, self.kmax, self.wmax = _card_operands(sw)
+        self.stages, self.smem = _fit_ring(sw, self.kmax, self.wmax)
         self.sw = sw
         self.fn = load_kernels().fn("chunk_sweep",
                                     dtype_suffix("chunk_sweep",
@@ -335,23 +316,75 @@ class ChunkSweepKernel:
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         sw = self.sw
-        _check_sweep_x(x, sw)
-        if x.device != sw.vals.device or not x.is_contiguous():
-            raise ValueError(f"chunk_sweep: slot vectors must be contiguous "
-                             f"on {sw.vals.device}, got {x.device}")
-        if x.shape[1] >= 2**31:
-            raise ValueError("chunk_sweep: a rank's slots reach 2**31, "
-                             "beyond the kernel's 32-bit indices")
+        _check_card_x(x, sw)
         halo = sw.form == "halo"
-        err = self.fn(
-            x.data_ptr(), x.shape[1], sw.ranks, sw.nchunks, sw.cloc, self.K,
-            sw.chunk, sw.cols.data_ptr(), sw.vals.data_ptr(),
-            sw.sends.data_ptr() if halo else None,
-            sw.desc.data_ptr() if halo else None, self.kmax, self.wmax,
-            self.stages, torch.cuda.current_stream(x.device).cuda_stream)
+        with torch.cuda.device(x.device):
+            err = self.fn(
+                x.data_ptr(), x.shape[1], sw.ranks, sw.nchunks, sw.cloc,
+                self.K, sw.chunk, sw.cols.data_ptr(), sw.vals.data_ptr(),
+                sw.sends.data_ptr() if halo else None,
+                sw.desc.data_ptr() if halo else None, self.kmax, self.wmax,
+                self.stages, torch.cuda.current_stream(x.device).cuda_stream)
         check(err, "chunk_sweep")
         ChunkSweepKernel.launches += 1
         return x
+
+
+def _card_operands(sw: Sweep):
+    """Check a sweep's operands for the card (contiguous CUDA tensors on one
+    device, int32 cols, cols and vals of one real dtype, int64 sends and
+    records, each 16-byte aligned with :data:`SLACK` bytes of storage after
+    it) and return its (K, widest fan-in, widest send run)."""
+    halo = sw.form == "halo"
+    ops = dict(cols=sw.cols, vals=sw.vals)
+    idx = (torch.int32,)
+    if halo:
+        ops.update(sends=sw.sends, desc=sw.desc)
+        idx += (torch.int64, torch.int64)
+    kernel_fn("chunk_sweep", index_dtypes=idx, **ops)
+    for k, t in ops.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"chunk_sweep: {k} is not 16-byte aligned")
+        if k != "desc" and _tail_room(t) < SLACK:
+            raise ValueError(f"chunk_sweep: {k} needs {SLACK} bytes of "
+                             "storage after it (build it with with_slack)")
+    if sw.min_len >= 2**31:
+        raise ValueError("chunk_sweep: a rank's slots reach 2**31, beyond "
+                         "the kernel's 32-bit indices")
+    if halo:
+        d = sw.desc_host
+        return (0, int(d[:, 1].max()),
+                int((d[:, 4] + d[:, 6] + d[:, 8]).max()))
+    K = int(sw.cols.shape[3])
+    return K, K, 0
+
+
+def _fit_ring(sw: Sweep, kmax: int, wmax: int):
+    """The most ring stages (at most :data:`SWEEP_STAGES`, at least 2) whose
+    shared memory a CTA of ``sw``'s group may hold, and its bytes."""
+    lib = load_kernels().lib
+    room = lib.hifir_max_smem()
+    es = sw.vals.element_size()
+    need = {s: lib.chunk_sweep_smem(sw.ranks, sw.cloc, kmax, wmax, es,
+                                    int(sw.form == "halo"), s)
+            for s in range(SWEEP_STAGES, 1, -1)}
+    fits = [s for s, b in need.items() if b <= room]
+    if not fits:
+        raise ValueError(
+            f"chunk_sweep: a ring of 2 stages of {sw.cloc} slots x K {kmax} "
+            f"(and {wmax} send coordinates) a rank needs {need[2]} bytes of "
+            f"shared memory a CTA, more than the {room} a block may hold")
+    return fits[0], need[fits[0]]
+
+
+def _check_card_x(x: torch.Tensor, sw: Sweep) -> None:
+    _check_sweep_x(x, sw)
+    if x.device != sw.vals.device or not x.is_contiguous():
+        raise ValueError(f"chunk_sweep: slot vectors must be contiguous on "
+                         f"{sw.vals.device}, got {x.device}")
+    if x.shape[1] >= 2**31:
+        raise ValueError("chunk_sweep: a rank's slots reach 2**31, beyond "
+                         "the kernel's 32-bit indices")
 
 
 def chunk_sweep(x: torch.Tensor, sw: Sweep) -> torch.Tensor:
@@ -363,3 +396,173 @@ def chunk_sweep(x: torch.Tensor, sw: Sweep) -> torch.Tensor:
     if sw._kernel is None:
         sw._kernel = ChunkSweepKernel(sw)
     return sw._kernel(x)
+
+
+@dataclasses.dataclass(eq=False)
+class SweepPlan:
+    """How one factor's chunk loop runs on its mesh, decided once when the
+    factor is built (``parallel/trsv_sharded.py:loop_plan``): ``form``
+    ``"sweep"`` (one group: :func:`chunk_sweep` on ``sweeps[0]``),
+    ``"peer"`` (several groups that reach each other's memory:
+    :func:`chunk_sweep_peer`) or ``"chunk"`` (K10a a chunk, the legs as the
+    mesh's copies).  ``sweeps`` holds each group's share of the operands,
+    ``lo`` each group's first rank and then the rank count."""
+
+    form: str
+    sweeps: List[Sweep]
+    lo: Tuple[int, ...]
+    _kernel: Optional["PeerSweepKernel"] = dataclasses.field(
+        default=None, repr=False)
+
+
+def chunk_sweep_peer_plain(xs: List[torch.Tensor],
+                           plan: SweepPlan) -> List[torch.Tensor]:
+    """Plain PyTorch peer sweep, in place on the groups' slot vectors
+    ``xs`` (group g's (ranks, L) tensor): each chunk's step with K10a's
+    plain arithmetic in every group, then the values each rank sends, taken
+    into the receivers' vectors through the table ``plan.lo`` as torch
+    copies (edge ranks with no sender receive zeros).
+    ``chunk_sweep_peer_plain.calls`` counts its calls."""
+    sws, lo = plan.sweeps, plan.lo
+    for x, sw in zip(xs, sws, strict=True):
+        _check_sweep_x(x, sw)
+    chunk_sweep_peer_plain.calls += 1
+    sw0 = sws[0]
+    cloc = sw0.cloc
+    if sw0.form == "all_gather":
+        for c in range(sw0.nchunks):
+            c0 = c * sw0.chunk
+            pkgs = []
+            for g, (x, sw) in enumerate(zip(xs, sws)):
+                pkg = x.new_empty((sw.ranks, cloc))
+                _chunk_fma(x, sw.cols[c], sw.vals[c], c0 + lo[g] * cloc,
+                           cloc, pkg)
+                pkgs.append(pkg)
+            for x in xs:         # every rank's copy of the chunk
+                x[:, c0:c0 + sw0.chunk] = torch.cat(
+                    [p.to(x.device) for p in pkgs]).reshape(-1)
+        return xs
+
+    def legs(c, a, e):
+        """Every rank's values at its send coordinates [a, e) of chunk c,
+        (D, e - a) on each group's device."""
+        pkgs = [x.gather(1, sw.halo_chunk(c)[2][:, a:e])
+                for x, sw in zip(xs, sws)]
+        return [torch.cat([p.to(x.device) for p in pkgs]) for x in xs]
+
+    for c in range(sw0.nchunks):
+        for x, sw in zip(xs, sws):
+            cols, vals, _ = sw.halo_chunk(c)
+            _chunk_fma(x, cols, vals, c * cloc)
+        off_l, Wl, off_r, Wr, off_ag, Wag = sw0.desc_host[c, 3:9].tolist()
+        if Wl:     # rank q receives rank q - 1's; rank 0 none
+            for g, (x, full) in enumerate(zip(xs, legs(c, 0, Wl))):
+                recv = torch.cat([full.new_zeros((1, Wl)), full[:-1]])
+                x[:, off_l:off_l + Wl] = recv[lo[g]:lo[g + 1]]
+        if Wr:     # rank q receives rank q + 1's; the last rank none
+            for g, (x, full) in enumerate(zip(xs, legs(c, Wl, Wl + Wr))):
+                recv = torch.cat([full[1:], full.new_zeros((1, Wr))])
+                x[:, off_r:off_r + Wr] = recv[lo[g]:lo[g + 1]]
+        if Wag:    # every rank receives every rank's
+            for x, full in zip(xs, legs(c, Wl + Wr, Wl + Wr + Wag)):
+                x[:, off_ag:off_ag + full.numel()] = full.reshape(-1)
+    return xs
+
+
+chunk_sweep_peer_plain.calls = 0
+
+
+class PeerSweepKernel:
+    """The peer sweep on the card for one :class:`SweepPlan` of the
+    ``"peer"`` form.  Each group's operands are checked once (as
+    :class:`ChunkSweepKernel` checks a sweep's), the ring's stages fitted
+    to the largest group's CTAs, and each group gets G flag slots on its
+    card (zeros; a launch's values are above every earlier one's, so they
+    are never reset).  Each call checks the groups' slot vectors, then
+    launches once a card, every card's launch issued before anything
+    waits: the groups on a card run as the clusters of its one launch.
+    ``PeerSweepKernel.launches`` counts the launches."""
+
+    launches = 0
+
+    def __init__(self, plan: SweepPlan):
+        sws = self.sweeps = plan.sweeps
+        G = len(sws)
+        if not 1 < G <= PEER_MAX_GROUPS:
+            raise ValueError(f"chunk_peer: {G} groups, the table holds 2 to "
+                             f"{PEER_MAX_GROUPS}")
+        dims = [_card_operands(sw) for sw in sws]
+        if len({(sw.form, sw.nchunks, sw.cloc, sw.chunk, sw.min_len,
+                 sw.vals.dtype) for sw in sws}) != 1:
+            raise ValueError("chunk_peer: the groups' sweeps differ in form, "
+                             "chunks, slots or dtype")
+        self.K = dims[0][0]
+        self.kmax = max(d[1] for d in dims)
+        self.wmax = max(d[2] for d in dims)
+        # the largest group's CTAs hold the most ranks
+        self.stages, self.smem = _fit_ring(max(sws, key=lambda sw: sw.ranks),
+                                           self.kmax, self.wmax)
+        cards = [sw.vals.device.index for sw in sws]
+        self.flags = [torch.zeros(G, dtype=torch.int64, device=sw.vals.device)
+                      for sw in sws]
+        self.epoch = 0
+        # the host arrays of the C entry: the table, then each card's groups
+        self.lo = np.asarray(plan.lo, np.int32)
+        self.cards = np.asarray(cards, np.int32)
+        self.flagptr = np.array([f.data_ptr() for f in self.flags], np.int64)
+        self.launch = []
+
+        def ptr(ts):
+            return np.array([0 if t is None else t.data_ptr() for t in ts],
+                            np.int64)
+
+        for card in dict.fromkeys(cards):
+            loc = [g for g in range(G) if cards[g] == card]
+            self.launch.append((card, np.asarray(loc, np.int32),
+                                [ptr([sws[g].cols for g in loc]),
+                                 ptr([sws[g].vals for g in loc]),
+                                 ptr([sws[g].sends for g in loc]),
+                                 ptr([sws[g].desc for g in loc])]))
+        self.fn = load_kernels().fn("chunk_peer",
+                                    dtype_suffix("chunk_peer",
+                                                 sws[0].vals.dtype))
+
+    def __call__(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        sws = self.sweeps
+        if len(xs) != len(sws):
+            raise ValueError(f"chunk_peer: {len(xs)} slot-vector groups for "
+                             f"{len(sws)} groups")
+        for x, sw in zip(xs, sws):
+            _check_card_x(x, sw)
+        if len({x.shape[1] for x in xs}) != 1:
+            raise ValueError("chunk_peer: the groups' slot vectors differ "
+                             "in length")
+        self.epoch += 1
+        xptr = np.array([x.data_ptr() for x in xs], np.int64)
+        sw = sws[0]
+        p = lambda a: a.ctypes.data  # noqa: E731
+        for card, loc, (cols, vals, sends, desc) in self.launch:
+            with torch.cuda.device(card):
+                err = self.fn(
+                    len(sws), p(xptr), p(self.flagptr), p(self.lo),
+                    p(self.cards), xs[0].shape[1], len(loc), p(loc), p(cols),
+                    p(vals), p(sends), p(desc), sw.nchunks, sw.cloc, self.K,
+                    sw.chunk, self.kmax, self.wmax, self.stages,
+                    int(sw.form == "halo"), self.epoch,
+                    torch.cuda.current_stream(card).cuda_stream)
+            check(err, f"chunk_peer on cuda:{card}")
+            PeerSweepKernel.launches += 1
+        return xs
+
+
+def chunk_sweep_peer(xs: List[torch.Tensor],
+                     plan: SweepPlan) -> List[torch.Tensor]:
+    """One factor's whole chunk loop over several groups, in place on their
+    slot vectors ``xs``: the plain version for CPU tensors, one launch a
+    card of the peer sweep for CUDA ones (its checked entry kept on
+    ``plan``)."""
+    if all(x.device.type == "cpu" for x in xs):
+        return chunk_sweep_peer_plain(xs, plan)
+    if plan._kernel is None:
+        plan._kernel = PeerSweepKernel(plan)
+    return plan._kernel(xs)

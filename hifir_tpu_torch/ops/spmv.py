@@ -270,10 +270,11 @@ def sell_spmv_cuda(A, X: torch.Tensor, C=None, out=None,
                    idx=idx, val=val, **tables, **operands)
     ptrs = ([t.data_ptr() for t in tables.values()] if sliced
             else [None] * 3)
-    err = fn(idx.data_ptr(), val.data_ptr(), *ptrs, k_uni, first, A.nrows,
-             max_nnz, nrhs, A.ncols, X.data_ptr(),
-             None if C is None else C.data_ptr(), out.data_ptr(), sign,
-             int(vec), torch.cuda.current_stream(X.device).cuda_stream)
+    with torch.cuda.device(X.device):
+        err = fn(idx.data_ptr(), val.data_ptr(), *ptrs, k_uni, first,
+                 A.nrows, max_nnz, nrhs, A.ncols, X.data_ptr(),
+                 None if C is None else C.data_ptr(), out.data_ptr(), sign,
+                 int(vec), torch.cuda.current_stream(X.device).cuda_stream)
     check(err, "sell_spmv")
     sell_spmv_cuda.launches += 1
     if C is not None and sign == 1:

@@ -512,13 +512,15 @@ def trsv_apply_cuda(sched: TrsvSchedule, B: torch.Tensor) -> torch.Tensor:
                    cols=sched.cols, vals=sched.vals,
                    out_slots=sched.out_slots,
                    level_slots=sched.level_slots_dev, **extra)
-    err = fn(B.data_ptr(), X.data_ptr(), sched.in_rows.data_ptr(),
-             sched.cols.data_ptr(), sched.vals.data_ptr(),
-             sched.out_slots.data_ptr(), sched.level_slots_dev.data_ptr(),
-             sched.nlevels, sched.cols.shape[2], n, nrhs, nslots,
-             _ring_width(sched),
-             None if scratch is None else scratch.data_ptr(),
-             torch.cuda.current_stream(B.device).cuda_stream)
+    with torch.cuda.device(B.device):
+        err = fn(B.data_ptr(), X.data_ptr(), sched.in_rows.data_ptr(),
+                 sched.cols.data_ptr(), sched.vals.data_ptr(),
+                 sched.out_slots.data_ptr(),
+                 sched.level_slots_dev.data_ptr(),
+                 sched.nlevels, sched.cols.shape[2], n, nrhs, nslots,
+                 _ring_width(sched),
+                 None if scratch is None else scratch.data_ptr(),
+                 torch.cuda.current_stream(B.device).cuda_stream)
     check(err, "trsv_solve")
     trsv_apply_cuda.launches += 1
     return X

@@ -17,6 +17,11 @@ collectives the JAX code uses are written over such lists:
 - within a group they are gathers and copies; between groups, peer copies
   (``.to(device, non_blocking=True)``).
 
+A group's card is :func:`device_index` of its device (``"cuda"`` is the
+current card, so ``"cuda:0"`` and ``"cuda"`` are two groups of one card);
+:meth:`Mesh.peer_access` says which groups can store into each other's
+memory, which decides how a distributed trsv runs its chunk loop.
+
 Axes: ``rhs`` splits right-hand sides (no communication), ``rows`` splits
 the rows of the sparse operators.
 """
@@ -31,7 +36,28 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["Group", "Mesh", "make_mesh"]
+__all__ = ["Group", "Mesh", "make_mesh", "device_index",
+           "can_device_access_peer"]
+
+
+def device_index(dev: torch.device) -> Optional[int]:
+    """The card of a CUDA device (``"cuda"`` without an index is the current
+    card), None for the CPU."""
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
+def can_device_access_peer(a: torch.device, b: torch.device) -> bool:
+    """Whether a kernel running on ``a`` can store into ``b``'s memory: one
+    card, two CPU devices (one host memory), or two cards with peer access
+    (``torch.cuda.can_device_access_peer``)."""
+    if a.type == b.type == "cpu":
+        return True
+    if a.type == b.type == "cuda":
+        ia, ib = device_index(a), device_index(b)
+        return ia == ib or torch.cuda.can_device_access_peer(ia, ib)
+    return False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +102,14 @@ class Mesh:
                 out.append(Group(devs[lo], lo, k))
                 lo = k
         return out
+
+    def peer_access(self, i: int = 0) -> np.ndarray:
+        """(G, G) bool: whether group g of rhs-row ``i`` can store into group
+        h's memory (:func:`can_device_access_peer`; True on the diagonal)."""
+        gs = self.groups(i)
+        return np.array([[g is h or can_device_access_peer(g.device,
+                                                            h.device)
+                          for h in gs] for g in gs])
 
     def row_mesh(self, i: int) -> "Mesh":
         """The one-row mesh of rhs-row ``i``."""

@@ -11,10 +11,14 @@ Each level's L/U solve is carried by one of two operators:
 - :class:`AGTrsvOp` (also ``halo=False``): the replicated working vector
   reassembled per chunk with a tiled all_gather.
 
-Both run a factor's chunk loop as their modules say: on a mesh whose ranks
-share one device, one launch of the chunk sweep (K10a redesigned, the
-exchange inside it) a factor application; across devices, a K10a launch a
-chunk for every rank of a device, the legs as peer copies.
+Both run a factor's chunk loop as its plan says (``form``, read from the
+mesh's topology when the factor is built, :func:`~.trsv_sharded.loop_plan`):
+on a mesh whose ranks share one device, one launch of the chunk sweep (K10a
+redesigned, the exchange inside it) a factor application; over several
+groups whose devices reach each other's memory, the peer sweep, one launch
+a card, the exchange stored through peer pointers inside it; otherwise (or
+with ``form="chunk"``) a K10a launch a chunk for every group, the legs as
+the mesh's copies.
 The E and F products run kernel K1 on each rank's row block, the ranks of a
 device in one launch (:func:`~.sharded.stacked_ell`); the dense tail is the
 port's :class:`~hifir_tpu_torch.alg.prec.DevicePrec` tail, every rank's copy
@@ -33,7 +37,7 @@ import torch
 
 from ..alg.prec import DenseTail, _dense_tail, tail_solve_mrhs
 from ..device import numpy_dtype, torch_dtype
-from ..ops.chunk import Sweep
+from ..ops.chunk import SweepPlan
 from ..ops.spmv import ELL, ell_from_csr, sliced_ell_sub_mrhs
 from ..ops.trsv import build_trsv_schedule
 from .exchange import XPlan, build_exchange_plan, xplan_fetch
@@ -66,11 +70,12 @@ class AGTrsvOp:
     chunk: int
     n: int
     sharded: bool = False
-    plan: Optional[Sweep] = dataclasses.field(init=False, repr=False)
+    form: Optional[str] = None     # None: by the layout; "chunk": K10a
+    plan: SweepPlan = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
-        # one group holding every rank: the factor's chunk sweep
-        self.plan = ag_plan(self.mesh, self.cols, self.vals, self.chunk)
+        self.plan = ag_plan(self.mesh, self.cols, self.vals, self.chunk,
+                            self.form)
 
     @property
     def nslots(self) -> int:
@@ -264,7 +269,8 @@ class DistPrec:
     @classmethod
     def from_host(cls, mesh: Mesh, M, dtype=None, chunk=256,
                   halo: bool = True, shard_vectors: bool = True,
-                  max_halo_chunks: int = 128) -> "DistPrec":
+                  max_halo_chunks: int = 128,
+                  form: Optional[str] = None) -> "DistPrec":
         """Build from a factorized host :class:`hifir_tpu_torch.api.HIF` on
         the mesh's ranks (their devices).
 
@@ -275,7 +281,10 @@ class DistPrec:
         per-level permutation, scaling and diagonal vectors and the trsv
         entry/exit maps, and links the levels through exchange plans.
         ``dtype`` is float64 (default) or float32; a complex ``M`` raises
-        TypeError (the JAX package's DistPrec is real only)."""
+        TypeError (the JAX package's DistPrec is real only).  ``form``
+        lays out every factor's chunk loop: None by the mesh's topology
+        (the sweep, the peer sweep or K10a a chunk), ``"chunk"`` K10a a
+        chunk (:func:`~.trsv_sharded.loop_plan`)."""
         ndt = np.dtype(np.float64 if dtype is None else numpy_dtype(dtype))
         cplx = [p for p in M.precs if np.iscomplexobj(p.d)
                 or (p.dense_matrix is not None
@@ -306,7 +315,7 @@ class DistPrec:
             nonlocal comm, ag_comm, n_halo
             if halo:
                 op = build_halo_op(mesh, T, lower=lower, chunk=C, dtype=ndt,
-                                   max_chunks=max_halo_chunks)
+                                   max_chunks=max_halo_chunks, form=form)
                 if op is not None:
                     comm += op.comm_elems
                     ag_comm += op.allgather_elems
@@ -330,7 +339,8 @@ class DistPrec:
             return AGTrsvOp(mesh, ins_r, shard_chunks(mesh, s.cols.numpy()),
                             shard_chunks(mesh, s.vals.numpy()), outs_r,
                             s.nchunks, s.chunk, s.n,
-                            sharded=bool(shard_vectors and s.nchunks))
+                            sharded=bool(shard_vectors and s.nchunks),
+                            form=form)
 
         def local_ell(A, xrows):
             Ap = pad_rows(A, D)

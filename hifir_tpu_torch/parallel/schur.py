@@ -181,12 +181,13 @@ def schur_partial_cuda(le_idx, le_val, d, uf_idx, uf_val, cb: int,
                                                       torch.int32),
                    le_idx=le_idx, le_val=le_val, d=d, uf_idx=uf_idx,
                    uf_val=uf_val, scratch=scratch, out_c=out_c, out_v=out_v)
-    err = fn(le_idx.data_ptr(), le_val.data_ptr(), d.data_ptr(), d.shape[1],
-             uf_idx.data_ptr(), uf_val.data_ptr(),
-             uf_idx.shape[1] * KU, R * nb, nb, KL, KU, cb,
-             SCHUR_TIERS.index(plan["tier"]), plan["P"], plan["grid"],
-             scratch.data_ptr(), out_c.data_ptr(), out_v.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = fn(le_idx.data_ptr(), le_val.data_ptr(), d.data_ptr(),
+                 d.shape[1], uf_idx.data_ptr(), uf_val.data_ptr(),
+                 uf_idx.shape[1] * KU, R * nb, nb, KL, KU, cb,
+                 SCHUR_TIERS.index(plan["tier"]), plan["P"], plan["grid"],
+                 scratch.data_ptr(), out_c.data_ptr(), out_v.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
     check(err, f"schur_partial ({plan['tier']} tier, P = {plan['P']})")
     schur_partial_cuda.launches += 1
     return out_c, out_v

@@ -11,7 +11,8 @@ stacked copies of X (rank r's column c is column ``r * rows(X) + c``).  In
 the IR step K1's fused ``C - A X`` gives ``R_local = B_local - A_local X``
 in that one launch; a tiled all_gather assembles R on every rank, and the
 M-solve runs replicated, every rank on its own copy (the copies of a
-device as the columns of one batched solve).
+device as the columns of one batched solve, on that device's copy of the
+pack, made once for a device other than the pack's).
 """
 
 from __future__ import annotations
@@ -113,6 +114,20 @@ def sharded_spmv(mesh: Mesh, A: ShardedELL, x) -> torch.Tensor:
     return mesh.collect(ys).reshape(-1)
 
 
+def to_device(obj, dev: torch.device):
+    """A pack's operands (tensors inside dataclasses, lists and tuples) on
+    ``dev``: the same object where nothing moves."""
+    if torch.is_tensor(obj):
+        return obj.to(dev)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_device(o, dev) for o in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: to_device(getattr(obj, f.name), dev)
+            for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
 def make_sharded_ir_step(mesh: Mesh, n: int):
     """The multi-rank IR step ``X <- X + M^{-1}(B - A X)`` with A row-sharded
     over ``rows`` and the RHS batch split over ``rhs``.
@@ -124,6 +139,15 @@ def make_sharded_ir_step(mesh: Mesh, n: int):
     size and n_padded by the ``rows`` axis size; rhs-row i's ranks each
     take a copy of columns ``[i * nrhs / rhs, (i + 1) * nrhs / rhs)``."""
     R, D = mesh.shape["rhs"], mesh.D
+    copies = {}    # (pack, device) -> the pack on that device
+
+    def pack_on(levels, tail, dev):
+        if (levels[0].p if levels else tail.Q).device == dev:
+            return levels, tail
+        key = (id(levels), id(tail), dev)
+        if key not in copies:
+            copies[key] = (levels, tail, to_device((levels, tail), dev))
+        return copies[key][2]
 
     def step(A: ShardedELL, levels, tail, X, B) -> torch.Tensor:
         npad, nrhs = X.shape
@@ -147,7 +171,7 @@ def make_sharded_ir_step(mesh: Mesh, n: int):
             for g, xg, Rg in zip(rm.groups(), Xr, Rs):
                 # the replicated M-solve: the ranks' copies as columns
                 Y = Rg[:, :n].permute(1, 0, 2).reshape(n, g.size * w)
-                dX = prec_solve_mrhs(levels, tail, Y)
+                dX = prec_solve_mrhs(*pack_on(levels, tail, Rg.device), Y)
                 xg[:, :n] += dX.reshape(n, g.size, w).permute(1, 0, 2)
             out[:, cols] = Xr[0][0].to(out.device)
         return out

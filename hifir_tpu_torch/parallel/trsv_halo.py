@@ -25,16 +25,23 @@ its legs' send coordinates rank-major (ranks, Wl + Wr + Wag), and a record
 per chunk on the device (its offsets, K_c and ``meta``).  The per-chunk
 ``gcols``, ``gvals`` and ``sends`` are views of those buffers.
 
-The chunk loop (:func:`halo_op_kernel`) is chosen by the mesh's layout:
+The chunk loop (:func:`halo_op_kernel`) follows the factor's ``plan``,
+laid out once from the mesh's topology
+(:func:`~.trsv_sharded.loop_plan` over the packed sweeps):
 
-- one group (every ``rows`` rank on one device, as ``make_mesh`` puts them
-  on the card): the whole loop is one call of
+- ``"sweep"``, one group (every ``rows`` rank on one device, as
+  ``make_mesh`` puts them on the card): the whole loop is one call of
   :func:`~hifir_tpu_torch.ops.chunk.chunk_sweep`, on the card one launch of
   the redesigned K10a with the three legs inside it, on the CPU its plain
   version;
-- several groups: :func:`halo_chunk_loop`, a K10a launch a chunk for each
-  group, then the legs, each a gather of the package and a copy (peer
-  copies across devices) into the receivers' halo regions.
+- ``"peer"``, several groups that reach each other's memory:
+  :func:`~hifir_tpu_torch.ops.chunk.chunk_sweep_peer`, on the cards one
+  launch a card, the legs of boundary ranks whose neighbour lies in
+  another group and the compact all_gather stored through peer pointers;
+- ``"chunk"``, some pair of cards without peer access, or asked for:
+  :func:`halo_chunk_loop`, a K10a launch a chunk for each group, then the
+  legs, each a gather of the package and a copy (peer copies across
+  devices) into the receivers' halo regions.
 """
 
 from __future__ import annotations
@@ -45,9 +52,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.chunk import ChunkSweep, Sweep, chunk_sweep, with_slack
+from ..ops.chunk import (ChunkSweep, Sweep, SweepPlan, chunk_sweep,
+                         chunk_sweep_peer, with_slack)
 from ..ops.trsv import build_trsv_schedule
 from .mesh import Mesh
+from .trsv_sharded import loop_plan
 
 __all__ = ["HaloOp", "build_halo_op", "halo_op_kernel", "halo_chunk_loop",
            "halo_trsv_apply"]
@@ -84,6 +93,8 @@ class HaloOp:
     n: int
     comm_elems: int                # host-counted exchanged elements
     allgather_elems: int           # what the tiled all_gather scheme moves
+    plan: SweepPlan                # how the chunk loop runs (its sweeps are
+    #                                ``packed``)
 
     def nbytes(self) -> int:
         """Bytes of the operand on all ranks (the packed buffers, which
@@ -227,9 +238,10 @@ def _pack(g, lcs, lvs, Ks, legs, meta, Cloc: int, buf_len: int) -> Sweep:
 
 
 def build_halo_op(mesh: Mesh, T, lower: bool, chunk: int = 256,
-                  dtype=None, max_chunks: Optional[int] = None
-                  ) -> Optional[HaloOp]:
-    """Build the per-chunk halo schedule for ``(I + strict(T))^{-1}``.
+                  dtype=None, max_chunks: Optional[int] = None,
+                  form: Optional[str] = None) -> Optional[HaloOp]:
+    """Build the per-chunk halo schedule for ``(I + strict(T))^{-1}``, its
+    chunk loop laid out by :func:`~.trsv_sharded.loop_plan` (``form``).
 
     Returns ``None`` when the factor is empty, the mesh has one rank, or the
     schedule has more than ``max_chunks`` chunks (the caller then takes the
@@ -292,7 +304,8 @@ def build_halo_op(mesh: Mesh, T, lower: bool, chunk: int = 256,
         packed=packed, gcols=gcols, gvals=gvals, sends=tuple(sends),
         meta=tuple(meta), nchunks=nchunks, Cloc=Cloc, own_len=own_len,
         buf_len=buf_len, D=D, n=n, comm_elems=comm,
-        allgather_elems=nchunks * D * (C - Cloc))
+        allgather_elems=nchunks * D * (C - Cloc),
+        plan=loop_plan(mesh, packed, form))
 
 
 def halo_op_kernel(op: HaloOp, bs: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -306,8 +319,11 @@ def halo_op_kernel(op: HaloOp, bs: List[torch.Tensor]) -> List[torch.Tensor]:
         ext = torch.cat([b, b.new_zeros((b.shape[0], 1))], 1)
         x[:, :op.own_len] = ext.gather(1, ir)
         xs.append(x)
-    if len(op.packed) == 1:     # one group: the sweep
+    form = op.plan.form
+    if form == "sweep":
         chunk_sweep(xs[0], op.packed[0])
+    elif form == "peer":
+        chunk_sweep_peer(xs, op.plan)
     else:
         halo_chunk_loop(op, xs)
     full = mesh.all_gather([x[:, :op.own_len] for x in xs])

@@ -12,17 +12,24 @@ A rank's shard of the factor is its ``Cloc`` rows of every chunk; the
 shards of a device's ranks are kept chunk-major, ``(nchunks, ranks, Cloc,
 K)``, so that one chunk of all of them is one contiguous block.
 
-The chunk loop (:func:`ag_sweep`) is chosen by the mesh's layout, read
-once when the factor is built (:func:`ag_plan`):
+The chunk loop (:func:`ag_sweep`) follows the factor's
+:class:`~hifir_tpu_torch.ops.chunk.SweepPlan`, laid out once when the
+factor is built (:func:`ag_plan`, through :func:`loop_plan`, the one place
+that reads the mesh's layout):
 
-- one group (every ``rows`` rank on one device, as ``make_mesh`` puts them
-  on the card): the whole loop is one call of
+- ``"sweep"``, one group (every ``rows`` rank on one device, as
+  ``make_mesh`` puts them on the card): the whole loop is one call of
   :func:`~hifir_tpu_torch.ops.chunk.chunk_sweep`, on the card one launch of
   the redesigned K10a with the all_gather inside it, on the CPU its plain
   version;
-- several groups (ranks on several devices): :func:`ag_chunk_loop`, a K10a
-  launch a chunk for each group, then the tiled all_gather as peer copies
-  (a kernel cannot reach another device's buffers or wait on it).
+- ``"peer"``, several groups whose devices reach each other's memory
+  (several cards with peer access, several groups of one card, the CPU):
+  :func:`~hifir_tpu_torch.ops.chunk.chunk_sweep_peer`, on the cards one
+  launch a card, each step storing its slots into every rank's copy
+  through peer pointers;
+- ``"chunk"``, where some pair of cards cannot reach each other, or when
+  asked for: :func:`ag_chunk_loop`, a K10a launch a chunk for each group,
+  then the tiled all_gather as the mesh's copies.
 """
 
 from __future__ import annotations
@@ -32,12 +39,14 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..ops.chunk import ChunkSweep, Sweep, chunk_sweep, with_slack
+from ..ops.chunk import (PEER_MAX_GROUPS, ChunkSweep, Sweep, SweepPlan,
+                         chunk_sweep, chunk_sweep_peer, with_slack)
 from ..ops.trsv import build_trsv_schedule
 from .mesh import Mesh
 
 __all__ = ["ShardedTrsv", "shard_trsv_schedule", "sharded_trsv_apply",
-           "shard_chunks", "ag_sweep", "ag_chunk_loop", "ag_plan"]
+           "shard_chunks", "ag_sweep", "ag_chunk_loop", "ag_plan",
+           "loop_plan"]
 
 
 def shard_chunks(mesh: Mesh, a: np.ndarray, dtype=None) -> List[torch.Tensor]:
@@ -51,21 +60,47 @@ def shard_chunks(mesh: Mesh, a: np.ndarray, dtype=None) -> List[torch.Tensor]:
             for g in mesh.groups()]
 
 
-def ag_plan(mesh: Mesh, cols, vals, chunk: int) -> Optional[Sweep]:
-    """The chunk sweep of a factor's shards when one group holds every
-    rank, else None: the one place the layout is decided."""
-    if len(mesh.groups()) != 1:
-        return None
-    return Sweep.all_gather(cols[0], vals[0], chunk)
+def loop_plan(mesh: Mesh, sweeps: List[Sweep],
+              form: Optional[str] = None) -> SweepPlan:
+    """The layout of a factor's chunk loop over ``mesh`` (``sweeps`` each
+    group's share of the operands), decided from the topology before any
+    launch: ``"sweep"`` for one group; ``"chunk"`` when ``form="chunk"``
+    asks for it, when some pair of groups cannot reach each other's memory
+    (:meth:`Mesh.peer_access`) or when the groups outnumber the peer
+    sweep's table; else ``"peer"``."""
+    if form not in (None, "chunk"):
+        raise ValueError(f"form {form!r}: None (by the layout) or 'chunk'")
+    groups = mesh.groups()
+    lo = tuple(g.lo for g in groups) + (mesh.D,)
+    if form == "chunk":
+        kind = "chunk"
+    elif len(groups) == 1:
+        kind = "sweep"
+    elif len(groups) > PEER_MAX_GROUPS or not mesh.peer_access().all():
+        kind = "chunk"
+    else:
+        kind = "peer"
+    return SweepPlan(kind, list(sweeps), lo)
+
+
+def ag_plan(mesh: Mesh, cols, vals, chunk: int,
+            form: Optional[str] = None) -> SweepPlan:
+    """The plan of a factor's shards (per group (nchunks, ranks, Cloc, K)
+    cols and vals): :func:`loop_plan` over each group's all_gather
+    sweep."""
+    return loop_plan(mesh, [Sweep.all_gather(c, v, chunk, mesh.D)
+                            for c, v in zip(cols, vals)], form)
 
 
 def ag_sweep(op, xs: List[torch.Tensor]) -> None:
     """The chunk loop of ``op`` (an ``AGTrsvOp`` or :class:`ShardedTrsv`)
     on replicated slot vectors ``xs`` (per group (ranks, nslots + 1), the
-    last slot zero), in place: its sweep when it has one (:func:`ag_plan`),
-    else :func:`ag_chunk_loop`."""
-    if op.plan is not None:
-        chunk_sweep(xs[0], op.plan)
+    last slot zero), in place, as its plan's form says."""
+    plan = op.plan
+    if plan.form == "sweep":
+        chunk_sweep(xs[0], plan.sweeps[0])
+    elif plan.form == "peer":
+        chunk_sweep_peer(xs, plan)
     else:
         ag_chunk_loop(op.mesh, xs, op.cols, op.vals, op.chunk, op.nchunks)
 
@@ -91,7 +126,7 @@ class ShardedTrsv:
     """Rank-sharded chunked schedule."""
 
     def __init__(self, mesh, in_rows, cols, vals, out_slots, n, nchunks,
-                 chunk, nslots):
+                 chunk, nslots, form=None):
         self.mesh = mesh
         self.in_rows = in_rows      # per group (ranks, nslots) int64 copies
         self.cols = cols            # per group (nchunks, ranks, Cloc, K)
@@ -101,13 +136,13 @@ class ShardedTrsv:
         self.nchunks = nchunks
         self.chunk = chunk
         self.nslots = nslots
-        self.plan = ag_plan(mesh, cols, vals, chunk)  # one group: the sweep
+        self.plan = ag_plan(mesh, cols, vals, chunk, form)
 
 
-def shard_trsv_schedule(mesh: Mesh, T, lower: bool, chunk: int = 256
-                        ) -> ShardedTrsv:
+def shard_trsv_schedule(mesh: Mesh, T, lower: bool, chunk: int = 256,
+                        form: Optional[str] = None) -> ShardedTrsv:
     """Build a schedule whose chunks are divisible by the ``rows`` axis and
-    place the factor shards on the ranks."""
+    place the factor shards on the ranks (``form``: :func:`loop_plan`)."""
     D = mesh.D
     C = max(chunk, D)
     C -= C % D
@@ -118,7 +153,7 @@ def shard_trsv_schedule(mesh: Mesh, T, lower: bool, chunk: int = 256
                        shard_chunks(mesh, s.cols.numpy()),
                        shard_chunks(mesh, s.vals.numpy()),
                        rep(s.out_slots), s.n, s.nchunks, C,
-                       int(s.in_rows.shape[0]))
+                       int(s.in_rows.shape[0]), form)
 
 
 def sharded_trsv_apply(st: ShardedTrsv, b) -> torch.Tensor:

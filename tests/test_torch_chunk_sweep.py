@@ -3,12 +3,14 @@ against the per-chunk loop it replaces, on the port's CPU meshes.
 
 On a mesh whose eight ranks share one device the distributed trsv runs
 ``chunk_sweep`` (on the CPU its plain version); on the split ``"cpu"`` /
-``"cpu:0"`` mesh it keeps K10a a chunk with the mesh's copies.  Here: the
-plain sweep equals the per-chunk loop bit for bit (all_gather form, halo
-form with all three legs, ``sharded_trsv_apply``; f32 and f64; chunk 64
-and 256), the halo operands' packed views equal the JAX plan's, and the
-dispatch counts.  The comparisons of the solves with the JAX package on
-both layouts are in ``test_torch_parallel.py`` and
+``"cpu:0"`` mesh it runs the peer sweep by default
+(``test_torch_peer_sweep.py``) and K10a a chunk with the mesh's copies when
+``form="chunk"`` asks for it.  Here: the plain sweep equals the per-chunk
+loop bit for bit (all_gather form, halo form with all three legs,
+``sharded_trsv_apply``; f32 and f64; chunk 64 and 256), the halo operands'
+packed views equal the JAX plan's, and the dispatch counts of both forms
+on two groups.  The comparisons of the solves with the JAX package on both
+layouts are in ``test_torch_parallel.py`` and
 ``test_torch_parallel_prec.py``.
 """
 
@@ -155,12 +157,12 @@ def test_wide_mesh_sweep_equals_chunk_loop(ranks, halo):
         x = _np(tpar.halo_trsv_apply(op, b))
     else:
         st = tpar.shard_trsv_schedule(mesh, _port(T), lower=True, chunk=64)
-        assert st.plan is not None and st.plan.ranks == ranks
+        assert st.plan.form == "sweep" and st.plan.sweeps[0].ranks == ranks
         x0 = _x0(np.random.default_rng(ranks), ranks, st.nslots + 1, dt)
         xa, xb = x0.clone(), x0.clone()
         trsv_sharded.ag_chunk_loop(mesh, [xa], st.cols, st.vals, st.chunk,
                                    st.nchunks)
-        tchunk.chunk_sweep_plain(xb, st.plan)
+        tchunk.chunk_sweep_plain(xb, st.plan.sweeps[0])
         x = _np(tpar.sharded_trsv_apply(st, b))
     assert torch.equal(xa, xb) and not torch.equal(xa, x0)
     xr = T.solve_as_strict_lower(b)
@@ -205,33 +207,44 @@ def _solve_counts(mesh, P, **kw):
     ops = [op for lv in dp.levels for op in (lv.L_op, lv.U_op)
            if op.nchunks]
     tchunk.chunk_sweep_plain.calls = 0
+    tchunk.chunk_sweep_peer_plain.calls = 0
     tchunk.chunk_fma_plain.calls = 0
     x = dp.solve(np.random.default_rng(5).standard_normal(P.precs[0].n))
     return (dp, ops, x, tchunk.chunk_sweep_plain.calls,
-            tchunk.chunk_fma_plain.calls)
+            tchunk.chunk_fma_plain.calls, tchunk.chunk_sweep_peer_plain.calls)
 
 
+@pytest.mark.parametrize("form", ["chunk", "peer"])
 @pytest.mark.parametrize("halo", [True, False])
-def test_distprec_dispatch_by_layout(halo):
+def test_distprec_dispatch_by_layout(halo, form):
     """One group: every factor application is one sweep call and no K10a
-    step runs; two groups: no sweep, one K10a step a chunk for each group.
-    Both layouts give the same solve."""
+    step runs; two groups in the ``"chunk"`` form (asked for): no sweep,
+    one K10a step a chunk for each group; two groups in the ``"peer"`` form
+    (the layout's own): one peer-sweep call a factor application, no K10a
+    step and no sweep.  Every layout gives the same solve."""
     # the JAX distribution tests' operator, factorized with the port's
     # native library (two levels and a tail; the anchors end in a level
     # with m = n, which neither package's DistPrec takes)
     P = ht.HIF().factorize(_port(poisson2d(64)), ht.Options(**RED),
                            device="cpu")
     kw = dict(halo=halo, max_halo_chunks=10**6)
-    dp, ops, x1, sweeps, fmas = _solve_counts(make_mesh(8, device="cpu"), P,
-                                              **kw)
+    dp, ops, x1, sweeps, fmas, peers = _solve_counts(
+        make_mesh(8, device="cpu"), P, **kw)
     assert len(dp.levels) >= 2 and len(ops) >= 3
     assert sum(isinstance(op, HaloOp) for op in ops) == (len(ops) if halo
                                                          else 0)
-    assert sweeps == 2 * len(ops) and fmas == 0
+    assert sweeps == 2 * len(ops) and fmas == 0 and peers == 0
+    assert {op.plan.form for op in ops} == {"sweep"}
     mesh2 = Mesh(SPLIT)
-    dp2, ops2, x2, sweeps2, fmas2 = _solve_counts(mesh2, P, **kw)
+    dp2, ops2, x2, sweeps2, fmas2, peers2 = _solve_counts(
+        mesh2, P, form=None if form == "peer" else form, **kw)
+    assert {op.plan.form for op in ops2} == {form}
     steps = 2 * sum(op.nchunks for op in ops2)
-    assert sweeps2 == 0 and fmas2 == len(mesh2.groups()) * steps
+    if form == "chunk":
+        assert sweeps2 == 0 and peers2 == 0
+        assert fmas2 == len(mesh2.groups()) * steps
+    else:
+        assert sweeps2 == 0 and fmas2 == 0 and peers2 == 2 * len(ops2)
     xa, xb = _np(x1), _np(x2)
     np.testing.assert_allclose(xa, xb, rtol=0,
                                atol=1e-12 * np.abs(xa).max())
