@@ -215,13 +215,35 @@ Phases, in order; any failed gate raises and the script exits non-zero:
    K2 alone on each schedule, a torch.profiler breakdown of the 128-RHS
    f32 solve, and gmres_hif in f64 against the host gmres_np (flag 0,
    true residual within 1.01 rtol, iterations within one).
+19. Graphs (hifir_tpu_torch.graphs), generator --seed + 11, on the packs
+   the phases above built (nothing is factorized again).  Since graphs are
+   the default, every phase above already ran its solves, products, HIFIR
+   applies and GMRES cycles as replays after a first, eager warm-up call
+   (its launch gates count that call, its timings and profiles replays).
+   Here: K1, K2 and K7 each alone in a graph, replayed and held to its
+   plain version (1e-5 / 1e-12), one launch a replay; then each cell run
+   eagerly (the pack's graphs off) and replayed, the replay's result held
+   to the eager one (GRAPH_TOL), no synchronisation inside a replay
+   (torch.cuda.set_sync_debug_mode("error")), GRAPH_REPS replays counting
+   GRAPH_REPS times one eager call's launches, CUDA-event ms and a
+   torch.profiler breakdown both ways, and the cache's programs, capture
+   seconds and pool bytes: the frozen fixture's forward, adjoint and
+   rank-override M-solves on the four packs at 128 RHS, HIFIR nirs=4 with
+   the BSR A, the convdiff products (one vector and 128 columns, both
+   ways) and the 1M f32 solve at 64 and 1 RHS; then gmres_hif,
+   fgmres_hifir and gmres_mrhs on the convdiff fixture both ways: flags 0,
+   counts within one, x within 1e-10, equal launches where the counts are
+   equal, host clock to solution, busy share, and host reads (profiler
+   synchronisations) at most ceil(iterations / SEGMENT) + cycles (once a
+   cycle for gmres_mrhs).
 
 Every torch.profiler breakdown discards one profiled warm-up run, leaves
 PROFILE_PAD_S of idle host at each end of the window (the tracer drops
 device records whose clock-converted times fall outside it) and gates the
 K1, K2 and K7 launches in its trace equal to the launch counters over the
-same runs; a window that lost records is taken again, at most
-PROFILE_TAKES times in all.  Lines with a time, a size or a share carry the
+same runs; a window that lost records is taken again with twice the pads,
+at most PROFILE_TAKES times in all, and the launches whose records it lost
+are logged.  Lines with a time, a size or a share carry the
 card's name and power limit in brackets.  The last lines are the card's
 name and power limit, one JSON object with the kernels (K8's at the
 fixtures' tails in f64) and, last, {"ok": true, "device": {...}}.
@@ -240,6 +262,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -940,16 +963,19 @@ def _kernel_name(name: str) -> str:
 # timeline milliseconds early against the launches (PERF.md section 6),
 # and without a pad the first launches' records were lost.
 PROFILE_PAD_S = 0.1
-# a window whose K1/K2/K7 records differ from the launch counters is taken
-# again, up to this many takes in all; the last take is gated
-PROFILE_TAKES = 3
-# every profiled window of the run: its clock offset (see profiled()) and
-# whether it lost records
+# a window that lost records (its K1/K2/K7 records differ from the launch
+# counters, or K8's from its factorizations) is taken again, up to this
+# many takes in all, each with twice the pads of the one before
+# (:func:`take_pads`); the last take is gated
+PROFILE_TAKES = 5
+# every profiled window of the run: where it was taken, its clock offset
+# (see profiled()), its pads, whether it lost records and, if it did, the
+# launches whose device records are missing (:func:`unmatched_launches`)
 PROFILE_WINDOWS = []
 # the host calls that queue device work
 _LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
              "cuLaunchKernelEx", "cudaLaunchCooperativeKernel",
-             "cudaMemcpyAsync")
+             "cudaMemcpyAsync", "cudaGraphLaunch")
 # the kernel names the profiler reports, by kernel
 _KERNEL_OF = {"bsr_mma_kernel": "K7", "bsr_stream_kernel": "K7",
               "sell_wide_kernel": "K1", "sell_narrow_kernel": "K1",
@@ -999,6 +1025,41 @@ def profiled(torch, body, warm=None, start=None, pads=None):
     return prof, min(lags) / 1e6 if lags else None
 
 
+def take_pads(take: int) -> tuple:
+    """The pads of a profiled window's ``take``-th take: ``PROFILE_PAD_S``
+    at each end, doubled at every take after the first."""
+    pad = PROFILE_PAD_S * 2 ** (take - 1)
+    return pad, pad
+
+
+def unmatched_launches(prof) -> list:
+    """The launches of a profiled window whose device records the trace
+    lacks: their position among the window's launches, API name and host
+    time after the first launch (ms), matched by correlation id."""
+    from torch.autograd import DeviceType
+
+    raw = prof.profiler.kineto_results.events()
+    seen = {e.correlation_id() for e in raw
+            if e.device_type() == DeviceType.CUDA}
+    host = sorted((e.start_ns(), e.correlation_id(), e.name()) for e in raw
+                  if e.device_type() != DeviceType.CUDA
+                  and e.name() in _LAUNCHES)
+    t0 = host[0][0] if host else 0
+    return [dict(position=i, api=name, host_ms=(t - t0) / 1e6)
+            for i, (t, cid, name) in enumerate(host) if cid not in seen]
+
+
+def window_record(where, take, offset, lost, prof) -> dict:
+    """One entry of ``PROFILE_WINDOWS``; the missing launches when
+    ``lost``."""
+    rec = dict(where=where, offset_ms=offset, take=take,
+               pad_s=take_pads(take)[0], lost=lost)
+    if lost:
+        rec["unmatched"] = unmatched_launches(prof)
+    PROFILE_WINDOWS.append(rec)
+    return rec
+
+
 def device_profile(torch, run, reps: int, reset=None, read=None) -> dict:
     """torch.profiler over ``reps`` runs of ``run`` (:func:`profiled`):
     device time and operations per run, the host's synchronisations per
@@ -1006,7 +1067,8 @@ def device_profile(torch, run, reps: int, reset=None, read=None) -> dict:
     K2 and K7 that the trace holds are gated equal to their launch counters
     over the same runs, so that a trace that lost kernel records fails the
     run instead of under-reporting; a window that lost some is taken again
-    (``PROFILE_TAKES``), and every take is logged with its clock offset.
+    with twice the pads (``PROFILE_TAKES``, :func:`take_pads`), and every
+    take is logged with its clock offset.
     ``reset``/``read`` replace the counters' reset and read (the
     distribution phase's take K10a and K10b too)."""
     from torch.autograd import DeviceType
@@ -1018,7 +1080,8 @@ def device_profile(torch, run, reps: int, reset=None, read=None) -> dict:
             run()
 
     for take in range(1, PROFILE_TAKES + 1):
-        prof, offset = profiled(torch, body, warm=run, start=reset)
+        prof, offset = profiled(torch, body, warm=run, start=reset,
+                                pads=take_pads(take))
         counted = read()
         events = prof.events()
         # the warm-up's closing synchronisation may fall inside the window:
@@ -1039,12 +1102,13 @@ def device_profile(torch, run, reps: int, reset=None, read=None) -> dict:
                 seen[_KERNEL_OF[name]] += 1
             us, cnt = by.get(name, (0.0, 0))
             by[name] = (us + ev.time_range.elapsed_us(), cnt + 1)
-        PROFILE_WINDOWS.append(dict(offset_ms=offset, take=take,
-                                    lost=seen != counted))
+        rec = window_record("device_profile", take, offset,
+                            seen != counted, prof)
         if seen == counted:
             break
         log(f"  profiler take {take}: saw {seen} of {counted} launches, "
-            f"clock offset {offset} ms")
+            f"clock offset {offset} ms, pads {rec['pad_s']} s; launches "
+            f"without a device record {rec['unmatched'][:8]}")
     for k, c in counted.items():
         gate(seen[k] == c, f"the profiler saw {seen[k]} {k} launches, the "
              f"launch counter {c}")
@@ -2211,7 +2275,7 @@ def k8_profile(torch, As, dname):
 
     run_all = lambda: [qrcp_device(a) for a in As]
     for take in range(1, PROFILE_TAKES + 1):
-        prof, offset = profiled(torch, run_all)
+        prof, offset = profiled(torch, run_all, pads=take_pads(take))
         names = [ev.name for ev in prof.events()
                  if ev.device_type == DeviceType.CUDA
                  and not ev.name.startswith("ProfilerStep")]
@@ -2219,9 +2283,13 @@ def k8_profile(torch, As, dname):
                                                           "Memset"))]
         copies = len(names) - len(kernels)
         lost = len(kernels) < len(As)
-        PROFILE_WINDOWS.append(dict(offset_ms=offset, take=take, lost=lost))
+        rec = window_record(f"K8 {dname}", take, offset, lost, prof)
         if not lost:
             break
+        log(f"  K8 {dname} profiler take {take}: {len(kernels)} of "
+            f"{len(As)} kernels, clock offset {offset} ms, pads "
+            f"{rec['pad_s']} s; launches without a device record "
+            f"{rec['unmatched']}")
     log(f"  K8 {dname}: {len(kernels)} device kernels, {copies} copies for "
         f"{len(As)} factorizations in the profiler (clock offset {offset} "
         "ms)")
@@ -2817,7 +2885,8 @@ def million_phase(torch, rng, smi):
     """BASELINE config 2 on the card: :func:`robust_cell` on poisson2d(1024)
     at 64 RHS, then HIFIR nirs = 4 in f64 with A as sliced ELL (the
     residual falls every step for every column).  Returns the report, the
-    launches of each part and what each must be."""
+    launches of each part, what each must be and the f32 pack with its
+    block (for :func:`graphs_phase`)."""
     import hifir_tpu_torch as ht
     from hifir_tpu_torch.models.problems import poisson2d
     from hifir_tpu_torch.ops.spmv import sliced_ell_sub_mrhs
@@ -2852,7 +2921,8 @@ def million_phase(torch, rng, smi):
     log(f"  HIFIR nirs=4 f64, {MILLION_NRHS} RHS: {ms:.4f} ms an apply "
         f"[{smi}]")
     check_launches(launches, want)
-    return report, launches, want
+    return report, launches, want, dict(pack=packs["float32"],
+                                        B=Bd["float32"])
 
 
 def saddle_phase(torch, rng, smi):
@@ -4284,6 +4354,339 @@ def poisson3d_phase(torch, rng, smi):
     check_launches(launches, want)
     return report, launches, want
 
+# ---------------------------------------------------------------------------
+# the graph layer (hifir_tpu_torch.graphs): replays against eager dispatch
+
+GRAPH_REPS = 5     # replays behind each launch-counter gate
+# per-cell tolerance of a replay against the same pack run eagerly: both
+# run the same kernels on the same inputs, so they should agree bit for
+# bit; cuBLAS may still pick another algorithm (split-K or not) under
+# capture, whose sums round differently
+GRAPH_TOL = {"float32": 1e-6, "float64": 1e-12}
+
+
+@contextlib.contextmanager
+def replays_without_sync(torch):
+    """Every graph replay inside runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a synchronising call in a
+    replay raises.  Each replay is counted in the yielded list."""
+    from hifir_tpu_torch import graphs
+
+    orig, seen = graphs.CudaGraphs.replay, []
+
+    def replay(self, graph):
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            orig(self, graph)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        seen.append(1)
+
+    graphs.CudaGraphs.replay = replay
+    try:
+        yield seen
+    finally:
+        graphs.CudaGraphs.replay = orig
+
+
+def host_syncs(torch, fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: its result
+    and the number of synchronising calls it made (the mode's warnings).
+    The profiler's count of synchronisations stands beside it: it also
+    holds one the profiler's own window makes."""
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    return out, sum("synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+
+
+def pool_bytes(torch, cache):
+    """Bytes of the device memory segments in a cache's graph pool (None
+    where the allocator's snapshot does not name segments' pools)."""
+    segs = torch.cuda.memory_snapshot()
+    if segs and "segment_pool_id" not in segs[0]:
+        return None
+    pool = tuple(cache.backend.pool)
+    return sum(s["total_size"] for s in segs
+               if tuple(s["segment_pool_id"]) == pool)
+
+
+def cache_report(torch, dp) -> dict:
+    """Programs, capture seconds and pool bytes of a pack's graph cache."""
+    c = dp.graph_cache
+    return dict(programs=len(c.entries),
+                capture_seconds=sum(e.seconds for e in c.entries.values()),
+                pool_bytes=pool_bytes(torch, c))
+
+
+def graph_kernel_rows(torch, rng, M, packs, Ab) -> dict:
+    """K1, K2 and K7 each captured alone in a graph of its own cache and
+    replayed, the replay's result held to the kernel's plain version on the
+    same inputs (1e-5 f32 / 1e-12 f64 of max|Y|), at the main path's
+    shapes: K1 on level 0's E in place (C - A X) at 128 RHS, K2 on level 0's
+    L of the dense_inv=0 pack at 128 RHS, K7 on HIFIR's BSR A at 128 RHS;
+    f32 and f64.  Each replay adds one launch to its counter."""
+    from hifir_tpu_torch import graphs
+    from hifir_tpu_torch.ops.bsr_spmv import (bsr_from_csr, bsr_matvec_mrhs,
+                                              bsr_matvec_mrhs_plain)
+    from hifir_tpu_torch.ops.spmv import (sliced_ell_sub_mrhs,
+                                          sliced_ell_sub_mrhs_plain)
+    from hifir_tpu_torch.ops.trsv import trsv_apply_mrhs, trsv_apply_plain
+
+    from hifir_tpu_torch.models.problems import poisson2d
+
+    out = {}
+    for dt in ("float32", "float64"):
+        tdt = getattr(torch, dt)
+        lv0 = packs[("auto", dt)].levels[0]
+        dev = lv0.d.device
+
+        def randn(*shape):
+            return torch.as_tensor(rng.standard_normal(shape), dtype=tdt,
+                                   device=dev)
+
+        sched = packs[(0, dt)].levels[0].L
+        Abt = Ab if dt == "float64" else bsr_from_csr(
+            poisson2d(128), bs=128, dtype=np.float32, device=dev)
+        cases = {
+            "K1": (sliced_ell_sub_mrhs, sliced_ell_sub_mrhs_plain,
+                   lambda: (lv0.E, randn(lv0.m, NRHS),
+                            randn(lv0.n - lv0.m, NRHS))),
+            "K2": (trsv_apply_mrhs, trsv_apply_plain,
+                   lambda: (sched, randn(sched.n, NRHS))),
+            "K7": (bsr_matvec_mrhs, bsr_matvec_mrhs_plain,
+                   lambda: (Abt, randn(Abt.nbr * Abt.bs, NRHS))),
+        }
+        for k, (fn, plain, make) in cases.items():
+            cache = graphs.GraphCache(graphs.CudaGraphs(dev))
+            args = make()
+            cache.call(fn, *args)                  # the warm-up and capture
+            args = make()
+            reset_counts()
+            with replays_without_sync(torch) as seen:
+                Y = cache.call(fn, *args)
+            torch.cuda.synchronize()
+            launched = read_counts()[k]
+            ref = plain(*args)
+            d = rel_diff(Y, ref)
+            tol = 1e-5 if dt == "float32" else 1e-12
+            out[f"{k} {dt}"] = dict(rel_diff=d, tol=tol, launches=launched)
+            log(f"  {k} {dt} in a replayed graph vs its plain version: "
+                f"{d:.3e} (tol {tol:.0e}); {launched} launch by the counter")
+            gate(len(seen) == 1 and launched == 1,
+                 f"{k} {dt} replay: {len(seen)} replays, {launched} launches")
+            gate(d <= tol, f"{k} {dt} in a graph: {d:.3e} > {tol}")
+    return out
+
+
+def graph_cell(torch, dp, key, run, dt, smi, reps=CHAIN) -> dict:
+    """One call cell on pack ``dp``: ``run()`` eagerly (``graphs`` off) and
+    as a replay, the replay's result held to the eager one (bit-equal or
+    within ``GRAPH_TOL``) with no synchronisation inside the replayed call;
+    the launches of one eager call and of ``GRAPH_REPS`` replays (equal to
+    ``GRAPH_REPS`` times the captured counts); CUDA-event ms a call over
+    ``reps`` back-to-back calls both ways; a torch.profiler breakdown both
+    ways (its K1/K2/K7 counts gated equal to the counters); the cache's
+    programs, capture seconds and pool bytes."""
+    rep = {}
+    dp.graphs = False
+    torch.cuda.synchronize()
+    reset_counts()
+    Xe = run()
+    torch.cuda.synchronize()
+    eager_counts = read_counts()
+    rep["eager_ms"] = timed(torch, run, reps)
+    rep["eager_profile"] = device_profile(torch, run, 3)
+    log_profile(f"{key} eager", rep["eager_profile"], rep["eager_ms"])
+    dp.graphs, dp.graph_cache = True, None
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    rep["first_call_seconds"] = time.perf_counter() - t0
+    (ent,) = dp.graph_cache.entries.values()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        Xr = run()
+        reset_counts()
+        for _ in range(GRAPH_REPS):
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    got = read_counts()
+    d = rel_diff(Xr.to(Xe.dtype), Xe)
+    rep.update(rel_diff_vs_eager=d, bit_equal=bool(torch.equal(Xr, Xe)),
+               eager_launches=eager_counts, replay_launches=got,
+               delta=list(ent.delta), **cache_report(torch, dp))
+    rep["replay_ms"] = timed(torch, run, reps)
+    rep["replay_profile"] = device_profile(torch, run, 3)
+    log_profile(f"{key} replay", rep["replay_profile"], rep["replay_ms"])
+    log(f"  {key}: eager {rep['eager_ms']:.4f} ms, replay "
+        f"{rep['replay_ms']:.4f} ms a call (CUDA events); replay vs eager "
+        f"{'bit-equal' if rep['bit_equal'] else f'{d:.3e}'}; launches "
+        f"eager {eager_counts}, {GRAPH_REPS} replays {got}; capture "
+        f"{rep['capture_seconds'] * 1e3:.1f} ms, pool "
+        f"{(rep['pool_bytes'] or 0) / 2**20:.1f} MiB [{smi}]")
+    gate(d <= GRAPH_TOL[dt], f"{key}: replay vs eager {d:.3e}")
+    for k, c in eager_counts.items():
+        gate(got[k] == GRAPH_REPS * c, f"{key}: {got[k]} {k} launches in "
+             f"{GRAPH_REPS} replays, one eager call {c}")
+    return rep
+
+
+def gmres_cell(torch, dp, key, run, bound_of, smi) -> dict:
+    """One GMRES driver on pack ``dp``, eagerly (``graphs`` off) and from
+    captured graphs: flags 0, counts within one, x within 1e-10 of each
+    other; one run of each counted (equal launches where the counts are
+    equal), timed (host clock around a synchronised run) and profiled (busy
+    share, device ops, host syncs); the replayed run reads the host at most
+    ``bound_of(count)`` times (:func:`host_syncs`) and no replay
+    synchronises."""
+    rep = {}
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    dp.graphs = False
+    reset_counts()
+    ((xe, fe, ce), rep["eager_host_reads"]), _ = wall(
+        lambda: host_syncs(torch, run))
+    eager_counts = read_counts()
+    _, rep["eager_ms"] = wall(run)
+    rep["eager_profile"] = device_profile(torch, run, 1)
+    log_profile(f"{key} eager", rep["eager_profile"], rep["eager_ms"])
+    dp.graphs, dp.graph_cache = True, None
+    _, rep["first_run_ms"] = wall(run)      # the first cycle captures
+    reset_counts()
+    with replays_without_sync(torch) as seen:
+        ((xr, fr, cr), reads), rep["replay_ms"] = wall(
+            lambda: host_syncs(torch, run))
+    got = read_counts()
+    rep["replays"] = len(seen)
+    rep["replay_profile"] = device_profile(torch, run, 1)
+    log_profile(f"{key} replay", rep["replay_profile"], rep["replay_ms"])
+    d = rel_diff(xr, xe)
+    bound = bound_of(cr)
+    rep.update(flag=(fe, fr), counts=(ce, cr), rel_diff_vs_eager=d,
+               eager_launches=eager_counts, replay_launches=got,
+               host_reads=reads, host_read_bound=bound,
+               **cache_report(torch, dp))
+    log(f"  {key}: eager {rep['eager_ms']:.2f} ms ({ce}), first run with "
+        f"captures {rep['first_run_ms']:.2f} ms, replayed "
+        f"{rep['replay_ms']:.2f} ms ({cr}; {len(seen)} replays) to solution "
+        f"(host clock); x replay vs eager {d:.3e}; host reads {reads} "
+        f"(bound {bound}; eager {rep['eager_host_reads']}); launches eager "
+        f"{eager_counts}, replayed {got}; "
+        f"{rep['programs']} programs, capture "
+        f"{rep['capture_seconds'] * 1e3:.1f} ms, pool "
+        f"{(rep['pool_bytes'] or 0) / 2**20:.1f} MiB [{smi}]")
+    gate(fe == 0 and fr == 0, f"{key}: flags {fe} / {fr}")
+    gate(abs(ce - cr) <= 1, f"{key}: {cr} replayed against {ce} eager")
+    gate(d <= 1e-10, f"{key}: x replay vs eager {d:.3e}")
+    gate(reads <= bound, f"{key}: {reads} host reads > {bound}")
+    gate(len(seen) > 0, f"{key}: no replay")
+    if ce == cr:
+        gate(got == eager_counts, f"{key}: launches {got} replayed, "
+             f"{eager_counts} eager")
+    return rep
+
+
+def graphs_phase(torch, rng, smi, ctx) -> dict:
+    """The graph layer on the card, reusing the packs of the earlier phases
+    (``ctx``): each kernel in a replayed graph against its plain version;
+    the frozen fixture's M-solves (forward, adjoint, rank override) on
+    ``auto`` and ``dense_inv=0`` in f32 and f64 at 128 RHS, HIFIR nirs=4
+    with the BSR A; the convdiff products M x and M^H x (one vector through
+    ``mmultiply``, 128 columns through ``graphs.jit``); the three GMRES
+    drivers; the 1M f32 solve at 64 and 1 RHS: see :func:`graph_cell` and
+    :func:`gmres_cell`.  Returns the report and the launches of the
+    replayed runs."""
+    import hifir_tpu_torch as ht
+    from hifir_tpu_torch import graphs
+    from hifir_tpu_torch.alg.prec import prec_prod_mrhs, prec_prod_tran_mrhs
+    from hifir_tpu_torch.solvers.gmres import SEGMENT
+
+    report, launches = {}, {}
+    M, packs, Bd, Ab = ctx["M"], ctx["packs"], ctx["Bd"], ctx["Ab"]
+    report["kernels"] = graph_kernel_rows(torch, rng, M, packs, Ab)
+    rank = M.precs[-1].dense_solver.rank
+    r = round(0.75 * rank)
+    t0 = time.perf_counter()
+    for dp in packs.values():
+        dp.pack_transpose(M.precs)
+    log(f"  pack_transpose of the four frozen packs: "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    cells = {}
+    for (di, dt), dp in packs.items():
+        B = Bd[dt]
+        cells[f"frozen dense_inv={di} {dt} forward"] = (
+            dp, dt, lambda dp=dp, B=B: dp.solve_mrhs(B))
+        cells[f"frozen dense_inv={di} {dt} adjoint"] = (
+            dp, dt, lambda dp=dp, B=B: dp.solve_mrhs(B, trans=True))
+        cells[f"frozen dense_inv={di} {dt} forward r={r}"] = (
+            dp, dt, lambda dp=dp, B=B: dp.solve_mrhs(B, r=r))
+    dp = packs[("auto", "float64")]
+    cells["frozen hifir nirs=4 bsr float64"] = (
+        dp, "float64", lambda: ht.ir_apply(Ab, dp, Bd["float64"], 4))
+    sp = ctx["spacks"][("auto", "float64")]
+    sB = torch.as_tensor(ctx["sB"], dtype=torch.float64, device=sp.device)
+    sb = sB[:, 0].contiguous()
+    prod = graphs.jit(sp, prec_prod_mrhs)
+    prod_t = graphs.jit(sp, prec_prod_tran_mrhs)
+    cells["convdiff mmultiply float64"] = (
+        sp, "float64", lambda: sp.mmultiply(sb))
+    cells["convdiff mmultiply adjoint float64"] = (
+        sp, "float64", lambda: sp.mmultiply(sb, trans=True))
+    cells[f"convdiff mmultiply {NRHS} columns float64"] = (
+        sp, "float64", lambda: prod(sp.levels, sp.prod, sp.tail, sB))
+    cells[f"convdiff mmultiply adjoint {NRHS} columns float64"] = (
+        sp, "float64", lambda: prod_t(sp.levels, sp.tran, sp.prod_tran,
+                                      sp.tail, sB))
+    mp, mB = ctx["million"]["pack"], ctx["million"]["B"]
+    mb = mB[:, 0].contiguous()
+    cells[f"1M float32 nrhs={MILLION_NRHS}"] = (
+        mp, "float32", lambda: mp.solve_mrhs(mB))
+    cells["1M float32 nrhs=1"] = (mp, "float32", lambda: mp.solve(mb))
+    report["segment"] = SEGMENT
+    for key, (dp, dt, run) in cells.items():
+        reps = 5 if key.startswith("1M") else CHAIN
+        report[key] = graph_cell(torch, dp, key, run, dt, smi, reps)
+        launches[key] = report[key]["replay_launches"]
+
+    # host reads: a single-RHS run reads ||b|| once and each segment's
+    # (done, steps, estimate) once, at most ceil(its / SEGMENT) + cycles in
+    # all at restart 30; a batched run reads once a cycle
+    ops, crank = ctx["sops"], ctx["Mc"].precs[-1].dense_solver.rank
+
+    def single(its):
+        return -(-its // SEGMENT) + -(-its // 30)
+
+    drivers = {
+        "gmres_hif": (lambda: ht.gmres_hif(ops["sell"][0], sp, sb), single),
+        "fgmres_hifir": (lambda: ht.fgmres_hifir(ops["sell"][0], sp, sb,
+                                                 rank=crank), single),
+        "gmres_mrhs": (lambda: ht.gmres_mrhs(ops["bsr"][0], sp, sB),
+                       lambda cycles: cycles),
+    }
+    for name, (run, bound_of) in drivers.items():
+        report[name] = gmres_cell(torch, sp, name, run, bound_of, smi)
+        launches[name] = report[name]["replay_launches"]
+    for dp in (*packs.values(), sp, mp):
+        dp.graphs = True
+    return report, launches
+
+
 _SOURCES = {
     "K7": ("K7_bsr", "cuda", "hifir_tpu_torch/csrc/kernels.cu",
            "hifir_tpu/ops/pallas_spmv.py:133"),
@@ -4454,7 +4857,7 @@ def main(argv=None) -> int:
         f"M-solve at {MILLION_NRHS} and 1 RHS, GMRES and HIFIR on the card")
     # its own generator, so that its inputs do not move with the rows above
     t_phase = time.perf_counter()
-    mreport, mlaunches, mwant = million_phase(
+    mreport, mlaunches, mwant, mctx = million_phase(
         torch, np.random.default_rng(args.seed + 4), smi)
     mtotal = {k: sum(c[k] for c in mlaunches.values())
               for k in ("K7", "K1", "K2")}
@@ -4541,12 +4944,35 @@ def main(argv=None) -> int:
     for k in ("K1", "K2"):
         gate(p3total[k] > 0, f"kernel {k} was not launched on the 3D path")
 
+    log("== graphs: captured CUDA graphs against eager dispatch on the "
+        "packs above (hifir_tpu_torch.graphs)")
+    # its own generator, so that its inputs do not move with the rows above
+    t_phase = time.perf_counter()
+    greport, glaunches = graphs_phase(
+        torch, np.random.default_rng(args.seed + 11), smi,
+        dict(M=M, packs=packs, Bd=Bd, Ab=Ab, spacks=spacks, sops=sops,
+             sB=sB, Mc=Mc, million=mctx))
+    del mctx
+    greport["seconds"] = time.perf_counter() - t_phase
+    gtotal = {k: sum(c[k] for c in glaunches.values())
+              for k in ("K7", "K1", "K2")}
+    log(f"  launches of the replays: {gtotal}; phase "
+        f"{greport['seconds']:.1f} s [{smi}]")
+    for k, c in gtotal.items():
+        gate(c > 0, f"kernel {k} was not launched in a replayed graph")
+
     offs = [w["offset_ms"] for w in PROFILE_WINDOWS
             if w["offset_ms"] is not None]
     log(f"== profiler: {len(PROFILE_WINDOWS)} windows, "
         f"{sum(w['lost'] for w in PROFILE_WINDOWS)} lost records and were "
         f"taken again; clock offsets {min(offs, default=0):.4f} to "
-        f"{max(offs, default=0):.4f} ms (pad {PROFILE_PAD_S * 1e3:.0f} ms)")
+        f"{max(offs, default=0):.4f} ms (pad {PROFILE_PAD_S * 1e3:.0f} ms, "
+        "doubled at each take after the first)")
+    for w in PROFILE_WINDOWS:
+        if w["lost"]:
+            log(f"  lost: {w['where']} take {w['take']}, clock offset "
+                f"{w['offset_ms']} ms, pads {w['pad_s']} s, launches without "
+                f"a device record {w['unmatched'][:8]}")
 
     kernels = []
     for k, (name, route, src, repl) in _SOURCES.items():
@@ -4560,7 +4986,7 @@ def main(argv=None) -> int:
             launches_factorize=ftotal[k], launches_1m=mtotal[k],
             launches_saddle=sir_total[k], launches_entry=etotal[k],
             launches_paths=ptotal[k], launches_demos=demtotal[k],
-            launches_3d=p3total[k],
+            launches_3d=p3total[k], launches_graphs=gtotal[k],
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
@@ -4641,6 +5067,7 @@ def main(argv=None) -> int:
                            poisson3d=p3report,
                            poisson3d_launches=p3launches,
                            poisson3d_want=p3want,
+                           graphs=greport, graphs_launches=glaunches,
                            profile_windows=PROFILE_WINDOWS,
                            seconds=time.perf_counter() - t_start), f,
                       indent=1)

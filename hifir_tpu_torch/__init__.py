@@ -9,7 +9,9 @@ GMRES of ``solvers/gmres_np.py``), packs it onto an NVIDIA GPU and applies
 it there through hand-written CUDA kernels (``csrc/kernels.cu``): the
 M-solve and its adjoint, with a runtime rank and null-space filters, the
 products M x and M^H x, HIFIR refinement and the GMRES drivers, in
-float32, float64, complex64 and complex128.  ``parallel`` distributes the
+float32, float64, complex64 and complex128; on the card these run as
+replays of captured CUDA graphs, the port's jit layer (``graphs``), unless
+a pack's ``graphs`` is off.  ``parallel`` distributes the
 M-solve, the SpMV, the Schur complement and a partitioned factorization
 over a mesh of ranks (eight on one card by default).  ``entry`` holds the
 counterparts of ``__graft_entry__.py``'s entry points (the M-solve and a

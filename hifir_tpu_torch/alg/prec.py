@@ -3,8 +3,8 @@
 The port of ``hifir_tpu/alg/prec.py``.  Per-level operands are packed once
 (scalings and permutations as index tensors, L_B and U_B as one of the three
 triangular forms of :mod:`..ops.trsv`, E and F as sliced ELL, the dense tail
-as QR/eigen/LU factors) and the levels are walked down and up in eager
-PyTorch, on blocks B of shape (n, nrhs):
+as QR/eigen/LU factors) and the levels are walked down and up in PyTorch,
+on blocks B of shape (n, nrhs):
 
 - :func:`prec_solve_mrhs`: X = M^{-1} B;
 - :func:`prec_solve_tran_mrhs`: X = M^{-H} B, on the adjoint operands that
@@ -12,6 +12,11 @@ PyTorch, on blocks B of shape (n, nrhs):
 - :func:`prec_prod_mrhs` and :func:`prec_prod_tran_mrhs`: Y = M X and
   Y = M^H X, on the operands of :meth:`DevicePrec.pack_prod` and
   :meth:`DevicePrec.pack_prod_tran`.
+
+These functions are eager.  :class:`DevicePrec`'s methods run them as the
+JAX package runs its jitted ones: as replays of captured CUDA graphs
+(:mod:`..graphs`, one cache and memory pool a pack), unless the pack's
+``graphs`` is off or it lies on the CPU.
 
 Both solves take a runtime rank ``r`` for the dense tail.  The sparse work
 runs in the kernels of :mod:`..ops`: K1 for every product with E, F, their
@@ -40,6 +45,7 @@ import numpy as np
 import torch
 
 from ..device import as_values, numpy_dtype, resolve_device, torch_dtype
+from ..graphs import GraphCache, cache_of
 from ..nsp import NspFilter, nsp_filter
 from ..ops.spmv import SlicedELL, sliced_ell_from_csr, sliced_ell_sub_mrhs
 from ..ops.trsv import (build_trsv_block_dense, build_trsv_dense,
@@ -396,7 +402,12 @@ class DevicePrec:
     ``prod_tran`` are the operands that :meth:`pack_transpose`,
     :meth:`pack_prod` and :meth:`pack_prod_tran` add.  ``dense_inv``,
     ``chunk`` and ``k_cap`` are the triangular-form settings of
-    :meth:`from_host`, which the adjoint factors reuse."""
+    :meth:`from_host`, which the adjoint factors reuse.
+
+    ``graphs`` (on by default) runs the solves and products on a CUDA pack
+    as replays of captured graphs (:mod:`~hifir_tpu_torch.graphs`), kept in
+    ``graph_cache``; off, they dispatch op by op.  On the CPU they are
+    always eager."""
 
     levels: List[DeviceLevel]
     tail: Optional[DenseTail]
@@ -411,11 +422,14 @@ class DevicePrec:
     prod_tran: Optional[List[ProdTranLevel]] = None
     nsp: Optional[NspFilter] = None
     nsp_tran: Optional[NspFilter] = None
+    graphs: bool = True
+    graph_cache: Optional[GraphCache] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @classmethod
     def from_host(cls, precs, dtype=None, chunk="auto", k_cap="auto",
                   dense_inv="auto", device="cuda",
-                  tail_on_device=False) -> "DevicePrec":
+                  tail_on_device=False, graphs=True) -> "DevicePrec":
         """Pack host levels (:class:`~hifir_tpu_torch.alg.level.LevelPrec`).
 
         ``dtype=None`` keeps the host precision, complex128 included;
@@ -430,6 +444,7 @@ class DevicePrec:
         it again on ``device`` in the pack's dtype with K8 (QRCP, the rank at
         the default ``rrqr_cond``) instead of packing the host's factors; a
         complex tail raises TypeError.
+        ``graphs``: see the class docstring.
         """
         dev = resolve_device(device)
         dense_inv = _dense_inv(dense_inv)
@@ -461,7 +476,23 @@ class DevicePrec:
             tail = _dense_tail(last, tdt, dev)
         return cls(levels=levels, tail=tail,
                    n=precs[0].n, dtype=tdt, device=dev, dense_inv=dense_inv,
-                   chunk=chunk, k_cap=k_cap)
+                   chunk=chunk, k_cap=k_cap, graphs=graphs)
+
+    def operands(self):
+        """The ``(levels, tail)`` that the module functions take, as the JAX
+        package's ``operands()`` hands its pytrees to outer jitted solvers
+        (here to :func:`~hifir_tpu_torch.graphs.jit`)."""
+        return self.levels, self.tail
+
+    def _drop(self, operands) -> None:
+        """Forget the graphs captured on operands about to be replaced."""
+        if self.graph_cache is not None and operands is not None:
+            self.graph_cache.drop(operands)
+
+    def _call(self, fn, *args):
+        """``fn(*args)`` as a replay of the pack's graph, or eagerly."""
+        cache = cache_of(self)
+        return fn(*args) if cache is None else cache.call(fn, *args)
 
     def pack_transpose(self, host_precs) -> None:
         """Pack the adjoint operands (U_B^H and L_B^H in the triangular form
@@ -471,6 +502,7 @@ class DevicePrec:
         ndt = numpy_dtype(self.dtype)
         dev = self.device
         form = (self.dense_inv, self.chunk, self.k_cap, ndt, dev)
+        self._drop(self.tran)
         self.tran = [TranLevel(
             LT=_ldu_form(_adjoint(hp.L_B), False, *form),
             UT=_ldu_form(_adjoint(hp.U_B), True, *form),
@@ -481,6 +513,7 @@ class DevicePrec:
     def pack_prod(self, host_precs) -> None:
         """Pack the forward-product operands (L_B and U_B as sliced ELL)."""
         ndt = numpy_dtype(self.dtype)
+        self._drop(self.prod)
         self.prod = [ProdLevel(
             Lell=sliced_ell_from_csr(hp.L_B, dtype=ndt, device=self.device),
             Uell=sliced_ell_from_csr(hp.U_B, dtype=ndt, device=self.device))
@@ -492,6 +525,7 @@ class DevicePrec:
         if self.tran is None:
             self.pack_transpose(host_precs)
         ndt = numpy_dtype(self.dtype)
+        self._drop(self.prod_tran)
         self.prod_tran = [ProdTranLevel(
             LellH=sliced_ell_from_csr(_adjoint(hp.L_B), dtype=ndt,
                                       device=self.device),
@@ -502,15 +536,17 @@ class DevicePrec:
     def _solve(self, B, trans: bool, r) -> torch.Tensor:
         B = as_values(B, self.dtype, self.device)
         if not trans:
-            return prec_solve_mrhs(self.levels, self.tail, B, r)
+            return self._call(prec_solve_mrhs, self.levels, self.tail, B, r)
         if self.tran is None:
             raise RuntimeError("call pack_transpose() before trans solves")
-        return prec_solve_tran_mrhs(self.levels, self.tran, self.tail, B, r)
+        return self._call(prec_solve_tran_mrhs, self.levels, self.tran,
+                          self.tail, B, r)
 
     def solve_mrhs(self, B, trans: bool = False, r: int = 0) -> torch.Tensor:
         """X = M^{-1} B (``trans``: M^{-H} B) for B of shape (n, nrhs), on
         the pack's device.  ``r > 0`` overrides the dense tail's rank; the
-        filter ``nsp`` (``nsp_tran``) is applied to every column."""
+        filter ``nsp`` (``nsp_tran``) is applied to every column, after the
+        graph."""
         X = self._solve(B, trans, r)
         return nsp_filter(self.nsp_tran if trans else self.nsp, X)
 
@@ -529,8 +565,9 @@ class DevicePrec:
             if self.prod_tran is None:
                 raise RuntimeError("call pack_prod_tran() before trans "
                                    "mmultiply")
-            return prec_prod_tran_mrhs(self.levels, self.tran,
-                                       self.prod_tran, self.tail, X)[:, 0]
+            return self._call(prec_prod_tran_mrhs, self.levels, self.tran,
+                              self.prod_tran, self.tail, X)[:, 0]
         if self.prod is None:
             raise RuntimeError("call pack_prod() before mmultiply")
-        return prec_prod_mrhs(self.levels, self.prod, self.tail, X)[:, 0]
+        return self._call(prec_prod_mrhs, self.levels, self.prod, self.tail,
+                          X)[:, 0]

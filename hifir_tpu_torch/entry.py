@@ -8,8 +8,9 @@ steps (row-sharded SpMV, all_gather, batched M-solve) and a fully
 distributed M-solve (:class:`~hifir_tpu_torch.parallel.DistPrec`) on small
 shapes.
 
-Left out, as the port has no counterpart: the XLA compile cache and the
-``XLA_FLAGS`` / ``jax_platforms`` handling.  In the port the ranks of a
+Left out, as the port has no counterpart: the XLA compile cache (a
+captured graph lives in its pack's cache, for the life of the process) and
+the ``XLA_FLAGS`` / ``jax_platforms`` handling.  In the port the ranks of a
 device are the rows of one tensor, so every rank count runs on one card (or
 on the CPU with ``device="cpu"``); given ``devices``, the dry run puts one
 rank on each listed device, as the JAX dry run's ``make_mesh(n_devices)``
@@ -43,21 +44,22 @@ def entry(device="cuda"):
     ``fn(*args) = M^{-1} B`` on convdiff2d(12), packed in float32 with
     ``chunk=1024``, and B = ones((n, 8)) on ``device``.
 
-    The JAX entry returns its jittable ``prec_solve_mrhs_device`` with the
-    pytrees of ``DevicePrec.operands()``.  The port has no jit layer and no
-    ``operands()``: ``fn`` is the eager
-    :func:`~hifir_tpu_torch.alg.prec.prec_solve_mrhs` and ``args`` are the
-    pack's ``levels`` and ``tail`` (tensors on ``device``) and B, so that
-    ``fn(*args)`` launches the kernels directly."""
+    As the JAX entry returns its jitted ``prec_solve_mrhs_device`` with the
+    pytrees of ``DevicePrec.operands()``, ``fn`` is
+    :func:`~hifir_tpu_torch.alg.prec.prec_solve_mrhs` compiled against the
+    pack (:func:`~hifir_tpu_torch.graphs.jit`: on the card its first call
+    runs it and captures the graph, every later call replays; on the CPU it
+    runs eagerly) and ``args`` are ``operands()`` and B."""
     from .alg.prec import DevicePrec, prec_solve_mrhs
     from .device import resolve_device
+    from .graphs import jit
 
     dev = resolve_device(device)
     A, M = _small_prec(nx=12)
     dp = DevicePrec.from_host(M.precs, dtype=np.float32, chunk=1024,
                               device=dev)
     B = torch.ones((A.nrows, 8), dtype=torch.float32, device=dev)
-    return prec_solve_mrhs, (dp.levels, dp.tail, B)
+    return jit(dp, prec_solve_mrhs), (*dp.operands(), B)
 
 
 def dryrun_multichip(n_ranks: int, device="cuda", devices=None) -> dict:

@@ -120,7 +120,9 @@ def bsr_spmv_cuda(A: BSR, X: torch.Tensor, path: str = None) -> torch.Tensor:
     ``bsr_spmv_cuda.launches`` counts its launches.  ``path`` is there for
     chip_smoke.py, which times both sides of :func:`bsr_path`'s choice at
     1, 2 and 4 right-hand sides on every run, each checked against the
-    plain version, so that ``STREAM_MAX_NRHS`` stays measured."""
+    plain version, so that ``STREAM_MAX_NRHS`` stays measured.  Safe inside
+    a captured graph, as K1's wrapper is (the 16-byte test reads pointers
+    that replays keep fixed)."""
     _real_only(X.dtype, "bsr_spmv")
     if X.shape[0] != A.nbr * A.bs:
         raise ValueError(f"X has {X.shape[0]} rows, BSR needs {A.nbr * A.bs}")

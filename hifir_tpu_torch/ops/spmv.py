@@ -220,7 +220,11 @@ def sell_spmv_cuda(A, X: torch.Tensor, C=None, out=None,
     writes only the rows that have entries.  Otherwise it must not overlap
     C.  It must never overlap X (checked): a row of out could be a row of X
     that A reads.  An operator without entries launches nothing; the result
-    is C (or zeros), copied into ``out`` unless ``out`` is C."""
+    is C (or zeros), copied into ``out`` unless ``out`` is C.
+
+    Safe inside a captured CUDA graph (:mod:`..graphs`): no host read, and
+    every branch depends on shapes or on operand pointers, which a graph's
+    static buffers and pool keep fixed from capture to replay."""
     _check_sign(sign)
     nrhs = X.shape[1]
     shape = (A.nrows, nrhs)

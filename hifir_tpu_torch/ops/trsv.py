@@ -125,7 +125,8 @@ def _block_dense_apply(bd: TrsvBlockDense, B: torch.Tensor) -> torch.Tensor:
     product (the padded inverse is the identity past them), so B is never
     padded: a block whose Off_b is empty multiplies B's rows directly, and
     the last block, when it is short and not empty, copies its rows into
-    the scratch S first."""
+    the scratch S first.  Every branch is on the pack's shapes, so the
+    whole apply can be captured (:mod:`..graphs`)."""
     from .spmv import sliced_ell_sub_mrhs
 
     n, W = bd.n, bd.W
@@ -495,7 +496,9 @@ def _ring_width(sched: TrsvSchedule) -> int:
 
 def trsv_apply_cuda(sched: TrsvSchedule, B: torch.Tensor) -> torch.Tensor:
     """Launch K2 once for the whole solve, B to X, one thread block a
-    column; ``trsv_apply_cuda.launches`` counts its launches."""
+    column; ``trsv_apply_cuda.launches`` counts its launches.  Safe inside a
+    captured graph: the level table it reads on the host is numpy, and its
+    scratch comes from the caching allocator (the graph's pool)."""
     n, nrhs = B.shape
     if n != sched.n:
         raise ValueError(f"B has {n} rows, the schedule {sched.n}")

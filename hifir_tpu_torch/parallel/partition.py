@@ -66,8 +66,15 @@ class _Part:
     #                        (RAS-over-DistPrec, attach_dist_solvers)
 
 
+_PARTS_EAGER = ("its parts are applied one by one and composed on the host, "
+                "some through a DistPrec, which graphs refuse")
+
+
 class PartitionedHIF:
-    """Domain-decomposed multilevel preconditioner (RAS over local HIFs)."""
+    """Domain-decomposed multilevel preconditioner (RAS over local HIFs).
+    It runs eagerly: :mod:`~hifir_tpu_torch.graphs` refuses it."""
+
+    graph_refusal = _PARTS_EAGER
 
     def __init__(self):
         self.parts: List[_Part] = []
@@ -356,13 +363,19 @@ class DevicePartitionedPrec:
     """Device-side RAS apply over per-partition ``DevicePrec`` objects.
 
     The partitions are applied in sequence and composed on the host; no
-    partition's apply communicates with another's.
+    partition's apply communicates with another's.  It runs eagerly, its
+    parts' packs with ``graphs`` off; :mod:`~hifir_tpu_torch.graphs`
+    refuses it.
     """
+
+    graph_refusal = _PARTS_EAGER
 
     def __init__(self, host: PartitionedHIF, dtype=None, device="cuda"):
         self.host = host
         self.device_precs = [p.M.to_device(dtype, device=device)
                              for p in host.parts]
+        for dp in self.device_precs:
+            dp.graphs = False
 
     def solve(self, b: np.ndarray) -> np.ndarray:
         h = self.host

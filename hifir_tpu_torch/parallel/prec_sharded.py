@@ -252,7 +252,16 @@ class DistPrec:
     ``comm_elems`` / ``allgather_elems`` sum the host-counted exchange
     volume over the halo-carried factors and the exchange plans against
     what the tiled all_gather scheme would move for them (per solve, per
-    trsv application); ``n_halo`` counts the halo-carried factors."""
+    trsv application); ``n_halo`` counts the halo-carried factors.
+
+    It runs eagerly: :mod:`~hifir_tpu_torch.graphs` refuses it
+    (``graph_refusal``)."""
+
+    graph_refusal = (
+        "its peer sweep takes an epoch that the host increments at every "
+        "launch (ops/chunk.py), which a captured launch would freeze, so "
+        "that a replay would pass its flag waits at once; and its mesh may "
+        "span several cards, which one graph does not")
 
     def __init__(self, mesh: Mesh, levels: List[DistLevel],
                  tails: Optional[List[DenseTail]], dtype: torch.dtype,

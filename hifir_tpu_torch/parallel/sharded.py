@@ -137,7 +137,8 @@ def make_sharded_ir_step(mesh: Mesh, n: int):
     :class:`~hifir_tpu_torch.alg.prec.DevicePrec` on the mesh's device.
     X and B are (n_padded, nrhs) with nrhs divisible by the ``rhs`` axis
     size and n_padded by the ``rows`` axis size; rhs-row i's ranks each
-    take a copy of columns ``[i * nrhs / rhs, (i + 1) * nrhs / rhs)``."""
+    take a copy of columns ``[i * nrhs / rhs, (i + 1) * nrhs / rhs)``.
+    The step runs eagerly: :mod:`~hifir_tpu_torch.graphs` refuses it."""
     R, D = mesh.shape["rhs"], mesh.D
     copies = {}    # (pack, device) -> the pack on that device
 
@@ -176,4 +177,7 @@ def make_sharded_ir_step(mesh: Mesh, n: int):
             out[:, cols] = Xr[0][0].to(out.device)
         return out
 
+    step.graph_refusal = (
+        "the sharded IR step spans the mesh's devices, each with its own "
+        "copy of the pack, and runs eagerly")
     return step

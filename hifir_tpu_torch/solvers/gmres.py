@@ -6,21 +6,33 @@ inner iterative refinement and a rank control (:func:`fgmres_hifir`), and
 GMRES over a block of right-hand sides (:func:`gmres_mrhs`).  The operator A
 may be an ELL or a sliced ELL (kernel K1) or a BSR (kernel K7).
 
-The iteration is the JAX package's: CGS2 as two projections, Givens
-rotations of each new Hessenberg column, the early exit of a single-RHS
-cycle once |g[j+1]| <= rtol ||b||, and, in the batched cycle, all m steps
-with a breakdown mask per column.  The vectors live on the pack's device:
-the basis V, the preconditioned Z, the M-solves, the A-products and the
-CGS2 projections (``torch.matmul``/``torch.bmm``, outside any hand kernel,
-as in the JAX package).  The Hessenberg columns, the rotations and the
-final m x m back-substitution run on the host, in numpy, in the working
-dtype.  So a single-RHS Arnoldi step syncs the host once (its Hessenberg
-column and norm come back to decide the early exit), and a batched cycle
-syncs once, when its Hessenberg matrices come back after the last step.
+The restart cycle is the JAX package's design: device-resident, static
+shapes, masked after convergence.  CGS2 as two projections, Givens
+rotations of each new Hessenberg column and the masked back-substitution
+all run on the device; the host reads a few numbers a cycle.
+
+- Single RHS (:func:`_segment`): the basis V, the preconditioned Z, the
+  Hessenberg H, the rotations G and g live in a workspace on the device.
+  The cycle runs in segments of ``SEGMENT`` Arnoldi steps, each one program;
+  a step after ``done`` (|g[j+1]| <= rtol ||b||) changes nothing (every
+  piece of state goes through ``torch.where``, as JAX's ``lax.cond`` skips
+  the step), and every segment ends by forming the cycle's x from the steps
+  so far.  The host reads (done, steps, residual estimate) after each
+  segment and ends the cycle at done: at most ceil(m / SEGMENT) reads a
+  cycle and SEGMENT - 1 masked steps after convergence (JAX reads twice a
+  cycle and masks up to m - 1 steps inside one program).
+- Batched (:func:`_cycle_mrhs`): one program for all m steps, the batched
+  rotations and the back-substitution masked by each column's ``used``
+  steps (a zero pivot is a Krylov breakdown, which is exact convergence);
+  the host reads the largest relative residual estimate once a cycle.
+
+On a CUDA pack with ``graphs`` on, each program is a captured graph in the
+pack's cache (:mod:`..graphs`; ``fgmres_hifir`` gets a set for each inner
+count it reaches); otherwise it runs eagerly.
 
 Complex packs run the same iteration: the projections conjugate the basis,
 the norms are real, and :func:`_givens` makes unitary rotations in both
-drivers.  The JAX package's single-RHS rotation
+cycles.  The JAX package's single-RHS rotation
 (``hifir_tpu/solvers/gmres.py:93-101``) does not conjugate, so on complex
 input its |g[j+1]| is not the residual norm and its iteration counts differ
 from these; its batched cycle conjugates, as this one does.
@@ -28,102 +40,189 @@ from these; its batched cycle conjugates, as this one does.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
-import numpy as np
-import scipy.linalg as sla
 import torch
 
 from ..alg.prec import prec_solve_mrhs
-from ..device import as_values, numpy_dtype
+from ..device import as_values, real_dtype
+from ..graphs import cache_of
 from ..ops.spmv import ell_matvec, ell_matvec_mrhs
-from .ir import ir_apply, residual_mrhs
+from .ir import ir_apply_mrhs, residual_mrhs
 
-__all__ = ["gmres_hif", "fgmres_hifir", "gmres_mrhs"]
+__all__ = ["gmres_hif", "fgmres_hifir", "gmres_mrhs", "SEGMENT"]
+
+# Arnoldi steps a single-RHS program runs between two host reads
+SEGMENT = 5
 
 
-def _givens(c: np.ndarray, cs: np.ndarray, sn: np.ndarray, g: np.ndarray,
-            j: int) -> None:
-    """Rotate Hessenberg column ``j`` (``c``: (m+1, R), one column per
-    right-hand side) by the stored rotations, make its own rotation and
-    apply that to ``g``, all in place."""
+def _givens(c: torch.Tensor, G: torch.Tensor, g: torch.Tensor, j: int):
+    """Rotate Hessenberg column ``j``, ``c`` of shape (m+1, *R), in place by
+    the stored rotations ``G[:j]`` (G: (m, 2, 2, *R)), and make its own
+    rotation, which sets (c[j], c[j+1]) to (rho, 0).  Returns that rotation
+    ((2, 2, *R)) and g[j:j+2] rotated by it; writes neither G nor g."""
     for i in range(j):
-        t = cs[i] * c[i] + sn[i] * c[i + 1]
-        c[i + 1] = -np.conj(sn[i]) * c[i] + np.conj(cs[i]) * c[i + 1]
-        c[i] = t
-    a, bb = c[j].copy(), c[j + 1].copy()
-    rho = np.sqrt(np.abs(a) ** 2 + np.abs(bb) ** 2)
+        c[i:i + 2] = (G[i] * c[None, i:i + 2]).sum(1)
+    a, bb = c[j], c[j + 1]
+    rho = torch.sqrt(a.abs() ** 2 + bb.abs() ** 2)
     ok = rho > 0
-    safe = np.where(ok, rho, 1)
-    cs[j] = np.where(ok, np.conj(a) / safe, 1)
-    sn[j] = np.where(ok, np.conj(bb) / safe, 0)
+    safe = torch.where(ok, rho, 1)
+    cs = torch.where(ok, a.conj() / safe, 1)
+    sn = torch.where(ok, bb.conj() / safe, 0)
+    Gj = torch.stack([torch.stack([cs, sn]),
+                      torch.stack([-sn.conj(), cs.conj()])])
     c[j] = rho
-    c[j + 1] = 0
-    g[j + 1] = -np.conj(sn[j]) * g[j]
-    g[j] = cs[j] * g[j]
+    c[j + 1].zero_()      # a scalar assignment would copy from the host
+    return Gj, Gj[:, 0] * g[j]
 
 
-def _restart_cycle(A, msolve, b: torch.Tensor, x: torch.Tensor,
-                   rtol_bnrm: float, m: int):
-    """One GMRES(m) restart cycle; returns (x_new, |residual| estimate,
-    steps done)."""
-    n = b.shape[0]
-    ndt = numpy_dtype(b.dtype)
-    r = residual_mrhs(A, b[:, None], x[:, None])[:, 0]
-    beta = float(torch.linalg.vector_norm(r))
-    V = b.new_zeros((m + 1, n))
-    Z = b.new_zeros((m, n))
-    V[0] = r / beta if beta > 0 else r
-    H = np.zeros((m + 1, m), ndt)
-    cs, sn = np.zeros((m, 1), ndt), np.zeros((m, 1), ndt)
-    g = np.zeros((m + 1, 1), ndt)
-    g[0] = beta
-    j_used = m
-    for j in range(m):
-        z = msolve(V[j])
-        w = ell_matvec(A, z)
-        Vj = V[:j + 1]
-        h1 = Vj.conj() @ w
-        w = w - h1 @ Vj
-        h2 = Vj.conj() @ w
-        w = w - h2 @ Vj
-        nrm = torch.linalg.vector_norm(w)[None].to(w.dtype)
-        col = torch.cat([h1 + h2, nrm]).cpu().numpy()
-        hj1 = float(col[-1].real)   # the norm, real in every dtype
-        V[j + 1] = w / hj1 if hj1 > 0 else w
-        Z[j] = z
-        c = np.zeros((m + 1, 1), ndt)
-        c[:j + 2, 0] = col
-        _givens(c, cs, sn, g, j)
-        H[:, j] = c[:, 0]
-        if abs(g[j + 1, 0]) <= rtol_bnrm:
-            j_used = j + 1
+@dataclasses.dataclass
+class _Cycle:
+    """A single-RHS GMRES(m) cycle's device state: b, the cycle's start x
+    and its result ``xo``, the threshold rtol ||b||, V (m+1, n), Z (m, n),
+    H (m+1, m), G (m, 2, 2), g (m+1,), ``done``, the steps ``jused`` and
+    ``stat`` = (done, jused, |residual| estimate), what the host reads."""
+
+    b: torch.Tensor
+    x: torch.Tensor
+    xo: torch.Tensor
+    rtol: torch.Tensor
+    V: torch.Tensor
+    Z: torch.Tensor
+    H: torch.Tensor
+    G: torch.Tensor
+    g: torch.Tensor
+    done: torch.Tensor
+    jused: torch.Tensor
+    stat: torch.Tensor
+
+    @classmethod
+    def new(cls, n: int, m: int, dtype, device) -> "_Cycle":
+        def z(*shape, dt=dtype):
+            return torch.zeros(shape, dtype=dt, device=device)
+
+        rdt = real_dtype(dtype)
+        return cls(z(n), z(n), z(n), z(dt=rdt), z(m + 1, n), z(m, n),
+                   z(m + 1, m), z(m, 2, 2), z(m + 1),
+                   z(dt=torch.bool), z(dt=torch.int64), z(3, dt=rdt))
+
+
+def _start(A, w: _Cycle) -> None:
+    """The cycle's start: x from the last cycle's result, r = b - A x,
+    V[0] = r / ||r||, g = ||r|| e_0, the rest of the state zero."""
+    w.x.copy_(w.xo)
+    r = residual_mrhs(A, w.b[:, None], w.x[:, None])[:, 0]
+    beta = torch.linalg.vector_norm(r)
+    for t in (w.V, w.Z, w.H, w.G, w.g, w.done, w.jused):
+        t.zero_()
+    w.g[0] = beta
+    w.V[0] = torch.where(beta > 0, r / beta, r)
+
+
+def _step(A, levels, tail, nirs: int, r, j: int, w: _Cycle) -> None:
+    """Arnoldi step j: z = HIFIR(V[j]), CGS2 of A z against V[:j+1], the
+    rotations of column j, and the done test; after ``done`` it writes back
+    what was there."""
+    z = ir_apply_mrhs(A, levels, tail, w.V[j][:, None], nirs, r)[:, 0]
+    v = ell_matvec(A, z)
+    Vj = w.V[:j + 1]
+    h1 = Vj.conj() @ v
+    v = v - h1 @ Vj
+    h2 = Vj.conj() @ v
+    v = v - h2 @ Vj
+    hj1 = torch.linalg.vector_norm(v)
+    c = torch.zeros_like(w.g)
+    c[:j + 1] = h1 + h2
+    c[j + 1] = hj1
+    Gj, gj = _givens(c, w.G, w.g, j)
+    keep = w.done
+    w.V[j + 1] = torch.where(keep, w.V[j + 1],
+                             torch.where(hj1 > 0, v / hj1, v))
+    w.Z[j] = torch.where(keep, w.Z[j], z)
+    w.H[:, j] = torch.where(keep, w.H[:, j], c)
+    w.G[j] = torch.where(keep, w.G[j], Gj)
+    w.g[j:j + 2] = torch.where(keep, w.g[j:j + 2], gj)
+    w.jused.copy_(torch.where(keep, w.jused, j + 1))
+    w.done.copy_(keep | (w.g[j + 1].abs() <= w.rtol))
+
+
+def _finish(w: _Cycle) -> None:
+    """xo = x + Z^T y, y from the leading ``jused`` block of H (the others
+    masked to the identity), and ``stat``."""
+    m = w.Z.shape[0]
+    used = torch.arange(m, device=w.g.device) < w.jused
+    Hm = (torch.where(used[:, None] & used, w.H[:m], 0)
+          + torch.diag((~used).to(w.H.dtype)))
+    y = torch.linalg.solve_triangular(
+        Hm, torch.where(used, w.g[:m], 0)[:, None], upper=True)[:, 0]
+    torch.add(w.x, y @ w.Z, out=w.xo)
+    res = w.g.gather(0, w.jused[None]).abs()
+    w.stat.copy_(torch.cat([w.done[None].to(res.dtype),
+                            w.jused[None].to(res.dtype), res]))
+
+
+def _segment(A, levels, tail, nirs: int, r, j0: int, j1: int,
+             w: _Cycle) -> None:
+    """Steps j0..j1-1 of a single-RHS cycle (the start first when j0 is 0),
+    then the cycle's x so far: one program."""
+    if j0 == 0:
+        _start(A, w)
+    for j in range(j0, j1):
+        _step(A, levels, tail, nirs, r, j, w)
+    _finish(w)
+
+
+def _run(cache, fn, *args) -> None:
+    if cache is None:
+        fn(*args)
+    else:
+        cache.step(fn, *args)
+
+
+def _workspace(cache, make, *args):
+    return make(*args) if cache is None else cache.workspace(make, *args)
+
+
+def _restart_cycle(A, prec, cache, w: _Cycle, nirs: int, r, seg: int):
+    """One GMRES(m) restart cycle in segments of ``seg`` steps; returns the
+    |residual| estimate and the steps done (x_new is in ``w.xo``)."""
+    m = w.Z.shape[0]
+    for j0 in range(0, m, seg):
+        _run(cache, _segment, A, prec.levels, prec.tail, nirs, r, j0,
+             min(m, j0 + seg), w)
+        done, jused, res = w.stat.tolist()
+        if done:
             break
-    y = sla.solve_triangular(H[:j_used, :j_used], g[:j_used, 0])
-    x_new = x + torch.as_tensor(y, device=x.device) @ Z[:j_used]
-    return x_new, float(abs(g[j_used, 0])), j_used
+    return res, int(jused)
 
 
-def _gmres(A, msolve_of, prec, b, restart, rtol, maxit, x0):
+def _gmres(A, prec, b, restart, rtol, maxit, x0, nirs_of, r):
     """The restart loop shared by :func:`gmres_hif` and
-    :func:`fgmres_hifir`; ``msolve_of(cycle)`` is the preconditioner of a
-    cycle."""
+    :func:`fgmres_hifir`; ``nirs_of(cycle)`` is a cycle's inner count."""
+    cache = cache_of(prec)
     b = as_values(b, prec.dtype, prec.device)
     bnrm = float(torch.linalg.vector_norm(b))
     if bnrm == 0.0:
         return torch.zeros_like(b), 0, 0
-    x = (torch.zeros_like(b) if x0 is None
-         else as_values(x0, prec.dtype, prec.device))
+    w = _workspace(cache, _Cycle.new, b.shape[0], restart, prec.dtype,
+                   prec.device)
+    w.b.copy_(b)
+    if x0 is None:
+        w.xo.zero_()
+    else:
+        w.xo.copy_(as_values(x0, prec.dtype, prec.device))
+    w.rtol.fill_(rtol * bnrm)
     it, flag, cycle = 0, 1, 0
     while it < maxit:
-        x, res, j_used = _restart_cycle(A, msolve_of(cycle), b, x,
-                                        rtol * bnrm, restart)
+        res, j_used = _restart_cycle(A, prec, cache, w, nirs_of(cycle), r,
+                                     SEGMENT)
         it += j_used
         cycle += 1
         if res <= rtol * bnrm:
             flag = 0
             break
-    return x, flag, it
+    return w.xo.clone(), flag, it
 
 
 def gmres_hif(A, prec, b, restart: int = 30, rtol: float = 1e-6,
@@ -133,8 +232,8 @@ def gmres_hif(A, prec, b, restart: int = 30, rtol: float = 1e-6,
     ``A`` is an ELL, sliced-ELL or BSR operator, ``prec`` a
     :class:`~hifir_tpu_torch.alg.prec.DevicePrec`.  Returns (x, flag,
     iterations); flag 0 means converged to ``rtol``."""
-    return _gmres(A, lambda cycle: lambda v: ir_apply(A, prec, v, 1), prec,
-                  b, restart, rtol, maxit, x0)
+    return _gmres(A, prec, b, restart, rtol, maxit, x0, lambda cycle: 1,
+                  None)
 
 
 def fgmres_hifir(A, prec, b, restart: int = 30, rtol: float = 1e-6,
@@ -146,16 +245,36 @@ def fgmres_hifir(A, prec, b, restart: int = 30, rtol: float = 1e-6,
     capped at ``2**max_inner``), as in the JAX package; ``rank > 0``
     overrides the dense tail's rank in every M-solve.  Returns (x, flag,
     iterations)."""
-    def msolve_of(cycle):
-        nirs = 1 << min(cycle, max_inner)
-        return lambda v: ir_apply(A, prec, v, nirs, r=rank)
-
-    return _gmres(A, msolve_of, prec, b, restart, rtol, maxit, x0)
+    return _gmres(A, prec, b, restart, rtol, maxit, x0,
+                  lambda cycle: 1 << min(cycle, max_inner), rank)
 
 
-def _restart_cycle_mrhs(A, prec, B: torch.Tensor, X: torch.Tensor, m: int):
+@dataclasses.dataclass
+class _CycleMrhs:
+    """A batched GMRES(m) cycle's device state over R columns: B, X (both
+    (n, R)), ``bsafe`` (R,) (||b_k||, 1 for a zero column), V (R, m+1, n),
+    Z (R, m, n) and ``stat``, the largest relative residual estimate."""
+
+    B: torch.Tensor
+    X: torch.Tensor
+    bsafe: torch.Tensor
+    V: torch.Tensor
+    Z: torch.Tensor
+    stat: torch.Tensor
+
+    @classmethod
+    def new(cls, n: int, R: int, m: int, dtype, device) -> "_CycleMrhs":
+        def z(*shape, dt=dtype):
+            return torch.zeros(shape, dtype=dt, device=device)
+
+        rdt = real_dtype(dtype)
+        return cls(z(n, R), z(n, R), z(R, dt=rdt), z(R, m + 1, n),
+                   z(R, m, n), z(dt=rdt))
+
+
+def _cycle_mrhs(A, levels, tail, w: _CycleMrhs) -> None:
     """One batched GMRES(m) restart cycle over the R columns of B: all m
-    steps; returns (X_new, |residual| estimates (R,)).
+    steps, X updated in place.
 
     The basis of column k is V[k] (rows are vectors), so each projection is
     one strided-batched GEMM over the columns.  The JAX layout (m+1, n, R)
@@ -163,16 +282,14 @@ def _restart_cycle_mrhs(A, prec, B: torch.Tensor, X: torch.Tensor, m: int):
     copy the basis for every projection; this one costs a transposed copy of
     the (n, R) A-product a step instead.  The M-solve reads V[:, j].T as it
     is: its first gather by p writes a contiguous block."""
-    n, R = B.shape
-    ndt = numpy_dtype(B.dtype)
+    B, X, V, Z = w.B, w.X, w.V, w.Z
+    R, m = Z.shape[0], Z.shape[1]
     Rsd = residual_mrhs(A, B, X)
     beta = torch.linalg.vector_norm(Rsd, dim=0)                    # (R,)
-    V = B.new_zeros((R, m + 1, n))
-    Z = B.new_zeros((R, m, n))
     Hd = B.new_zeros((R, m + 1, m))
     V[:, 0] = (Rsd / torch.where(beta > 0, beta, 1)).T
     for j in range(m):
-        Zj = prec_solve_mrhs(prec.levels, prec.tail, V[:, j].T)
+        Zj = prec_solve_mrhs(levels, tail, V[:, j].T)
         Z[:, j] = Zj.T
         W = ell_matvec_mrhs(A, Zj).T.contiguous()[:, None]         # (R, 1, n)
         Vj = V[:, :j + 1]                                          # (R, j+1, n)
@@ -186,27 +303,25 @@ def _restart_cycle_mrhs(A, prec, B: torch.Tensor, X: torch.Tensor, m: int):
         # a zero W (breakdown) stays zero
         torch.div(W[:, 0], torch.where(hj1 > 0, hj1, 1)[:, None],
                   out=V[:, j + 1])
-    H = Hd.cpu().numpy()
-    cs, sn = np.zeros((m, R), ndt), np.zeros((m, R), ndt)
-    g = np.zeros((m + 1, R), ndt)
-    g[0] = beta.cpu().numpy()
-    Hr = np.zeros((m + 1, m, R), ndt)
+    G = B.new_zeros((m, 2, 2, R))
+    g = B.new_zeros((m + 1, R))
+    g[0] = beta
+    Hr = B.new_zeros((m + 1, m, R))
     for j in range(m):
-        c = np.ascontiguousarray(H[:, :, j].T)                     # (m+1, R)
-        _givens(c, cs, sn, g, j)
+        c = Hd[:, :, j].T.contiguous()                             # (m+1, R)
+        G[j], g[j:j + 2] = _givens(c, G, g, j)
         Hr[:, j] = c
-    # per column, the steps before the first zero pivot (a Krylov breakdown,
-    # which is exact convergence) enter the back-substitution
-    y = np.zeros((R, m), ndt)
-    used = np.cumprod(np.abs(np.diagonal(Hr[:m, :m], axis1=0, axis2=1)) > 0,
-                      axis=1).sum(axis=1)                          # (R,)
-    for k in range(R):
-        jk = int(used[k])
-        if jk:
-            y[k, :jk] = sla.solve_triangular(Hr[:jk, :jk, k], g[:jk, k])
-    Yd = torch.as_tensor(y, device=X.device)
-    X_new = X + torch.bmm(Yd[:, None, :], Z)[:, 0].T
-    return X_new, np.abs(g[m])
+    # per column, the steps before the first zero pivot enter the
+    # back-substitution; the others are masked to the identity
+    Hm = Hr[:m].permute(2, 0, 1)                                   # (R, m, m)
+    ok = torch.diagonal(Hm, dim1=1, dim2=2).abs() > 0
+    used = torch.cumprod(ok.to(torch.int32), dim=1).bool()         # (R, m)
+    Hm = (torch.where(used[:, :, None] & used[:, None, :], Hm, 0)
+          + torch.diag_embed((~used).to(B.dtype)))
+    y = torch.linalg.solve_triangular(
+        Hm, torch.where(used, g[:m].T, 0)[:, :, None], upper=True)[:, :, 0]
+    X += torch.bmm(y[:, None, :], Z)[:, 0].T
+    w.stat.copy_((g[m].abs() / w.bsafe).max())
 
 
 def gmres_mrhs(A, prec, B, restart: int = 30, rtol: float = 1e-6,
@@ -215,15 +330,20 @@ def gmres_mrhs(A, prec, B, restart: int = 30, rtol: float = 1e-6,
     every kernel launch shared by all columns (the M-solve is the batched
     one).  Returns (X, flag, cycles); flag 0 once every column's residual
     estimate is within ``rtol`` of its ||b||."""
+    cache = cache_of(prec)
     B = as_values(B, prec.dtype, prec.device)
-    bnrm = torch.linalg.vector_norm(B, dim=0).cpu().numpy()
-    bsafe = np.where(bnrm > 0, bnrm, 1)
-    X = torch.zeros_like(B)
+    n, R = B.shape
+    w = _workspace(cache, _CycleMrhs.new, n, R, restart, prec.dtype,
+                   prec.device)
+    w.B.copy_(B)
+    w.X.zero_()
+    bnrm = torch.linalg.vector_norm(B, dim=0)
+    w.bsafe.copy_(torch.where(bnrm > 0, bnrm, 1))
     cycles, flag = 0, 1
     while cycles * restart < maxit:
-        X, res = _restart_cycle_mrhs(A, prec, B, X, restart)
+        _run(cache, _cycle_mrhs, A, prec.levels, prec.tail, w)
         cycles += 1
-        if float(np.max(res / bsafe)) <= rtol:
+        if float(w.stat) <= rtol:
             flag = 0
             break
-    return X, flag, cycles
+    return w.X.clone(), flag, cycles

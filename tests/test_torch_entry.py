@@ -17,6 +17,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
@@ -56,6 +57,35 @@ def test_entry_matches_jax_entry(jax_lib, no_cache):  # noqa: F811
     xh = P.solve(np.ones(144))
     np.testing.assert_allclose(X[:, 3], xh, rtol=0,
                                atol=1e-4 * np.abs(xh).max())
+
+
+def test_entry_returns_the_compiled_solve_and_operands(monkeypatch):
+    """As the JAX entry returns its jitted solve and ``operands()``: ``fn``
+    is ``prec_solve_mrhs`` compiled against the pack, ``args`` the pack's
+    ``operands()`` and B.  Eager on the CPU; through the graph cache (the
+    stand-in backend of ``test_torch_graphs.py``) its first call captures
+    and later calls replay, each equal to the eager solve bit for bit."""
+    from hifir_tpu_torch import graphs
+    from hifir_tpu_torch.alg.prec import prec_solve_mrhs
+
+    from test_torch_graphs import EagerGraphs
+
+    fn, args = tentry.entry(device="cpu")
+    assert fn.__wrapped__ is prec_solve_mrhs and len(args) == 3
+    levels, tail, B = args
+    ref = prec_solve_mrhs(levels, tail, B)
+    assert torch.equal(fn(*args), ref)
+    made = []
+
+    class Counted(EagerGraphs):
+        def __init__(self, device):
+            super().__init__(device)
+            made.append(self)
+
+    monkeypatch.setitem(graphs.BACKENDS, "cpu", Counted)
+    for _ in range(3):
+        assert torch.equal(fn(*args), ref)
+    assert len(made) == 1 and (made[0].captures, made[0].replays) == (1, 2)
 
 
 def test_dryrun_multichip_matches_jax_counts(jax_lib):  # noqa: F811
