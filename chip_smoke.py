@@ -184,7 +184,29 @@ Phases, in order; any failed gate raises and the script exits non-zero:
    --seed + 7) also at a seeded shape of its block and global tiers and on
    edge cases (W = 1, 512, 513, long runs, all-sentinel and padded rows)
    through every tier that holds them: columns equal, values 1e-12 /
-   1e-5, two launches bitwise equal.
+   1e-5, two launches bitwise equal.  Since the distribution's programs
+   replay by default, each run above is a first call (the eager warm-up,
+   then the capture) or a replay, and its launch gates count one call.
+   The multi-card legs also replay the four-card peer and chunk forms
+   against their eager runs and time level 0's L alone, eager and
+   replayed.
+14a. The distribution's jit sites as graphs, generator --seed + 12, on the
+   operators above, each cell eager (its owner's graphs off) against
+   replayed, bit for bit, and against its host or plain reference (1e-12
+   f64, 1e-4 f32): DistPrec poisson2d(512) f64 and f32 on one group (the
+   sweep, halo and all_gather forms) and two groups of the card (the peer
+   sweep in both forms, the chunk form); the poisson2d(64) forms; four
+   eager and four replayed peer-form solves interleaved, all bit-equal;
+   the sharded IR step on the (2, 4) mesh, halo_spmv, the ring's step on
+   the dist_schur factorize's largest tail and the factorize with its
+   rings eager against replayed (levels and tails equal, to each other
+   and to the host Schur's); dryrun_multichip(8) and its DistPrec.  In
+   each: no synchronisation in a replay, GRAPH_REPS replayed calls count
+   GRAPH_REPS times one eager call's K1, K10a, sweep, peer-sweep and K10b
+   launches (counters and profiler), CUDA-event ms and busy share both
+   ways (the chunk form's eager window not profiled: 0.2 M ops), capture
+   seconds, device ops a replay and pool bytes.  Every wait for the cards
+   polls an event with a deadline (WAIT_DEADLINE_S) and fails past it.
 15. Entry points (hifir_tpu_torch.entry, the counterpart of
    __graft_entry__.py), each part counted: entry()'s fn(*args), the f32
    M-solve of convdiff2d(12) on 8 columns of ones, against the host f64
@@ -258,6 +280,7 @@ import concurrent.futures
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -947,10 +970,18 @@ def time_main_path(torch, packs, Bd, Ab, nnz):
     return out
 
 
+# chunk_sweep_kernel<T, HALO, PEER>: the peer sweep's instances
+_PEER_SWEEP = re.compile(r"chunk_sweep_kernel<[^,]+,\s*[^,]+,\s*"
+                         r"(true|\(bool\)1)\s*>")
+
+
 def _kernel_name(name: str) -> str:
+    if "chunk_sweep_kernel" in name and _PEER_SWEEP.search(name):
+        return "chunk_peer_kernel"
     for k in ("bsr_mma_kernel", "bsr_stream_kernel", "sell_wide_kernel",
               "sell_narrow_kernel", "trsv_solve_kernel", "chunk_fma_kernel",
-              "chunk_sweep_kernel", "schur_partial_kernel"):
+              "chunk_sweep_kernel", "schur_warp_kernel",
+              "schur_block_kernel", "peer_epoch_kernel"):
         if k in name:
             return k
     return name if len(name) <= 70 else name[:67] + "..."
@@ -980,7 +1011,8 @@ _LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 _KERNEL_OF = {"bsr_mma_kernel": "K7", "bsr_stream_kernel": "K7",
               "sell_wide_kernel": "K1", "sell_narrow_kernel": "K1",
               "trsv_solve_kernel": "K2", "chunk_fma_kernel": "K10a",
-              "chunk_sweep_kernel": "sweep", "schur_partial_kernel": "K10b"}
+              "chunk_sweep_kernel": "sweep", "chunk_peer_kernel": "peer",
+              "schur_warp_kernel": "K10b", "schur_block_kernel": "K10b"}
 
 
 def profiled(torch, body, warm=None, start=None, pads=None):
@@ -3039,8 +3071,33 @@ def dist_count(torch, launches, what, fn):
     return out
 
 
-def sync_all(torch) -> None:
-    """Wait for every card (a mesh may span several)."""
+# seconds a phase waits for the cards before it fails: a peer sweep whose
+# flags never come would spin (the kernel traps after 30 s of one wait,
+# kernels.cu:kPeerWaitNs), so no wait of the script blocks for ever
+WAIT_DEADLINE_S = 120.0
+
+
+def sync_all(torch, deadline=WAIT_DEADLINE_S) -> None:
+    """Wait for every card (a mesh may span several): an event on each
+    card's current stream, polled with ``query()`` for at most ``deadline``
+    seconds; past it the run fails at once (exit 3, every process with
+    it), never blocking on a card that does not finish.  Then each card is
+    synchronised, which raises a kernel's error."""
+    evs = []
+    for i in range(torch.cuda.device_count()):
+        with torch.cuda.device(i):
+            e = torch.cuda.Event()
+            e.record()
+            evs.append(e)
+    t0 = time.perf_counter()
+    while not all(e.query() for e in evs):
+        if time.perf_counter() - t0 > deadline:
+            log(f"gate failed: the cards did not finish within {deadline} s "
+                "(a peer sweep's waits did not pass)")
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(3)
+        time.sleep(1e-4)
     for i in range(torch.cuda.device_count()):
         torch.cuda.synchronize(i)
 
@@ -3188,6 +3245,7 @@ def sweep_row(torch, book, rng, dp, lvl, Th, name):
     nbytes, nnz = sweep_bytes([sw], es)
     xw, xq = x0.clone(), x0.clone()
     ms = book.T.ms(lambda: chunk.chunk_sweep(xw, sw))
+    replay_ms = replayed_ms(torch, book.T, chunk.chunk_sweep, xw, sw)
     plain_ms = book.T.ms(lambda: chunk.chunk_sweep_plain(xq, sw), iters=3,
                          warmup=1)
     K = (sw.cols.shape[3] if sw.form == "all_gather"
@@ -3198,6 +3256,8 @@ def sweep_row(torch, book, rng, dp, lvl, Th, name):
                 f"stages={sw._kernel.stages} smem={sw._kernel.smem}",
                 xk, xp, ms, plain_ms, lib, nbytes, 2.0 * nnz, tol,
                 simt_peak(dt))
+    book.rows[-1]["replay_ms"] = replay_ms
+    log(f"    replayed from a captured graph: {replay_ms:.4f} ms")
 
 
 def k10a_row(torch, book, rng, dp):
@@ -3263,6 +3323,19 @@ def k10a_row(torch, book, rng, dp):
                 simt_peak(dt))
 
 
+def replayed_ms(torch, T, fn, xs, op) -> float:
+    """``fn(xs, op)`` (one factor application, in place) captured once in
+    a graph cache of its own (the backend its devices give:
+    ``graphs.cache_of``'s) and replayed: the Timer's ms of a replay."""
+    from hifir_tpu_torch import graphs
+
+    devs = tuple(x.device for x in (xs if isinstance(xs, list) else [xs]))
+    cache = graphs.GraphCache(graphs._backend(devs)())
+    cache.step(fn, xs, op)        # the warm-up and the capture
+    sync_all(torch)
+    return T.ms(lambda: cache.step(fn, xs, op))
+
+
 def peer_pair(torch, rng, op, dt):
     """One application of factor ``op``'s peer sweep by the kernel and by
     ``chunk_sweep_peer_plain`` on the same slot vectors (per group: random
@@ -3323,6 +3396,7 @@ def peer_row(torch, book, rng, dp, lvl, Th, name):
     xw = [x.clone() for x in x0]
     xq = [x.clone() for x in x0]
     ms = book.T.ms(lambda: chunk.chunk_sweep_peer(xw, plan))
+    replay_ms = replayed_ms(torch, book.T, chunk.chunk_sweep_peer, xw, plan)
     plain_ms = book.T.ms(lambda: chunk.chunk_sweep_peer_plain(xq, plan),
                          iters=3, warmup=1)
     sw, k = plan.sweeps[0], plan._kernel
@@ -3336,6 +3410,8 @@ def peer_row(torch, book, rng, dp, lvl, Th, name):
                 f"stages={k.stages} smem={k.smem}",
                 Y, Yp, ms, plain_ms, lib, nbytes, 2.0 * nnz, tol,
                 simt_peak(dt))
+    book.rows[-1]["replay_ms"] = replay_ms
+    log(f"    replayed from a captured graph: {replay_ms:.4f} ms")
 
 
 # K10b beside the convdiff2d(128) level-0 shape (warp tier): one seeded
@@ -3599,9 +3675,11 @@ def dist_phase(torch, T, rng, smi, k10b_seed=0):
         name = np.dtype(npdt).name
         what = f"distprec {name} solve two groups"
         t0 = time.perf_counter()
+        # eager here (graphs off): the distribution's graphs phase replays
+        # it against its eager run
         dp = dps2[name] = DistPrec.from_host(
             mesh2, P, dtype=npdt, chunk=DIST_CHUNK, max_halo_chunks=128,
-            form="chunk")
+            form="chunk", graphs=False)
         build = time.perf_counter() - t0
         shape = dist_solve_factors(dp)
         x = dist_count(torch, launches, what,
@@ -3928,10 +4006,279 @@ def dist_phase(torch, T, rng, smi, k10b_seed=0):
         # the same seeded operands in both dtypes
         report.setdefault("k10b_edges", []).extend(k10b_tiers(
             torch, book, np.random.default_rng(k10b_seed), dp.dtype))
-    # what the multi-card legs reuse
+    # what the multi-card legs and the graphs of the distribution reuse
     ctx = dict(P=P, A=A, b=b, xh=xh, single=single, Ac=Ac, Ph=Ph,
-               base=base)
+               base=base, mesh=mesh, mesh2=mesh2, mesh24=mesh24, dps=dps,
+               dps2=dps2, dps_peer=dps_peer, P64=P64, b64=b64, xh64=xh64,
+               Ae=Ae, B=B, step=step, ring_calls=calls)
     return report, launches, book.rows, ctx
+
+
+def same(torch, a, b) -> bool:
+    """Bit-equal results (a tensor, or a tuple of them)."""
+    if isinstance(a, tuple):
+        return all(same(torch, x, y) for x, y in zip(a, b, strict=True))
+    return bool(a.device == b.device and torch.equal(a, b))
+
+
+def timed_all(torch, fn, reps: int) -> float:
+    """CUDA-event ms per call on the first card over ``reps`` back-to-back
+    calls after one warm-up call, every card waited for with the
+    deadline (:func:`sync_all`)."""
+    fn()
+    sync_all(torch)
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    sync_all(torch)
+    return s.elapsed_time(e) / reps
+
+
+def dist_graph_cell(torch, owner, key, run, smi, reps=3, ref=None,
+                    tol=None, profile_eager=True, profile_replay=True,
+                    programs=1, cards=1) -> dict:
+    """One distributed program on ``owner`` (a DistPrec or a mesh): ``run()``
+    eagerly (``owner.graphs`` off) and as a replay of its captured graph.
+    The replay equals the eager run bit for bit (and, given ``ref``, its
+    host or plain reference within ``tol``); no replay synchronises
+    (:func:`replays_without_sync`); ``GRAPH_REPS`` calls count
+    ``GRAPH_REPS`` times one eager call's K1, K2, K7, K10a, sweep, peer and
+    K10b launches; CUDA-event ms both ways (``reps`` calls), the busy share
+    from a profiled window both ways (a card's: the device time of the
+    ``cards`` cards over ``cards`` times the event time; its launches gated
+    equal to the counters; the eager window skipped where ``profile_eager``
+    is off),
+    the first call's seconds (warm-up and capture), capture seconds, pool
+    bytes and device ops a replay.  With ``reps`` 1 the eager time is the
+    counted call's own (a seconds-long call needs no warm-up of its own).
+    Every wait has the deadline."""
+    rep = {}
+    owner.graphs = False
+    sync_all(torch)
+    dist_reset()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    Xe = run()
+    e.record()
+    sync_all(torch)
+    eager_counts = dist_read()
+    rep["eager_ms"] = (s.elapsed_time(e) if reps == 1
+                       else timed_all(torch, run, reps))
+    if profile_eager:
+        rep["eager_profile"] = device_profile(torch, run, 1, reset=dist_reset,
+                                              read=dist_read)
+        log_profile(f"{key} eager", rep["eager_profile"],
+                    cards * rep["eager_ms"])
+    owner.graphs, owner.graph_cache = True, None
+    t0 = time.perf_counter()
+    run()
+    sync_all(torch)
+    rep["first_call_seconds"] = time.perf_counter() - t0
+    with replays_without_sync(torch) as seen:
+        Xr = run()
+        dist_reset()
+        for _ in range(GRAPH_REPS):
+            run()
+    sync_all(torch)
+    got = dist_read()
+    cache = owner.graph_cache
+    rep.update(bit_equal=same(torch, Xr, Xe), eager_launches=eager_counts,
+               replay_launches=got, replays=len(seen),
+               programs=len(cache.entries),
+               capture_seconds=sum(e.seconds for e in cache.entries.values()),
+               pool_bytes=pool_bytes(torch, cache))
+    rep["replay_ms"] = timed_all(torch, run, reps)
+    if profile_replay:
+        rep["replay_profile"] = device_profile(torch, run, 1,
+                                               reset=dist_reset,
+                                               read=dist_read)
+        log_profile(f"{key} replay", rep["replay_profile"],
+                    cards * rep["replay_ms"])
+    rep["device_ops_per_replay"] = rep.get("replay_profile", {}).get(
+        "device_ops_per_run")
+    if ref is not None:
+        Y = Xr[0] if isinstance(Xr, tuple) else Xr
+        rep["err_vs_reference"] = rel_diff(Y.double(), ref.to(Y.device))
+        gate(rep["err_vs_reference"] <= tol, f"{key}: replay vs reference "
+             f"{rep['err_vs_reference']:.3e} > {tol}")
+    busy = {k: rep[f"{k}_profile"].get("busy_share")
+            for k in ("eager", "replay") if f"{k}_profile" in rep}
+    log(f"  {key}: eager {rep['eager_ms']:.4f} ms, replay "
+        f"{rep['replay_ms']:.4f} ms a call (CUDA events); busy "
+        + ", ".join(f"{k} {100 * v:.1f}%" for k, v in busy.items() if v)
+        + f"; replay vs eager {'bit-equal' if rep['bit_equal'] else 'DIFFERS'}"
+        + (f", vs reference {rep['err_vs_reference']:.3e} (tol {tol:.0e})"
+           if ref is not None else "")
+        + f"; launches eager {eager_counts}, {GRAPH_REPS} calls replayed "
+        f"{got}; first call {rep['first_call_seconds']:.2f} s, capture "
+        f"{rep['capture_seconds']:.3f} s, {rep['device_ops_per_replay']} "
+        f"device ops a replay, pool {(rep['pool_bytes'] or 0) / 2**20:.1f} "
+        f"MiB [{smi}]")
+    gate(rep["bit_equal"], f"{key}: the replay differs from the eager run")
+    gate(len(seen) == programs * (1 + GRAPH_REPS), f"{key}: {len(seen)} "
+         f"replays for {1 + GRAPH_REPS} calls of {programs} programs")
+    for k, c in eager_counts.items():
+        gate(got[k] == GRAPH_REPS * c, f"{key}: {got[k]} {k} launches in "
+             f"{GRAPH_REPS} replayed calls, one eager call {c}")
+    return rep
+
+
+def dist_graphs_phase(torch, rng, smi, ctx) -> dict:
+    """The distribution's jit sites as captured graphs on one card, each
+    cell eager against replayed (:func:`dist_graph_cell`): ``DistPrec``
+    poisson2d(512) f64 and f32 on one group (the sweep; halo and all_gather
+    forms) and two groups of the card (the peer sweep in both forms; the
+    chunk form), held to the host solve (1e-12 f64, 1e-4 f32); the
+    poisson2d(64) forms (1e-12); eager and replayed peer-form solves
+    interleaved, four of each, all bit-equal; the sharded IR step on the
+    (2, 4) mesh and ``halo_spmv``; the ring's step on the largest tail of
+    the dist_schur=1 convdiff2d(128) factorize, and the factorize with its
+    rings eager against replayed (levels and tail equal to each other and
+    to the host Schur's); ``dryrun_multichip(8)``'s DistPrec.  Returns the
+    report and the launches of the replayed calls."""
+    import hifir_tpu_torch as ht
+    from hifir_tpu_torch.entry import dryrun_multichip
+    from hifir_tpu_torch.graphs import jit
+    from hifir_tpu_torch.parallel import (DistPrec, build_halo_spmv,
+                                          halo_spmv, make_mesh)
+    from hifir_tpu_torch.parallel import schur as pschur
+
+    report, launches = {}, {}
+    P, b, xh = ctx["P"], ctx["b"], ctx["xh"]
+    xht = torch.as_tensor(xh)
+    mesh, mesh2 = ctx["mesh"], ctx["mesh2"]
+
+    def cell(key, owner, run, **kw):
+        report[key] = dist_graph_cell(torch, owner, key, run, smi, **kw)
+        launches[key] = report[key]["replay_launches"]
+        return report[key]
+
+    for npdt, tol in ((np.float64, 1e-12), (np.float32, 1e-4)):
+        name = np.dtype(npdt).name
+        layouts = (
+            ("one group halo", ctx["dps"][name]),
+            ("one group all_gather", DistPrec.from_host(
+                mesh, P, dtype=npdt, chunk=DIST_CHUNK, max_halo_chunks=128,
+                halo=False)),
+            ("two groups peer halo", ctx["dps_peer"][name]),
+            ("two groups peer all_gather", DistPrec.from_host(
+                mesh2, P, dtype=npdt, chunk=DIST_CHUNK, max_halo_chunks=128,
+                halo=False)),
+            ("two groups chunk", ctx["dps2"][name]))
+        for lay, dp in layouts:
+            # the chunk form: one eager call (seconds long, 0.2 M ops)
+            # counted and timed, no eager window; its replay profiled in
+            # f64 only
+            chunked = lay.endswith("chunk")
+            cell(f"p512 {name} {lay}", dp, lambda dp=dp: dp.solve(b),
+                 reps=1 if chunked else 3, ref=xht, tol=tol,
+                 profile_eager=not chunked,
+                 profile_replay=not chunked or npdt == np.float64)
+    # eager and replayed calls of one peer-form DistPrec, interleaved
+    dp = ctx["dps_peer"]["float64"]
+    xs = []
+    for _ in range(4):
+        for on in (False, True):
+            dp.graphs = on
+            xs.append(dp.solve(b))
+            sync_all(torch)
+    dp.graphs = True
+    inter = all(same(torch, x, xs[0]) for x in xs)
+    report["interleaved peer f64"] = dict(calls=len(xs), bit_equal=inter)
+    log(f"  p512 float64 two groups peer halo: 4 eager and 4 replayed "
+        f"solves interleaved, every wait within {WAIT_DEADLINE_S:.0f} s: "
+        f"{'all bit-equal' if inter else 'DIFFER'}")
+    gate(inter, "interleaved eager and replayed peer solves differ")
+
+    P64, b64 = ctx["P64"], ctx["b64"]
+    x64 = torch.as_tensor(ctx["xh64"])
+    for lay, m, kw in (("one group halo", mesh, {}),
+                       ("one group all_gather", mesh, dict(halo=False)),
+                       ("two groups peer halo", mesh2, {}),
+                       ("two groups peer all_gather", mesh2,
+                        dict(halo=False)),
+                       ("two groups chunk halo", mesh2, dict(form="chunk")),
+                       ("two groups chunk all_gather", mesh2,
+                        dict(form="chunk", halo=False))):
+        dp = DistPrec.from_host(m, P64, chunk=64, **kw)
+        cell(f"p64 {lay}", dp, lambda dp=dp: dp.solve(b64), ref=x64,
+             tol=1e-12)
+
+    # the sharded IR step on the (2, 4) mesh and the halo SpMV
+    mesh24, Ae, B, step = ctx["mesh24"], ctx["Ae"], ctx["B"], ctx["step"]
+    single = ctx["single"]
+    X0 = torch.zeros_like(B)
+    cell("ir_step (2, 4)", mesh24,
+         lambda: step(Ae, single.levels, single.tail, X0, B))
+    H = build_halo_spmv(mesh, ctx["A"])
+    xpad = randn_on(torch, rng, (H.nb * DIST_RANKS,), torch.float64)
+    xpad[ctx["A"].nrows:] = 0
+    cell("halo_spmv", mesh, lambda: halo_spmv(H, xpad))
+
+    # the ring: its step on the largest tail of the dist_schur factorize
+    C, L_E, d, U_F = max(ctx["ring_calls"], key=lambda c: c[1].nrows)
+    rmesh = make_mesh(device="cuda")
+    ring, uf_idx, uf_val = pschur.ring_operands(L_E, d, U_F, rmesh)
+    ring_step = jit(rmesh, pschur._ring_step)
+    cell(f"ring step ({L_E.nrows} tail rows)", rmesh,
+         lambda: ring_step(ring, uf_idx, uf_val))
+    # the factorize with its rings eager and replayed
+    Ac, Ph, base = ctx["Ac"], ctx["Ph"], ctx["base"]
+    ring_fn = pschur.schur_spgemm_ring
+    outs = {}
+    for on in (False, True):
+        def over(C, L_E, d, U_F, mesh=None, device="cuda", on=on):
+            m = make_mesh(device=device)
+            m.graphs = on
+            return ring_fn(C, L_E, d, U_F, mesh=m)
+
+        pschur.schur_spgemm_ring = over
+        try:
+            what = f"dist_schur factorize rings {'replayed' if on else 'eager'}"
+            t0 = time.perf_counter()
+            outs[on] = dist_count(torch, launches, what, lambda: ht.HIF()
+                                  .factorize(Ac, ht.Options(dist_schur=1,
+                                                            **base),
+                                             device="cuda"))
+            report[what] = dict(seconds=time.perf_counter() - t0,
+                                launches=launches[what])
+        finally:
+            pschur.schur_spgemm_ring = ring_fn
+    lv = [[(p.m, p.n) for p in outs[on].precs] for on in (False, True)]
+    hl = [(p.m, p.n) for p in Ph.precs]
+    tails = [outs[on].precs[-1].dense_matrix for on in (False, True)]
+    teq = all(t is None for t in tails) or np.array_equal(*tails)
+    terr = 0.0
+    if Ph.precs[-1].dense_matrix is not None:
+        dh = Ph.precs[-1].dense_matrix
+        terr = float(np.abs(tails[1] - dh).max() / np.abs(dh).max())
+    k10b = [launches[f"dist_schur factorize rings {w}"]["K10b"]
+            for w in ("eager", "replayed")]
+    report["dist_schur rings"] = dict(levels=lv[1], tail_bit_equal=teq,
+                                      tail_err_vs_host=terr, k10b=k10b)
+    log(f"  dist_schur=1 convdiff2d(128) with its rings replayed: levels "
+        f"{lv[1]} (eager rings {lv[0]}, host Schur {hl}); tails "
+        f"{'bit-equal' if teq else 'DIFFER'}, vs host {terr:.3e} (tol "
+        f"1e-12); K10b launches eager {k10b[0]}, replayed {k10b[1]}; "
+        f"{report['dist_schur factorize rings eager']['seconds']:.2f} / "
+        f"{report['dist_schur factorize rings replayed']['seconds']:.2f} s")
+    gate(lv[0] == lv[1] == hl, "dist_schur levels differ")
+    gate(teq and terr <= 1e-12, f"dist_schur tails: equal {teq}, vs host "
+         f"{terr:.3e}")
+    gate(k10b[0] == k10b[1] > 0, f"dist_schur K10b launches {k10b}")
+
+    # dryrun_multichip(8): its asserts, then its DistPrec's solve
+    r = dist_count(torch, launches, "dryrun_multichip(8)",
+                   lambda: dryrun_multichip(8))
+    dd = r["dist"]
+    ones = np.ones(dd.levels[0].n)
+    cell("dryrun_multichip(8) DistPrec", dd, lambda: dd.solve(ones),
+         ref=torch.as_tensor(r["x_host"]), tol=1e-8)
+    return report, launches
 
 
 def multicard_phase(torch, rng, smi, ctx):
@@ -3947,7 +4294,13 @@ def multicard_phase(torch, rng, smi, ctx):
     over the cards (the residual falls every step); and a dist_schur=1
     factorize of convdiff2d(128) whose ring runs over the cards (levels
     and tail equal to the host Schur's, one K10b launch a group a ring
-    step).  Returns the report and the launches of each part."""
+    step).  Every program over the cards replays one graph
+    (``graphs.MultiCardGraphs``); the f64 peer and chunk forms also run
+    eager against replayed (:func:`dist_graph_cell`, the chunk form's
+    eager call counted and timed once), and level 0's L alone, eager and
+    replayed, in f64 and f32 beside its bound and the library call
+    (:func:`peer_row`).  Returns the report and the launches of each
+    part."""
     import hifir_tpu_torch as ht
     from hifir_tpu_torch.entry import dryrun_multichip
     from hifir_tpu_torch.ops.spmv import (sliced_ell_from_csr,
@@ -4009,20 +4362,30 @@ def multicard_phase(torch, rng, smi, ctx):
                 f"build {build:.2f} s (host); rel err vs host {err:.3e} (tol "
                 f"{tol:.0e}); solve {ms:.4f} ms (CUDA events on cuda:0); "
                 f"launches/solve {per} [{smi}]")
-    # the chunk form on the same cards, for its time
+    # the chunk form on the same cards, eager here (its graph below)
     what = f"{k} cards distprec float64 halo chunk form"
     dpc = DistPrec.from_host(mesh, P, chunk=DIST_CHUNK, max_halo_chunks=128,
-                             form="chunk")
+                             form="chunk", graphs=False)
     shape = dist_solve_factors(dpc)
     x = dist_count(torch, launches, what, lambda: dpc.solve(b)).cpu().numpy()
     err = float(np.abs(x - xh).max() / xmax)
     gate(err <= 1e-12, f"{what}: {err:.3e}")
     k10a_gates(launches[what], shape, k, what)
-    ms = timed(torch, lambda: dpc.solve(b), 1)
-    report["float64 halo chunk form"] = dict(err_vs_host=err, solve_ms=ms)
+    report["float64 halo chunk form"] = dict(err_vs_host=err)
     log(f"  the same f64 halo solve, chunk form (K10a a chunk, legs as "
-        f"copies between cards): rel err {err:.3e}; solve {ms:.4f} ms "
-        f"(CUDA events on cuda:0) [{smi}]")
+        f"copies between cards): rel err {err:.3e}")
+    # both forms eager against replayed: one graph over the cards (the
+    # chunk form's eager time is its counted eager call's)
+    xht = torch.as_tensor(xh)
+    for key, dp, chunked in ((f"{k} cards peer f64 halo",
+                              dps["float64 halo"], False),
+                             (f"{k} cards chunk f64 halo", dpc, True)):
+        report[f"graphs {key}"] = dist_graph_cell(
+            torch, dp, key, lambda dp=dp: dp.solve(b), smi,
+            reps=1 if chunked else 3, ref=xht, tol=1e-12,
+            profile_eager=not chunked, cards=k)
+        launches[f"graphs {key}"] = report[f"graphs {key}"][
+            "replay_launches"]
     if reach:
         _, _, Y, Yp = peer_pair(torch, rng, dps["float64 halo"].levels[0]
                                 .L_op, torch.float64)
@@ -4032,6 +4395,13 @@ def multicard_phase(torch, rng, smi, ctx):
         report["peer_vs_plain"] = kerr
         log(f"  level-0 L peer sweep over {k} cards vs plain {kerr:.3e} "
             f"(tol 1e-12)")
+        # level 0's L alone over the cards, eager and replayed, beside its
+        # bound and the library's one-copy solve
+        book = Rows(Timer(torch))
+        for key in ("float64 halo", "float32 halo"):
+            peer_row(torch, book, rng, dps[key], 0, P.precs[0].L_B,
+                     f"K10a_peer_{k}cards")
+        report["kernel_rows"] = book.rows
     report["distprec_seconds"] = time.perf_counter() - t_part
 
     # the dry run with one rank a card
@@ -4886,6 +5256,18 @@ def main(argv=None) -> int:
     dreport["seconds"] = time.perf_counter() - t_phase
     log(f"  distribution phase {dreport['seconds']:.1f} s [{smi}]")
 
+    log("== the distribution's jit sites: captured CUDA graphs against "
+        "eager dispatch on one card (hifir_tpu_torch.graphs)")
+    # its own generator, so that its inputs do not move with the rows above
+    t_phase = time.perf_counter()
+    dgreport, dglaunches = dist_graphs_phase(
+        torch, np.random.default_rng(args.seed + 12), smi, dctx)
+    dgreport["seconds"] = time.perf_counter() - t_phase
+    dgtotal = {k: sum(c.get(k, 0) for c in dglaunches.values())
+               for k in ("K1", "K10a", "sweep", "peer", "K10b")}
+    log(f"  launches of the distribution's replayed calls: {dgtotal}; "
+        f"phase {dgreport['seconds']:.1f} s [{smi}]")
+
     log("== several cards: one group of ranks a card (the multi-card legs)")
     # its own generator, so that its inputs do not move with the rows above
     t_phase = time.perf_counter()
@@ -5013,7 +5395,7 @@ def main(argv=None) -> int:
         kernels.append(dict(
             name=name, route=route, source=src, replaces=repl,
             launches=dlaunches[run][k], launches_entry=etotal[k],
-            launches_paths=ptotal[k],
+            launches_paths=ptotal[k], launches_replays=dgtotal[k],
             launches_multicard=sum(c.get(k, 0) for c in mclaunches.values()),
             max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"],
@@ -5022,6 +5404,8 @@ def main(argv=None) -> int:
             dtype=row["dtype"], shape=row["shape"]))
         gate(dlaunches[run][k] > 0, f"kernel {k} was not launched on the "
              f"distribution path ({run})")
+        gate(dgtotal[k] > 0, f"kernel {k} was not launched in a replayed "
+             "distributed graph")
 
     # K8's rows at the K8 path's shapes (the fixtures' tails in f64), with
     # the launches of that path
@@ -5060,6 +5444,8 @@ def main(argv=None) -> int:
                            distribution=dreport,
                            distribution_launches=dlaunches,
                            distribution_kernel_rows=drows,
+                           distribution_graphs=dgreport,
+                           distribution_graphs_launches=dglaunches,
                            multicard=mcreport, multicard_launches=mclaunches,
                            entry=ereport, entry_launches=elaunches,
                            paths=preport, paths_launches=plaunches,

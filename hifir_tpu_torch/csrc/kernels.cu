@@ -1460,6 +1460,21 @@ int chunk_fma(T* x, int64_t xs, int out_off, int out_step, const int* cols,
 // cards in a launch a card, all issued before the host waits.  Bound: the
 // chain again, now with one flag handoff a step (through L2 on one card,
 // over NVLink across cards).
+// The epoch lives in device memory, one counter a card, so that the
+// launch's host arguments are the same at every call and a launch captured
+// in a CUDA graph replays right (a value passed by the host would be
+// frozen at the capture, and a replay's waits would pass at once against
+// the flags of the launch before it).  ``peer_epoch_kernel``, one thread
+// launched just before the sweep on the same stream, adds one to it; every
+// CTA of the sweep reads it at entry, after the bump in stream order.  Of
+// the two designs that keep the host arguments fixed (this bump, or an
+// epoch derived in the kernel from a flag slot that only its own group
+// writes) the bump needs no change to the flag layout and no reasoning
+// about which CTA may write the next value while others still read it;
+// it costs one launch of one thread a card.  Eager calls and replays bump
+// the same counter in stream order, so the flags stay monotone in any
+// interleaving of the two, and every card's counter moves once a factor
+// application, which keeps the cards' epochs equal.
 
 constexpr int kSweepMaxCluster = 16;  // CTAs of a non-portable cluster
 constexpr int kSweepPortable = 8;     // CTAs of a portable cluster
@@ -1590,7 +1605,9 @@ struct SweepArgs {
   const int64_t* sends[kPeerMaxGroups];
   const int64_t* desc[kPeerMaxGroups];
   int64_t xs;                  // the rows' stride, every group's
-  unsigned long long epoch;    // the launch's; above every earlier launch's
+  const unsigned long long* epoch;  // the card's counter (device memory),
+                                    // above every earlier launch's once
+                                    // bumped
   int ncta, rpc, nchunks, cloc, K, chunk, kmax, wmax, stages;
 };
 
@@ -1734,8 +1751,12 @@ chunk_sweep_kernel(const __grid_constant__ SweepArgs<T> a) {
       fill(c, c, sweep_chunk<HALO>(HALO ? desc + (int64_t)c * kSweepRec
                                         : nullptr,
                                    c, R, cloc, K));
+  // the launch's epoch, bumped in stream order before the launch
+  unsigned long long epoch = 0;
+  if constexpr (PEER)
+    epoch = *reinterpret_cast<const volatile unsigned long long*>(a.epoch);
   // every group's slot vectors are in place before any group writes them
-  if constexpr (PEER) sync_groups(a.epoch << 32);
+  if constexpr (PEER) sync_groups(epoch << 32);
 
   for (int c = 0; c < nchunks; ++c) {
     // this iteration's refill: chunk c - 1 + stages into the stage of
@@ -1822,13 +1843,48 @@ chunk_sweep_kernel(const __grid_constant__ SweepArgs<T> a) {
     }
     // after the last chunk too: no group leaves while another may still
     // write its vectors
-    if constexpr (PEER) sync_groups((a.epoch << 32) | (unsigned)(c + 1));
+    if constexpr (PEER) sync_groups((epoch << 32) | (unsigned)(c + 1));
   }
+}
+
+// One thread: the card's peer-sweep epoch, plus one (see above).
+__global__ void peer_epoch_kernel(unsigned long long* epoch) { *epoch += 1; }
+
+// The co-resident clusters of one launch shape on one card, as
+// cudaOccupancyMaxActiveClusters gave them the first time the shape was
+// launched there; later launches of the shape (a capture's among them)
+// read the record and make no query.
+struct ClusterFit {
+  const void* kernel;
+  int dev, ncta, threads, smem, fit;
+};
+constexpr int kClusterFits = 64;
+
+template <typename Kernel>
+cudaError_t cluster_fit(Kernel kernel, int dev, cudaLaunchConfig_t& cfg,
+                        int ncta, int* fit) {
+  static ClusterFit seen[kClusterFits];
+  static int nseen = 0;
+  const void* k = reinterpret_cast<const void*>(kernel);
+  const int threads = (int)cfg.blockDim.x, smem = (int)cfg.dynamicSmemBytes;
+  for (int i = 0; i < nseen; ++i)
+    if (seen[i].kernel == k && seen[i].dev == dev && seen[i].ncta == ncta &&
+        seen[i].threads == threads && seen[i].smem == smem) {
+      *fit = seen[i].fit;
+      return cudaSuccess;
+    }
+  cudaError_t err = cudaOccupancyMaxActiveClusters(fit, kernel, &cfg);
+  if (err == cudaSuccess && nseen < kClusterFits)
+    seen[nseen++] = {k, dev, ncta, threads, smem, *fit};
+  return err;
 }
 
 // The launch of one or several clusters of ``ncta`` CTAs, each running a
 // group of ``a``'s table; the co-residency of the clusters is checked
-// first where they wait on each other (several).
+// first where they wait on each other (several).  The function attributes
+// are set and the occupancy asked once a card and shape (at the first
+// call, an eager one or a graph's warm-up), so that a launch under stream
+// capture makes the launch alone.
 template <typename T>
 int sweep_launch(SweepArgs<T>& a, int nclusters, bool halo, bool peer,
                  void* stream) {
@@ -1843,10 +1899,16 @@ int sweep_launch(SweepArgs<T>& a, int nclusters, bool halo, bool peer,
   static Granted granted[4];
   cudaError_t err = allow_smem(kernel, smem, granted[2 * halo + peer]);
   if (err != cudaSuccess) return (int)err;
-  if (a.ncta > kSweepPortable) {
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  static bool nonportable[4][kMaxDevices];
+  if (a.ncta > kSweepPortable && !nonportable[2 * halo + peer][dev]) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
+    nonportable[2 * halo + peer][dev] = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(nclusters * a.ncta));
@@ -1863,7 +1925,7 @@ int sweep_launch(SweepArgs<T>& a, int nclusters, bool halo, bool peer,
   if (nclusters > 1) {
     // a cluster that waits for one that cannot be resident never ends
     int fit = 0;
-    err = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+    err = cluster_fit(kernel, dev, cfg, a.ncta, &fit);
     if (err != cudaSuccess) return (int)err;
     if (fit < nclusters) return (int)cudaErrorCooperativeLaunchTooLarge;
   }
@@ -1901,7 +1963,9 @@ int chunk_sweep(T* x, int64_t xs, int R, int nchunks, int cloc, int K,
 }
 
 // Peer access from the current card to every other card of the table (a
-// kernel's stores into another card's memory need it), once a pair.
+// kernel's stores into another card's memory need it), once a pair: the
+// first call on a card (eager, or a graph's warm-up) enables it, and a
+// launch under stream capture finds every pair in the table.
 inline cudaError_t enable_peers(const int* cards, int G) {
   static bool enabled[kMaxDevices][kMaxDevices];
   int dev = 0;
@@ -1928,15 +1992,18 @@ inline cudaError_t enable_peers(const int* cards, int G) {
 // groups ``gids`` of the G-group table that live on it.  ``xptr``,
 // ``flagptr`` and ``cards`` hold every group's slot vectors, flag slots and
 // card, ``lo`` the groups' first ranks and the rank count, and the
-// operand pointers the local groups' (host arrays).
+// operand pointers the local groups' (host arrays).  ``epoch`` is the
+// card's counter in device memory: the call bumps it (one thread, on
+// ``stream``) and then launches the sweep, which reads it.
 template <typename T>
 int chunk_peer(int G, const int64_t* xptr, const int64_t* flagptr,
                const int* lo, const int* cards, int64_t xs, int nloc,
                const int* gids, const int64_t* colptr, const int64_t* valptr,
                const int64_t* sendptr, const int64_t* descptr, int nchunks,
                int cloc, int K, int chunk, int kmax, int wmax, int stages,
-               int halo, int64_t epoch, void* stream) {
-  if (G < 1 || G > kPeerMaxGroups || nloc < 1 || nloc > G || epoch < 1)
+               int halo, unsigned long long* epoch, void* stream) {
+  if (G < 1 || G > kPeerMaxGroups || nloc < 1 || nloc > G ||
+      epoch == nullptr)
     return (int)cudaErrorInvalidValue;
   if (nchunks == 0 || cloc == 0) return (int)cudaSuccess;
   cudaError_t err = enable_peers(cards, G);
@@ -1961,7 +2028,7 @@ int chunk_peer(int G, const int64_t* xptr, const int64_t* flagptr,
     a.desc[i] = reinterpret_cast<const int64_t*>(descptr[i]);
   }
   a.xs = xs;
-  a.epoch = (unsigned long long)epoch;
+  a.epoch = epoch;
   a.rpc = sweep_rpc(rmax);
   a.ncta = (rmax + a.rpc - 1) / a.rpc;
   a.nchunks = nchunks;
@@ -1971,6 +2038,9 @@ int chunk_peer(int G, const int64_t* xptr, const int64_t* flagptr,
   a.kmax = halo ? kmax : K;
   a.wmax = wmax;
   a.stages = stages;
+  peer_epoch_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(epoch);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   return sweep_launch(a, nloc, halo != 0, true, stream);
 }
 
@@ -2996,7 +3066,8 @@ int read_rate(const void* p, int64_t nbytes, unsigned* out,
                           const int64_t* valptr, const int64_t* sendptr,     \
                           const int64_t* descptr, int nchunks, int cloc,     \
                           int K, int chunk, int kmax, int wmax, int stages,  \
-                          int halo, int64_t epoch, void* stream) {           \
+                          int halo, unsigned long long* epoch,               \
+                          void* stream) {                                     \
     return chunk_peer<T>(G, xptr, flagptr, lo, cards, xs, nloc, gids, colptr, \
                          valptr, sendptr, descptr, nchunks, cloc, K, chunk,   \
                          kmax, wmax, stages, halo, epoch, stream);           \

@@ -75,10 +75,14 @@ def dryrun_multichip(n_ranks: int, device="cuda", devices=None) -> dict:
     n_ranks`` on a ``rows`` mesh: on more than one rank the halo trsv
     engages, some level's L runs at least 8 chunks and the exchange moves
     fewer elements than the tiled all_gather would; its solve is finite
-    and within 1e-8 (float64) of max|x| of the host solve.  Returns the
-    IR residuals (``ir_residual0``, ``ir_residual2``), the DistPrec
-    (``dist``), its solution ``x``, the host's ``x_host`` and the host
-    factorization ``M``."""
+    and within 1e-8 (float64) of max|x| of the host solve.  The IR steps
+    and the DistPrec solve run through the graph layer (on the card a
+    program's first call captures it and later calls replay it: the
+    second IR step and every later ``dist.solve`` of the same shape are
+    replays; on the CPU they run eagerly).  Returns the IR residuals
+    (``ir_residual0``, ``ir_residual2``), the DistPrec (``dist``), its
+    solution ``x``, the host's ``x_host`` and the host factorization
+    ``M``."""
     from .device import resolve_device
     from .parallel import (DistPrec, make_mesh, make_sharded_ir_step,
                            shard_ell_rows)

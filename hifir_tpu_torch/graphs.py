@@ -8,12 +8,17 @@ captured once, then replayed, every kernel of it launched by the device
 without a trip through Python.
 
 A :class:`GraphCache` belongs to one pack (a
-:class:`~hifir_tpu_torch.alg.prec.DevicePrec`); its graphs share one memory
-pool and are never replayed concurrently.  Its programs are keyed like a
-jit cache: the callable (the adjoint solve is a callable of its own), the
-identity of every operand (lists of levels, a tail, an operator), and the
-shape, dtype and device of every tensor or the value of every static
-argument (a rank ``r``, ``nirs``, a segment's steps).  Two kinds:
+:class:`~hifir_tpu_torch.alg.prec.DevicePrec` or a
+:class:`~hifir_tpu_torch.parallel.DistPrec`) or one mesh (a
+:class:`~hifir_tpu_torch.parallel.Mesh`, for the distributed trsv and SpMV
+applies, the sharded IR step and the ring Schur step: the JAX package's
+distributed jit sites); its graphs share one memory pool and are never
+replayed concurrently.  Its programs are keyed like a jit cache: the
+callable (the adjoint solve is a callable of its own), the identity of
+every operand (lists of levels, a tail, an operator), and the shape, dtype
+and device of every tensor (a list of tensors, a distributed value with
+one tensor a group, item by item) or the value of every static argument (a
+rank ``r``, ``nirs``, a segment's steps).  Two kinds:
 
 - :meth:`GraphCache.call`, the jit-like call: the caller's tensors are
   copied into the program's static input buffers and the result comes back
@@ -33,15 +38,22 @@ The kernels count their launches in Python, which a replay does not run:
 a capture records what each counter gained while the program was captured
 (and takes it back, since nothing ran), and each replay adds it.
 
-Objects that cannot be captured carry a ``graph_refusal`` attribute that
-says why (``DistPrec``, ``PartitionedHIF``, the sharded IR step); handed to
-a cache they raise :class:`GraphRefused` with that reason.  On a device
-without a capture backend (the CPU) :func:`cache_of` returns None and the
-callers run their eager code.
+The backend follows the owner's devices (:func:`cache_of`): every device
+on one card (a pack, a mesh whose groups all live on one card) is
+:class:`CudaGraphs`, one graph and one pool; a mesh over several cards is
+:class:`MultiCardGraphs`, one capture on the first card's stream that forks
+every other card's stream through events, so that one graph holds the
+nodes of every card, the copies between them included.
+
+On a device without a capture backend (the CPU) :func:`cache_of` returns
+None and the callers run their eager code.  A program that cannot take an
+object raises :class:`GraphRefused` (the GMRES cycles given a
+``DistPrec``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import time
@@ -50,7 +62,8 @@ from typing import Optional
 import torch
 
 __all__ = ["GraphCache", "GraphCaptureError", "GraphRefused", "CudaGraphs",
-           "BACKENDS", "cache_of", "jit", "refuse", "read_counters"]
+           "MultiCardGraphs", "BACKENDS", "cache_of", "jit",
+           "read_counters"]
 
 
 class GraphCaptureError(RuntimeError):
@@ -62,7 +75,8 @@ class GraphRefused(TypeError):
 
 
 def _counters():
-    from .ops import bsr_spmv, spmv, trsv
+    from .ops import bsr_spmv, chunk, spmv, trsv
+    from .parallel import schur
 
     return ((spmv.sell_spmv_cuda, "launches"),
             (spmv.sell_spmv_cuda, "plus_launches"),
@@ -70,28 +84,28 @@ def _counters():
             (bsr_spmv.bsr_spmv_cuda, "launches"),
             (spmv.sliced_ell_sub_mrhs_plain, "calls"),
             (trsv.trsv_apply_plain, "calls"),
-            (bsr_spmv.bsr_matvec_mrhs_plain, "calls"))
+            (bsr_spmv.bsr_matvec_mrhs_plain, "calls"),
+            (chunk.ChunkSweep, "launches"),
+            (chunk.ChunkSweepKernel, "launches"),
+            (chunk.PeerSweepKernel, "launches"),
+            (schur.schur_partial_cuda, "launches"),
+            (chunk.chunk_fma_plain, "calls"),
+            (chunk.chunk_sweep_plain, "calls"),
+            (chunk.chunk_sweep_peer_plain, "calls"),
+            (schur.schur_partial_plain, "calls"))
 
 
 def read_counters() -> tuple:
     """The launch counters of K1 (and its sign=+1 launches), K2 and K7 and
-    the call counters of their plain versions, in :func:`_counters` order."""
+    the call counters of their plain versions, then those of the
+    distribution's kernels (K10a a chunk, the sweep, the peer sweep, K10b)
+    and of their plain versions, in :func:`_counters` order."""
     return tuple(getattr(o, a) for o, a in _counters())
 
 
 def _set_counters(values) -> None:
     for (o, a), v in zip(_counters(), values):
         setattr(o, a, v)
-
-
-def refuse(*objs) -> None:
-    """Raise :class:`GraphRefused` for the first object that carries a
-    ``graph_refusal`` reason."""
-    for o in objs:
-        reason = getattr(o, "graph_refusal", None)
-        if reason is not None:
-            raise GraphRefused(f"{getattr(o, '__name__', type(o).__name__)} "
-                               f"cannot be captured: {reason}")
 
 
 class CudaGraphs:
@@ -134,7 +148,115 @@ class CudaGraphs:
         graph.replay()
 
 
+class MultiCardGraphs(CudaGraphs):
+    """Capture and replay of a program over several cards (a mesh whose
+    groups live on more than one card) as one graph: a side stream a card
+    and one pool id, the first card's the capture's own and every other
+    card's allocations of the capturing thread routed to a pool of the same
+    id on that card.
+
+    The warm-up and the capture make every card's side stream its current
+    stream, forked from the first card's (in the capture: an event recorded
+    on the capturing stream, which each other stream waits for, so that it
+    joins the capture) and joined back at the end.  Every kernel wrapper
+    launches on its device's current stream and a copy between cards is
+    issued on the current streams of both ends, so every launch and copy of
+    the program lands in the graph.  A replay launches the graph on the
+    first card's current stream, ordered after every card's current
+    stream's earlier work and before its later work (events, no host
+    wait)."""
+
+    def __init__(self, cards):
+        self.cards = [int(c) for c in cards]
+        super().__init__(torch.device("cuda", self.cards[0]))
+        self.streams = [self.stream] + [torch.cuda.Stream(c)
+                                        for c in self.cards[1:]]
+        self.routed = set()
+
+    @contextlib.contextmanager
+    def _current(self, fork):
+        """Every card's side stream current (the first card's current device
+        too); ``fork`` before and join after, as the first card's side
+        stream waits for them."""
+        lead = self.stream
+        prev = [torch.cuda.current_stream(c) for c in self.cards]
+        with torch.cuda.device(self.cards[0]):
+            fork(prev)
+            try:
+                for s in self.streams:
+                    torch.cuda.set_stream(s)
+                torch.cuda.set_device(self.cards[0])
+                yield
+                for s in self.streams[1:]:
+                    lead.wait_stream(s)
+            finally:
+                for s in prev:
+                    torch.cuda.set_stream(s)
+                torch.cuda.set_device(self.cards[0])
+
+    def warm(self, fn, args):
+        def fork(prev):
+            for s, p in zip(self.streams, prev):
+                s.wait_stream(p)
+
+        with self._current(fork):
+            out = fn(*args)
+        for p in [torch.cuda.current_stream(c) for c in self.cards]:
+            p.wait_stream(self.stream)
+        return out
+
+    def capture(self, fn, args):
+        for c in self.cards:
+            torch.cuda.synchronize(c)
+        graph = torch.cuda.CUDAGraph()
+        lead = self.stream
+
+        def fork(prev):
+            for s in self.streams[1:]:
+                s.wait_stream(lead)
+
+        with torch.cuda.device(self.cards[0]), torch.cuda.stream(lead):
+            graph.capture_begin(pool=self.pool)
+            try:
+                for c in self.cards[1:]:
+                    torch._C._cuda_beginAllocateCurrentThreadToPool(
+                        c, self.pool)
+                    self.routed.add(c)
+                try:
+                    with self._current(fork):
+                        out = fn(*args)
+                finally:
+                    for c in self.cards[1:]:
+                        torch._C._cuda_endAllocateToPool(c, self.pool)
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass    # the capture is already void; re-raise the cause
+                raise
+            graph.capture_end()
+        return graph, out
+
+    def replay(self, graph) -> None:
+        with torch.cuda.device(self.cards[0]):
+            cur = [torch.cuda.current_stream(c) for c in self.cards]
+            for s in cur[1:]:
+                cur[0].wait_stream(s)
+            CudaGraphs.replay(self, graph)
+            for s in cur[1:]:
+                s.wait_stream(cur[0])
+
+    def __del__(self):
+        # the other cards' pools outlive nothing that uses them
+        for c in getattr(self, "routed", ()):
+            try:
+                torch._C._cuda_releasePool(c, self.pool)
+            except Exception:
+                pass
+
+
 # the capture backend of each device type; a type without one runs eagerly
+# (an owner whose devices span several cards takes MultiCardGraphs)
 BACKENDS = {"cuda": CudaGraphs}
 
 
@@ -147,12 +269,21 @@ class _Entry:
     seconds: float    # the capture's host seconds
 
 
+def _tensors(a) -> bool:
+    """A list of tensors (a distributed value: one tensor a group)."""
+    return (isinstance(a, list) and len(a) > 0
+            and all(torch.is_tensor(t) for t in a))
+
+
 def _spec(a, by_shape: bool):
     """A key item: tensors by shape, dtype and device (``by_shape``) or by
-    identity, static values by value, any other object by identity."""
+    identity, a list of tensors item by item, static values by value, any
+    other object by identity."""
     if torch.is_tensor(a):
         return (("t", tuple(a.shape), a.dtype, a.device) if by_shape
                 else ("o", id(a)))
+    if _tensors(a):
+        return ("l",) + tuple(_spec(t, by_shape) for t in a)
     if a is None or isinstance(a, (bool, int, float, str, torch.dtype,
                                    torch.device)):
         return ("v", type(a), a)
@@ -162,9 +293,19 @@ def _spec(a, by_shape: bool):
 def _fresh(out):
     if torch.is_tensor(out):
         return out.clone()
-    if isinstance(out, tuple):
-        return tuple(_fresh(o) for o in out)
+    if isinstance(out, (tuple, list)):
+        return type(out)(_fresh(o) for o in out)
     return out
+
+
+def _copy_in(static, a) -> None:
+    """The caller's tensor (or list of tensors) ``a`` into the program's
+    static input."""
+    if torch.is_tensor(a):
+        static.copy_(a)
+    elif _tensors(a):
+        for s, t in zip(static, a, strict=True):
+            s.copy_(t)
 
 
 def _name(fn) -> str:
@@ -185,23 +326,20 @@ class GraphCache:
         """``fn(*args)`` as a replay of its captured graph: the tensors of
         ``args`` are copied into the program's static inputs; the result
         is a fresh tensor (or tuple of them)."""
-        refuse(fn, *args)
         key = (fn,) + tuple(_spec(a, True) for a in args)
         ent = self.entries.get(key)
         if ent is None:
-            static = tuple(a.clone() if torch.is_tensor(a) else a
-                           for a in args)
+            static = tuple(_fresh(a) if torch.is_tensor(a) or _tensors(a)
+                           else a for a in args)
             return _fresh(self._first(key, fn, static))
         for s, a in zip(ent.args, args):
-            if torch.is_tensor(a):
-                s.copy_(a)
+            _copy_in(s, a)
         return _fresh(self._replay(ent))
 
     def step(self, fn, *args) -> None:
         """``fn(*args)`` on persistent tensors, read and written in place
         (they must outlive the cache's use of them; see
         :meth:`workspace`)."""
-        refuse(fn, *args)
         key = (fn,) + tuple(_spec(a, False) for a in args)
         ent = self.entries.get(key)
         if ent is None:
@@ -248,26 +386,42 @@ class GraphCache:
         return ent.out
 
 
+def _backend(devices):
+    """The maker of the capture backend for an owner on ``devices``, or
+    None where they run eagerly (a device type without a backend, or
+    devices of several types)."""
+    types = {d.type for d in devices}
+    make = BACKENDS.get(devices[0].type) if len(types) == 1 else None
+    if make is None or devices[0].type != "cuda":
+        return None if make is None else functools.partial(make, devices[0])
+    from .parallel.mesh import device_index
+
+    cards = list(dict.fromkeys(device_index(d) for d in devices))
+    if len(cards) > 1:
+        return functools.partial(MultiCardGraphs, cards)
+    return functools.partial(make, torch.device("cuda", cards[0]))
+
+
 def cache_of(prec) -> Optional[GraphCache]:
-    """The graph cache of a pack (made at first use), or None when its
-    programs run eagerly: ``prec.graphs`` is off, or its device has no
-    capture backend.  Raises :class:`GraphRefused` for an object that
-    cannot be captured."""
-    refuse(prec)
+    """The graph cache of a pack or a mesh (made at first use), or None
+    when its programs run eagerly: ``prec.graphs`` is off, or its devices
+    have no capture backend.  The devices are ``prec.devices`` (a mesh's
+    ranks', a ``DistPrec``'s) or ``prec.device``."""
     if not getattr(prec, "graphs", False):
         return None
-    make = BACKENDS.get(prec.device.type)
+    make = _backend(tuple(getattr(prec, "devices", None) or (prec.device,)))
     if make is None:
         return None
     if prec.graph_cache is None:
-        prec.graph_cache = GraphCache(make(prec.device))
+        prec.graph_cache = GraphCache(make())
     return prec.graph_cache
 
 
 def jit(prec, fn):
-    """``fn`` compiled against ``prec``'s cache, as ``jax.jit(fn)`` is:
-    ``jit(prec, fn)(*args)`` is :meth:`GraphCache.call`, or ``fn(*args)``
-    where the pack runs eagerly."""
+    """``fn`` compiled against ``prec``'s cache (a pack's or a mesh's), as
+    ``jax.jit(fn)`` is: ``jit(prec, fn)(*args)`` is
+    :meth:`GraphCache.call`, or ``fn(*args)`` where the owner runs
+    eagerly."""
     @functools.wraps(fn)
     def compiled(*args):
         cache = cache_of(prec)

@@ -39,7 +39,7 @@ _SIGNATURES = {
     "chunk_sweep": [_P, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
                     _P],
     "chunk_peer": [_I, _P, _P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-                   _I, _I, _I, _I, _I, _L, _P],
+                   _I, _I, _I, _I, _I, _P, _P],
     "schur_partial": [_P, _P, _P, _L, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
                       _I, _P, _P, _P, _P],
     "qrcp": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],

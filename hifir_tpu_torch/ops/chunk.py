@@ -478,10 +478,14 @@ class PeerSweepKernel:
     :class:`ChunkSweepKernel` checks a sweep's), the ring's stages fitted
     to the largest group's CTAs, and each group gets G flag slots on its
     card (zeros; a launch's values are above every earlier one's, so they
-    are never reset).  Each call checks the groups' slot vectors, then
-    launches once a card, every card's launch issued before anything
-    waits: the groups on a card run as the clusters of its one launch.
-    ``PeerSweepKernel.launches`` counts the launches."""
+    are never reset).  Each card gets one epoch counter in device memory
+    (``epochs``, zero), which its launch bumps before the sweep reads it:
+    the host arguments of a card's launch are the same at every call, so a
+    launch captured in a CUDA graph replays as an eager call runs, and
+    eager calls and replays may interleave.  Each call checks the groups'
+    slot vectors, then launches once a card, every card's launch issued
+    before anything waits: the groups on a card run as the clusters of its
+    one launch.  ``PeerSweepKernel.launches`` counts the launches."""
 
     launches = 0
 
@@ -502,10 +506,15 @@ class PeerSweepKernel:
         # the largest group's CTAs hold the most ranks
         self.stages, self.smem = _fit_ring(max(sws, key=lambda sw: sw.ranks),
                                            self.kmax, self.wmax)
-        cards = [sw.vals.device.index for sw in sws]
+        from ..parallel.mesh import device_index
+
+        cards = [device_index(sw.vals.device) for sw in sws]
         self.flags = [torch.zeros(G, dtype=torch.int64, device=sw.vals.device)
                       for sw in sws]
-        self.epoch = 0
+        self.epochs = {card: torch.zeros(1, dtype=torch.int64,
+                                         device=sws[cards.index(card)]
+                                         .vals.device)
+                       for card in dict.fromkeys(cards)}
         # the host arrays of the C entry: the table, then each card's groups
         self.lo = np.asarray(plan.lo, np.int32)
         self.cards = np.asarray(cards, np.int32)
@@ -519,6 +528,7 @@ class PeerSweepKernel:
         for card in dict.fromkeys(cards):
             loc = [g for g in range(G) if cards[g] == card]
             self.launch.append((card, np.asarray(loc, np.int32),
+                                self.epochs[card].data_ptr(),
                                 [ptr([sws[g].cols for g in loc]),
                                  ptr([sws[g].vals for g in loc]),
                                  ptr([sws[g].sends for g in loc]),
@@ -537,18 +547,17 @@ class PeerSweepKernel:
         if len({x.shape[1] for x in xs}) != 1:
             raise ValueError("chunk_peer: the groups' slot vectors differ "
                              "in length")
-        self.epoch += 1
         xptr = np.array([x.data_ptr() for x in xs], np.int64)
         sw = sws[0]
         p = lambda a: a.ctypes.data  # noqa: E731
-        for card, loc, (cols, vals, sends, desc) in self.launch:
+        for card, loc, epoch, (cols, vals, sends, desc) in self.launch:
             with torch.cuda.device(card):
                 err = self.fn(
                     len(sws), p(xptr), p(self.flagptr), p(self.lo),
                     p(self.cards), xs[0].shape[1], len(loc), p(loc), p(cols),
                     p(vals), p(sends), p(desc), sw.nchunks, sw.cloc, self.K,
                     sw.chunk, self.kmax, self.wmax, self.stages,
-                    int(sw.form == "halo"), self.epoch,
+                    int(sw.form == "halo"), epoch,
                     torch.cuda.current_stream(card).cuda_stream)
             check(err, f"chunk_peer on cuda:{card}")
             PeerSweepKernel.launches += 1

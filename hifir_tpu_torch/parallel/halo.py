@@ -17,6 +17,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..graphs import jit
 from ..ops.spmv import ELL, sliced_ell_sub_mrhs
 from .mesh import Mesh
 from .sharded import pad_rows, stacked_ell
@@ -83,9 +84,15 @@ def build_halo_spmv(mesh: Mesh, A, dtype=None) -> HaloSpMV:
 def halo_spmv(H: HaloSpMV, x) -> torch.Tensor:
     """y = A x with x and y row-sharded: ``x`` is the padded vector of the
     ranks' blocks (rank order), split into one block a rank; only
-    neighbour halos move.  Returns y the same way."""
+    neighbour halos move.  Returns y the same way.  One program of the
+    mesh's graph cache for each shape and dtype of x (the JAX package jits
+    it), replayed."""
+    x = torch.as_tensor(x, device=H.mesh.device)
+    return jit(H.mesh, _halo_spmv)(H, x)
+
+
+def _halo_spmv(H: HaloSpMV, x: torch.Tensor) -> torch.Tensor:
     mesh, nb, halo = H.mesh, H.nb, H.halo
-    x = torch.as_tensor(x)
     xs = [x.view(mesh.D, nb)[g.lo:g.hi].to(g.device) for g in mesh.groups()]
     # each rank's [halo_l | local | halo_r | 0]
     ext = [xl.new_zeros((xl.shape[0], H.width + 1)) for xl in xs]

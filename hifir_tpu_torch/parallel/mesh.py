@@ -15,7 +15,16 @@ collectives the JAX code uses are written over such lists:
 - :meth:`Mesh.shift` (``ppermute`` to the right or left neighbour, or
   around the ring), :meth:`Mesh.all_gather` (tiled), :meth:`Mesh.psum`;
 - within a group they are gathers and copies; between groups, peer copies
-  (``.to(device, non_blocking=True)``).
+  (``.to(device, non_blocking=True)``), which torch issues on the current
+  streams of both ends.  Inside a captured graph
+  (:mod:`~hifir_tpu_torch.graphs`) every card's current stream is one that
+  the capture forked, so each copy is a node of the graph and runs at
+  every replay.
+
+A mesh owns the graph cache (``graphs``, ``graph_cache``) of the programs
+over it that the JAX package jits on its own: the distributed trsv and
+SpMV applies, the sharded IR step, the ring Schur step and rotation.
+``mesh.graphs = False`` runs them eagerly.
 
 A group's card is :func:`device_index` of its device (``"cuda"`` is the
 current card, so ``"cuda:0"`` and ``"cuda"`` are two groups of one card);
@@ -83,11 +92,19 @@ class Mesh:
             raise ValueError(f"{len(devs)} ranks do not split into rhs={rhs}")
         self.devices = tuple(devs)
         self.shape = {"rhs": rhs, "rows": len(devs) // rhs}
+        self.graphs = True
+        self.graph_cache = None
 
     @property
     def D(self) -> int:
         """Ranks along ``rows``."""
         return self.shape["rows"]
+
+    @property
+    def device(self) -> torch.device:
+        """The first rank's device: where a caller's replicated input and
+        rank 0's result live."""
+        return self.devices[0]
 
     def __repr__(self) -> str:
         return f"Mesh(shape={self.shape}, devices={list(self.devices)})"

@@ -20,6 +20,9 @@ On the device, :meth:`PartitionedHIF.to_device` packs a
 :meth:`PartitionedHIF.attach_dist_solvers` a
 :class:`~.prec_sharded.DistPrec` per owned part over the process's own
 mesh of ranks; the adjoint keeps the host path, as in the JAX package.
+Each part's device solve is a replay of its own captured graph (the JAX
+package's parts are jitted ``DevicePrec`` s); the RAS composition of the
+parts stays on the host, as there.
 """
 
 from __future__ import annotations
@@ -66,15 +69,8 @@ class _Part:
     #                        (RAS-over-DistPrec, attach_dist_solvers)
 
 
-_PARTS_EAGER = ("its parts are applied one by one and composed on the host, "
-                "some through a DistPrec, which graphs refuse")
-
-
 class PartitionedHIF:
-    """Domain-decomposed multilevel preconditioner (RAS over local HIFs).
-    It runs eagerly: :mod:`~hifir_tpu_torch.graphs` refuses it."""
-
-    graph_refusal = _PARTS_EAGER
+    """Domain-decomposed multilevel preconditioner (RAS over local HIFs)."""
 
     def __init__(self):
         self.parts: List[_Part] = []
@@ -363,19 +359,15 @@ class DevicePartitionedPrec:
     """Device-side RAS apply over per-partition ``DevicePrec`` objects.
 
     The partitions are applied in sequence and composed on the host; no
-    partition's apply communicates with another's.  It runs eagerly, its
-    parts' packs with ``graphs`` off; :mod:`~hifir_tpu_torch.graphs`
-    refuses it.
+    partition's apply communicates with another's.  Each part's solve is a
+    replay of its pack's graph (``graphs`` on, the default), as the JAX
+    package jits each part's ``DevicePrec``.
     """
-
-    graph_refusal = _PARTS_EAGER
 
     def __init__(self, host: PartitionedHIF, dtype=None, device="cuda"):
         self.host = host
         self.device_precs = [p.M.to_device(dtype, device=device)
                              for p in host.parts]
-        for dp in self.device_precs:
-            dp.graphs = False
 
     def solve(self, b: np.ndarray) -> np.ndarray:
         h = self.host

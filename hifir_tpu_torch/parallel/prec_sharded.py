@@ -25,6 +25,13 @@ port's :class:`~hifir_tpu_torch.alg.prec.DevicePrec` tail, every rank's copy
 a column of one batched solve.  Per-rank operands are lists with one
 (ranks, ...) tensor per group of the mesh.  Real dtypes only, as the JAX
 package (float64 by default, float32 allowed).
+
+:meth:`DistPrec.solve` is one captured CUDA graph of :func:`_dist_solve` for
+each shape and dtype of b (the JAX package jits the whole solve under
+``shard_map``): the exchange plans, every factor's chunk loop in its form
+(the sweep, the peer sweep with its epoch bump, or K10a a chunk with the
+legs' copies), the E/F products and the dense tail of every group,
+replayed from the pack's ``graph_cache`` (:mod:`~hifir_tpu_torch.graphs`).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import torch
 
 from ..alg.prec import DenseTail, _dense_tail, tail_solve_mrhs
 from ..device import numpy_dtype, torch_dtype
+from ..graphs import jit
 from ..ops.chunk import SweepPlan
 from ..ops.spmv import ELL, ell_from_csr, sliced_ell_sub_mrhs
 from ..ops.trsv import build_trsv_schedule
@@ -246,6 +254,12 @@ def _dist_solve(mesh: Mesh, levels: List[DistLevel], tails, bs):
     return x_tail
 
 
+def _solve(mesh: Mesh, levels: List[DistLevel], tails, b: torch.Tensor):
+    """The solve's program: b (on rank 0's device) replicated, the
+    multilevel solve, rank 0's copy of x."""
+    return _dist_solve(mesh, levels, tails, mesh.replicate(b))[0][0]
+
+
 class DistPrec:
     """Rank-distributed multilevel preconditioner.
 
@@ -254,19 +268,16 @@ class DistPrec:
     what the tiled all_gather scheme would move for them (per solve, per
     trsv application); ``n_halo`` counts the halo-carried factors.
 
-    It runs eagerly: :mod:`~hifir_tpu_torch.graphs` refuses it
-    (``graph_refusal``)."""
-
-    graph_refusal = (
-        "its peer sweep takes an epoch that the host increments at every "
-        "launch (ops/chunk.py), which a captured launch would freeze, so "
-        "that a replay would pass its flag waits at once; and its mesh may "
-        "span several cards, which one graph does not")
+    With ``graphs`` on (the default) :meth:`solve` is a replay of its
+    captured graph on a CUDA mesh (one card, or several:
+    :func:`~hifir_tpu_torch.graphs.cache_of` picks the backend from
+    ``devices``), the programs kept in ``graph_cache``; off, or on the CPU,
+    it runs eagerly."""
 
     def __init__(self, mesh: Mesh, levels: List[DistLevel],
                  tails: Optional[List[DenseTail]], dtype: torch.dtype,
                  comm_elems: int = 0, allgather_elems: int = 0,
-                 n_halo: int = 0):
+                 n_halo: int = 0, graphs: bool = True):
         self.mesh = mesh
         self.levels = levels
         self.tails = tails
@@ -274,12 +285,21 @@ class DistPrec:
         self.comm_elems = comm_elems
         self.allgather_elems = allgather_elems
         self.n_halo = n_halo
+        self.graphs = graphs
+        self.graph_cache = None
+
+    @property
+    def devices(self):
+        """Each rank's device (the mesh's): what the graph backend
+        follows."""
+        return self.mesh.devices
 
     @classmethod
     def from_host(cls, mesh: Mesh, M, dtype=None, chunk=256,
                   halo: bool = True, shard_vectors: bool = True,
                   max_halo_chunks: int = 128,
-                  form: Optional[str] = None) -> "DistPrec":
+                  form: Optional[str] = None,
+                  graphs: bool = True) -> "DistPrec":
         """Build from a factorized host :class:`hifir_tpu_torch.api.HIF` on
         the mesh's ranks (their devices).
 
@@ -293,7 +313,8 @@ class DistPrec:
         TypeError (the JAX package's DistPrec is real only).  ``form``
         lays out every factor's chunk loop: None by the mesh's topology
         (the sweep, the peer sweep or K10a a chunk), ``"chunk"`` K10a a
-        chunk (:func:`~.trsv_sharded.loop_plan`)."""
+        chunk (:func:`~.trsv_sharded.loop_plan`).  ``graphs``: see the
+        class docstring."""
         ndt = np.dtype(np.float64 if dtype is None else numpy_dtype(dtype))
         cplx = [p for p in M.precs if np.iscomplexobj(p.d)
                 or (p.dense_matrix is not None
@@ -402,13 +423,13 @@ class DistPrec:
         if M.precs[-1].dense_solver is not None:
             tails = [_dense_tail(M.precs[-1], tdt, g.device)
                      for g in mesh.groups()]
-        return cls(mesh, levels, tails, tdt, comm, ag_comm, n_halo)
+        return cls(mesh, levels, tails, tdt, comm, ag_comm, n_halo, graphs)
 
     def solve(self, b) -> torch.Tensor:
         """x = M^{-1} b; b replicated to every rank, rank 0's copy of x
-        returned (on its device)."""
-        bs = self.mesh.replicate(torch.as_tensor(b, dtype=self.dtype))
-        return _dist_solve(self.mesh, self.levels, self.tails, bs)[0][0]
+        returned (on its device; a fresh tensor when replayed)."""
+        b = torch.as_tensor(b, dtype=self.dtype, device=self.mesh.device)
+        return jit(self, _solve)(self.mesh, self.levels, self.tails, b)
 
     def nbytes_per_rank(self) -> dict:
         """Bytes a rank holds, on average over the ranks: the sharded factor

@@ -11,7 +11,11 @@ of three tiers by the row's width (:func:`schur_plan`: a warp a row, a CTA
 a row, or a CTA a row on global scratch), so that no width is refused.  The
 host packs the operands (``_ell_pack``, ``_panelize_uf``, copied from the
 JAX package) and compresses each step's output before the next rotation,
-merging the A-tail block C as the JAX package does.
+merging the A-tail block C as the JAX package does.  The step (K10b on
+every group, its output gathered on the first group's device) and the
+rotation (the ring shift of the panels) are two captured graphs of the
+mesh's cache, as the JAX package jits them apart; the ring loop stays on
+the host, which reads each step's output.
 """
 
 from __future__ import annotations
@@ -22,11 +26,13 @@ import numpy as np
 import torch
 
 from ..ds.csr import CSR
+from ..graphs import jit
 from ..kernels.build import check, kernel_fn
 from .mesh import Mesh, make_mesh
 
 __all__ = ["schur_spgemm_ring", "schur_partial", "schur_partial_plain",
-           "schur_partial_cuda", "schur_plan", "SCHUR_TIERS"]
+           "schur_partial_cuda", "schur_plan", "SCHUR_TIERS",
+           "ring_operands"]
 
 
 def _ell_pack(M: CSR, nrows_pad: int, sentinel: int):
@@ -207,6 +213,50 @@ def schur_partial(le_idx, le_val, d, uf_idx, uf_val, cb: int):
     return schur_partial_cuda(le_idx, le_val, d, uf_idx, uf_val, cb)
 
 
+class _Ring:
+    """The ring's fixed operands (per group: ``le_idx``/``le_val`` and the
+    replicated ``d``), its panel width and mesh: one key item of its
+    programs."""
+
+    def __init__(self, mesh, le_idx, le_val, d, cb):
+        self.mesh, self.le_idx, self.le_val, self.d, self.cb = (
+            mesh, le_idx, le_val, d, cb)
+
+
+def ring_operands(L_E: CSR, d: np.ndarray, U_F: CSR, mesh: Mesh):
+    """The ring's operands on ``mesh``'s ranks: the fixed ones (a
+    :class:`_Ring`) and the panels ``uf_idx``/``uf_val`` as rank k holds
+    them at step 0, for L_E with rows (``nm`` > 0)."""
+    D = mesh.D
+    nm, m = L_E.nrows, L_E.ncols
+    nmp = -(-nm // D) * D
+    nb = nmp // D
+    cb = nmp // D  # panel width (the same padded split of the tail columns)
+    le_idx_h, le_val_h, KL = _ell_pack(L_E, nmp, sentinel=m)
+    uf_idx_h, uf_val_h, KU = _panelize_uf(U_F, D, cb)
+    d_ext = np.concatenate([np.asarray(d), np.zeros(1, dtype=L_E.data.dtype)])
+    ring = _Ring(mesh, mesh.put(le_idx_h.reshape(D, nb, KL)),
+                 mesh.put(le_val_h.reshape(D, nb, KL)),
+                 mesh.replicate(torch.as_tensor(d_ext)), cb)
+    return ring, mesh.put(uf_idx_h), mesh.put(uf_val_h)
+
+
+def _ring_step(ring: _Ring, uf_idx, uf_val):
+    """One ring step on every group (K10b a group), the masked (col, val)
+    pairs of every rank gathered on the first group's device, (D, nb, W)
+    each."""
+    outs = [schur_partial(*a, ring.cb) for a in zip(
+        ring.le_idx, ring.le_val, ring.d, uf_idx, uf_val)]
+    return (ring.mesh.collect([c for c, _ in outs]),
+            ring.mesh.collect([v for _, v in outs]))
+
+
+def _ring_rotate(ring: _Ring, uf_idx, uf_val):
+    """The panels one step around the ring: rank k receives rank k + 1's."""
+    return (ring.mesh.shift(uf_idx, -1, ring=True),
+            ring.mesh.shift(uf_val, -1, ring=True))
+
+
 def schur_spgemm_ring(C_tail: CSR, L_E: CSR, d: np.ndarray, U_F: CSR,
                       mesh: Optional[Mesh] = None, device="cuda") -> CSR:
     """S = C_tail - L_E diag(d) U_F by the ring SpGEMM over ``mesh``'s
@@ -217,7 +267,7 @@ def schur_spgemm_ring(C_tail: CSR, L_E: CSR, d: np.ndarray, U_F: CSR,
     if mesh is None:
         mesh = make_mesh(device=device)
     D = mesh.D
-    nm, m = L_E.nrows, L_E.ncols
+    nm = L_E.nrows
     if nm == 0:
         return C_tail
     dtype = np.result_type(L_E.data.dtype, U_F.data.dtype)
@@ -225,26 +275,14 @@ def schur_spgemm_ring(C_tail: CSR, L_E: CSR, d: np.ndarray, U_F: CSR,
         raise TypeError(f"schur_spgemm_ring is real only, got {dtype}")
     nmp = -(-nm // D) * D
     nb = nmp // D
-    cb = nmp // D  # panel width (the same padded split of the tail columns)
-
-    le_idx_h, le_val_h, KL = _ell_pack(L_E, nmp, sentinel=m)
-    uf_idx_h, uf_val_h, KU = _panelize_uf(U_F, D, cb)
-    d_ext = np.concatenate([np.asarray(d), np.zeros(1, dtype=L_E.data.dtype)])
-
-    le_idx = mesh.put(le_idx_h.reshape(D, nb, KL))
-    le_val = mesh.put(le_val_h.reshape(D, nb, KL))
-    uf_idx = mesh.put(uf_idx_h)
-    uf_val = mesh.put(uf_val_h)
-    d_dev = mesh.replicate(torch.as_tensor(d_ext))
-
+    ring, uf_idx, uf_val = ring_operands(L_E, d, U_F, mesh)
+    cb = ring.cb
+    step, rotate = jit(mesh, _ring_step), jit(mesh, _ring_rotate)
     rows_acc, cols_acc, vals_acc = [], [], []
     for e in range(D):
-        outs = [schur_partial(*a, cb) for a in zip(le_idx, le_val, d_dev,
-                                                   uf_idx, uf_val)]
-        oc = mesh.collect([c for c, _ in outs]).cpu().numpy().reshape(
-            D * nb, -1)
-        ov = mesh.collect([v for _, v in outs]).cpu().numpy().reshape(
-            D * nb, -1)
+        oc, ov = step(ring, uf_idx, uf_val)
+        oc = oc.cpu().numpy().reshape(D * nb, -1)
+        ov = ov.cpu().numpy().reshape(D * nb, -1)
         keep = oc < cb
         if keep.any():
             r, k = np.nonzero(keep)
@@ -255,8 +293,7 @@ def schur_spgemm_ring(C_tail: CSR, L_E: CSR, d: np.ndarray, U_F: CSR,
             vals_acc.append(ov[r, k])
         if e < D - 1:
             # rank k receives panel k + 1's holder's panel
-            uf_idx = mesh.shift(uf_idx, -1, ring=True)
-            uf_val = mesh.shift(uf_val, -1, ring=True)
+            uf_idx, uf_val = rotate(ring, uf_idx, uf_val)
 
     # merge the A-tail block on the host (duplicates coalesce in from_coo)
     c_rows = np.repeat(np.arange(nm, dtype=np.int64), np.diff(C_tail.indptr))

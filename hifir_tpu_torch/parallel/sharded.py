@@ -12,7 +12,10 @@ the IR step K1's fused ``C - A X`` gives ``R_local = B_local - A_local X``
 in that one launch; a tiled all_gather assembles R on every rank, and the
 M-solve runs replicated, every rank on its own copy (the copies of a
 device as the columns of one batched solve, on that device's copy of the
-pack, made once for a device other than the pack's).
+pack, made once for a device other than the pack's).  The step is one
+captured graph of the mesh's cache for each operator, pack, shape and
+dtype (the JAX package jits it): the K1 residual of every rank row, the
+all_gather and the M-solve of every card's copy, replayed.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 
 from ..alg.prec import prec_solve_mrhs
 from ..ds.csr import CSR
+from ..graphs import jit
 from ..ops.spmv import ELL, ell_from_csr, sliced_ell_sub_mrhs
 from .mesh import Mesh
 
@@ -138,7 +142,10 @@ def make_sharded_ir_step(mesh: Mesh, n: int):
     X and B are (n_padded, nrhs) with nrhs divisible by the ``rhs`` axis
     size and n_padded by the ``rows`` axis size; rhs-row i's ranks each
     take a copy of columns ``[i * nrhs / rhs, (i + 1) * nrhs / rhs)``.
-    The step runs eagerly: :mod:`~hifir_tpu_torch.graphs` refuses it."""
+    A call is a replay of the step's graph in ``mesh``'s cache, one a
+    ``(A, levels, tail, X.shape, dtype)`` key (eager where the mesh's
+    graphs are off or it has no capture backend); the pack's copy on
+    another card is made by the first call's warm-up and kept."""
     R, D = mesh.shape["rhs"], mesh.D
     copies = {}    # (pack, device) -> the pack on that device
 
@@ -150,11 +157,8 @@ def make_sharded_ir_step(mesh: Mesh, n: int):
             copies[key] = (levels, tail, to_device((levels, tail), dev))
         return copies[key][2]
 
-    def step(A: ShardedELL, levels, tail, X, B) -> torch.Tensor:
+    def ir_step(A: ShardedELL, levels, tail, X, B) -> torch.Tensor:
         npad, nrhs = X.shape
-        if nrhs % R or npad != A.nrows:
-            raise ValueError(f"X is {tuple(X.shape)}: needs {A.nrows} rows "
-                             f"and columns divisible by rhs={R}")
         w = nrhs // R
         out = torch.empty_like(X)
         for i in range(R):
@@ -177,7 +181,11 @@ def make_sharded_ir_step(mesh: Mesh, n: int):
             out[:, cols] = Xr[0][0].to(out.device)
         return out
 
-    step.graph_refusal = (
-        "the sharded IR step spans the mesh's devices, each with its own "
-        "copy of the pack, and runs eagerly")
+    def step(A: ShardedELL, levels, tail, X, B) -> torch.Tensor:
+        npad, nrhs = X.shape
+        if nrhs % R or npad != A.nrows:
+            raise ValueError(f"X is {tuple(X.shape)}: needs {A.nrows} rows "
+                             f"and columns divisible by rhs={R}")
+        return jit(mesh, ir_step)(A, levels, tail, X, B)
+
     return step

@@ -52,6 +52,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..graphs import jit
 from ..ops.chunk import (ChunkSweep, Sweep, SweepPlan, chunk_sweep,
                          chunk_sweep_peer, with_slack)
 from ..ops.trsv import build_trsv_schedule
@@ -355,8 +356,15 @@ def halo_chunk_loop(op: HaloOp, xs: List[torch.Tensor]) -> None:
         off += Cloc
 
 
+def _halo_apply(op: HaloOp, b: torch.Tensor) -> torch.Tensor:
+    return halo_op_kernel(op, op.mesh.replicate(b))[0][0]
+
+
 def halo_trsv_apply(op: HaloOp, b) -> torch.Tensor:
     """Apply one halo-trsv operator on its ranks; ``b`` replicated in (every
-    rank a copy), rank 0's copy of x returned."""
-    b = torch.as_tensor(b, dtype=op.gvals[0][0].dtype)
-    return halo_op_kernel(op, op.mesh.replicate(b))[0][0]
+    rank a copy), rank 0's copy of x returned.  One program of the mesh's
+    graph cache for each shape and dtype of b (the JAX package jits it):
+    the entry gather, the chunk loop in its form and the exit all_gather,
+    replayed."""
+    b = torch.as_tensor(b, dtype=op.gvals[0][0].dtype, device=op.mesh.device)
+    return jit(op.mesh, _halo_apply)(op, b)

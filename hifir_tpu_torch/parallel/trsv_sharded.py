@@ -39,6 +39,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..graphs import jit
 from ..ops.chunk import (PEER_MAX_GROUPS, ChunkSweep, Sweep, SweepPlan,
                          chunk_sweep, chunk_sweep_peer, with_slack)
 from ..ops.trsv import build_trsv_schedule
@@ -158,11 +159,17 @@ def shard_trsv_schedule(mesh: Mesh, T, lower: bool, chunk: int = 256,
 
 def sharded_trsv_apply(st: ShardedTrsv, b) -> torch.Tensor:
     """Solve (I + strict(T)) x = b across the ranks; b replicated in (every
-    rank a copy), x replicated out (rank 0's copy returned)."""
-    mesh = st.mesh
-    b = torch.as_tensor(b, dtype=st.vals[0].dtype)
+    rank a copy), x replicated out (rank 0's copy returned).  One program
+    of the mesh's graph cache for each shape and dtype of b (the JAX
+    package jits it), replayed."""
+    b = torch.as_tensor(b, dtype=st.vals[0].dtype, device=st.mesh.device)
     if st.nchunks == 0:
         return b
+    return jit(st.mesh, _sharded_apply)(st, b)
+
+
+def _sharded_apply(st: ShardedTrsv, b: torch.Tensor) -> torch.Tensor:
+    mesh = st.mesh
     xs = []
     for bg, ir in zip(mesh.replicate(b), st.in_rows):
         x = bg.new_zeros((bg.shape[0], st.nslots + 1))

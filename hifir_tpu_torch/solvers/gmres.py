@@ -45,9 +45,9 @@ from typing import Tuple
 
 import torch
 
-from ..alg.prec import prec_solve_mrhs
+from ..alg.prec import DevicePrec, prec_solve_mrhs
 from ..device import as_values, real_dtype
-from ..graphs import cache_of
+from ..graphs import GraphRefused, cache_of
 from ..ops.spmv import ell_matvec, ell_matvec_mrhs
 from .ir import ir_apply_mrhs, residual_mrhs
 
@@ -197,10 +197,24 @@ def _restart_cycle(A, prec, cache, w: _Cycle, nirs: int, r, seg: int):
     return res, int(jused)
 
 
+def _cycle_cache(prec):
+    """The cache of the cycles' programs, which run the M-solve over a
+    :class:`~hifir_tpu_torch.alg.prec.DevicePrec`'s levels and tail; any
+    other preconditioner raises :class:`~hifir_tpu_torch.graphs.
+    GraphRefused`."""
+    if not isinstance(prec, DevicePrec):
+        raise GraphRefused(
+            f"{type(prec).__name__} cannot be captured in a GMRES cycle: the "
+            "cycle's programs run the M-solve over a DevicePrec's levels and "
+            "tail, and a DistPrec's solve is a program of its own over its "
+            "mesh (DistPrec.solve)")
+    return cache_of(prec)
+
+
 def _gmres(A, prec, b, restart, rtol, maxit, x0, nirs_of, r):
     """The restart loop shared by :func:`gmres_hif` and
     :func:`fgmres_hifir`; ``nirs_of(cycle)`` is a cycle's inner count."""
-    cache = cache_of(prec)
+    cache = _cycle_cache(prec)
     b = as_values(b, prec.dtype, prec.device)
     bnrm = float(torch.linalg.vector_norm(b))
     if bnrm == 0.0:
@@ -330,7 +344,7 @@ def gmres_mrhs(A, prec, B, restart: int = 30, rtol: float = 1e-6,
     every kernel launch shared by all columns (the M-solve is the batched
     one).  Returns (X, flag, cycles); flag 0 once every column's residual
     estimate is within ``rtol`` of its ||b||."""
-    cache = cache_of(prec)
+    cache = _cycle_cache(prec)
     B = as_values(B, prec.dtype, prec.device)
     n, R = B.shape
     w = _workspace(cache, _CycleMrhs.new, n, R, restart, prec.dtype,
