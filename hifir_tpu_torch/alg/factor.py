@@ -7,7 +7,10 @@ native host library (``native/src``, through :mod:`..pre._native`) when it
 is loaded and in numpy otherwise (:mod:`.crout_np`,
 :mod:`.crout_pivot_np`).  The JAX package's distributed Schur is not
 ported.  The per-level operands are later packed onto the GPU by
-:class:`~hifir_tpu_torch.alg.prec.DevicePrec`.
+:class:`~hifir_tpu_torch.alg.prec.DevicePrec`.  Its phases are spans of
+:mod:`..trace`: ``hifir.factorize.pre``, ``.crout`` and ``.schur`` (the
+anchors' offset dropping and Schur complement; the native Crout computes
+both inside ``.crout``).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from ..options import (PIVOTING_AUTO, PIVOTING_ON, VERBOSE_FAC,
                        Options, determine_fac_pars)
 from ..pre import _native
 from ..pre.driver import do_preprocessing
+from ..trace import span
 from ..utils.log import hif_info
 from .crout_np import CroutResult, crout_level_np
 from .crout_pivot_np import pivot_crout_level_np
@@ -143,7 +147,8 @@ def level_factorize(A: CSR, m0: int, N: int, level: int, opts: Options,
     hif_info(opts, "\nenter level %d (%s)", level,
              "symmetric" if do_symm_pre else "asymmetric")
     if not opts.no_pre:
-        s, t, p, q, m = do_preprocessing(A, m0, level, opts, do_symm_pre)
+        with span("hifir.factorize.pre"):
+            s, t, p, q, m = do_preprocessing(A, m0, level, opts, do_symm_pre)
         hif_info(opts, "preprocessing done with leading block size %d", m)
     else:
         s = np.ones(n)
@@ -195,54 +200,59 @@ def level_factorize(A: CSR, m0: int, N: int, level: int, opts: Options,
     EF_native = None
     native_pivot_ok = (opts.use_native
                        and _native.has_pivot_dtype(Ahat.data.dtype))
-    if use_pivot and native_pivot_ok:
-        pars = determine_fac_pars(opts, level)
-        (m, Ltrip, Utrip, Strip, Etrip, Ftrip, dvec_n, ordf,
-         nstats, kmm) = _native.crout_pivot(Ahat, m2, pars, row_ref, col_ref,
-                                       a_L, a_U, opts.gamma)
-        res = CroutResult(
-            m=m, n=n,
-            L_B=CSR(m, m, *Ltrip), d=dvec_n, U_B=CSR(m, m, *Utrip),
-            L_E=None, U_F=None, ord_final=ordf,
-            defers=int(nstats[0]), diag_defers=int(nstats[1]),
-            cond_defers=int(nstats[2]), space_drops=int(nstats[3]),
-            total_drops=int(nstats[4]), kappa_u=None, kappa_l=None)
-        S_native = CSR(n - m, n - m, *Strip)
-        EF_native = (CSR(n - m, m, *Etrip), CSR(m, n - m, *Ftrip))
-    elif use_pivot:
-        res = pivot_crout_level_np(Ahat, m2, level, opts, row_ref, col_ref)
-        kmm = None
-    elif use_native:
-        pars = determine_fac_pars(opts, level)
-        # kernel mode: 1 = LDL^T mirror (U = L^T), for real or
-        # complex-symmetric input under opts.is_symm; 3 = Hermitian LDL^H
-        # (U = conj(L)^T) when api.factorize classified the complex input as
-        # A == A^H (opts.symm_kind == 2) — a correctness improvement over
-        # the reference, whose own is_symm on complex input is broken
-        # (BASELINE.md round-5 measurement); 2 = symmetric leading-block
-        # mirror matching the reference's level_factorize<IsSymm=true>
-        # dispatch (builder.hpp:534,546-567, taken only when the user
-        # declares a symmetric leading block with m0 > 0 at level 1);
-        # 0 = general LDU
-        symm_kernel = _symm_kernel_mode(opts, Ahat, sym_block)
-        (m, Ltrip, Utrip, Strip, Etrip, Ftrip, dvec_n, ordf,
-         nstats, kmm) = _native.crout(Ahat, d0, m2, pars, row_ref, col_ref,
-                                 a_L, a_U, symmetric=symm_kernel)
-        res = CroutResult(
-            m=m, n=n,
-            L_B=CSR(m, m, *Ltrip), d=dvec_n, U_B=CSR(m, m, *Utrip),
-            L_E=None, U_F=None, ord_final=ordf,
-            defers=int(nstats[0]), diag_defers=int(nstats[1]),
-            cond_defers=int(nstats[2]), space_drops=int(nstats[3]),
-            total_drops=int(nstats[4]), kappa_u=None, kappa_l=None)
-        S_native = CSR(n - m, n - m, *Strip)
-        EF_native = (CSR(n - m, m, *Etrip), CSR(m, n - m, *Ftrip))
-    else:
-        # same mode dispatch as the native branch above
-        anchor_mode = _symm_kernel_mode(opts, Ahat, sym_block)
-        res = crout_level_np(Ahat, d0, m2, level, opts, row_ref, col_ref,
-                             symm_mode=anchor_mode)
-        kmm = None
+    with span("hifir.factorize.crout"):
+        if use_pivot and native_pivot_ok:
+            pars = determine_fac_pars(opts, level)
+            (m, Ltrip, Utrip, Strip, Etrip, Ftrip, dvec_n, ordf,
+             nstats, kmm) = _native.crout_pivot(Ahat, m2, pars, row_ref,
+                                                col_ref, a_L, a_U,
+                                                opts.gamma)
+            res = CroutResult(
+                m=m, n=n,
+                L_B=CSR(m, m, *Ltrip), d=dvec_n, U_B=CSR(m, m, *Utrip),
+                L_E=None, U_F=None, ord_final=ordf,
+                defers=int(nstats[0]), diag_defers=int(nstats[1]),
+                cond_defers=int(nstats[2]), space_drops=int(nstats[3]),
+                total_drops=int(nstats[4]), kappa_u=None, kappa_l=None)
+            S_native = CSR(n - m, n - m, *Strip)
+            EF_native = (CSR(n - m, m, *Etrip), CSR(m, n - m, *Ftrip))
+        elif use_pivot:
+            res = pivot_crout_level_np(Ahat, m2, level, opts, row_ref,
+                                       col_ref)
+            kmm = None
+        elif use_native:
+            pars = determine_fac_pars(opts, level)
+            # kernel mode: 1 = LDL^T mirror (U = L^T), for real or
+            # complex-symmetric input under opts.is_symm; 3 = Hermitian
+            # LDL^H (U = conj(L)^T) when api.factorize classified the
+            # complex input as A == A^H (opts.symm_kind == 2) — a
+            # correctness improvement over
+            # the reference, whose own is_symm on complex input is broken
+            # (BASELINE.md round-5 measurement); 2 = symmetric leading-block
+            # mirror matching the reference's level_factorize<IsSymm=true>
+            # dispatch (builder.hpp:534,546-567, taken only when the user
+            # declares a symmetric leading block with m0 > 0 at level 1);
+            # 0 = general LDU
+            symm_kernel = _symm_kernel_mode(opts, Ahat, sym_block)
+            (m, Ltrip, Utrip, Strip, Etrip, Ftrip, dvec_n, ordf,
+             nstats, kmm) = _native.crout(Ahat, d0, m2, pars, row_ref,
+                                          col_ref, a_L, a_U,
+                                          symmetric=symm_kernel)
+            res = CroutResult(
+                m=m, n=n,
+                L_B=CSR(m, m, *Ltrip), d=dvec_n, U_B=CSR(m, m, *Utrip),
+                L_E=None, U_F=None, ord_final=ordf,
+                defers=int(nstats[0]), diag_defers=int(nstats[1]),
+                cond_defers=int(nstats[2]), space_drops=int(nstats[3]),
+                total_drops=int(nstats[4]), kappa_u=None, kappa_l=None)
+            S_native = CSR(n - m, n - m, *Strip)
+            EF_native = (CSR(n - m, m, *Etrip), CSR(m, n - m, *Ftrip))
+        else:
+            # same mode dispatch as the native branch above
+            anchor_mode = _symm_kernel_mode(opts, Ahat, sym_block)
+            res = crout_level_np(Ahat, d0, m2, level, opts, row_ref, col_ref,
+                                 symm_mode=anchor_mode)
+            kmm = None
     m = res.m
 
     # INFO2 per-level |kappa| dump (ref factor.hpp:1063-1110)
@@ -299,21 +309,23 @@ def level_factorize(A: CSR, m0: int, N: int, level: int, opts: Options,
                 Ahat_s = Ahat.to_scipy()
                 Ahat_s.sort_indices()  # native permute_scale emits unsorted
             Ah2 = Ahat_s[ord_rows, :][:, ord_cols].tocsr()
-            # L_E / U_F dropping (ref factor.hpp:1152-1181)
-            L_E = _drop_offsets(res.L_E, row_sizes[p_out[m:]], a_L)
-            U_F_t = _drop_offsets(res.U_F.transpose(), col_sizes[q_out[m:]],
-                                  a_U)
-            U_F = U_F_t.transpose()
-            C_tail = Ah2[m:, :][:, m:].tocsr()
-            if opts.dist_schur:
-                # the ring SpGEMM over the default mesh on the device
-                from ..parallel.schur import schur_spgemm_ring
+            with span("hifir.factorize.schur"):
+                # L_E / U_F dropping (ref factor.hpp:1152-1181)
+                L_E = _drop_offsets(res.L_E, row_sizes[p_out[m:]], a_L)
+                U_F_t = _drop_offsets(res.U_F.transpose(),
+                                      col_sizes[q_out[m:]], a_U)
+                U_F = U_F_t.transpose()
+                C_tail = Ah2[m:, :][:, m:].tocsr()
+                if opts.dist_schur:
+                    # the ring SpGEMM over the default mesh on the device
+                    from ..parallel.schur import schur_spgemm_ring
 
-                C_csr = CSR(n - m, n - m, C_tail.indptr.astype(np.int64),
-                            C_tail.indices, C_tail.data)
-                S = schur_spgemm_ring(C_csr, L_E, res.d, U_F, device=device)
-            else:
-                S = _compute_schur(C_tail, L_E, res.d, U_F)
+                    C_csr = CSR(n - m, n - m, C_tail.indptr.astype(np.int64),
+                                C_tail.indices, C_tail.data)
+                    S = schur_spgemm_ring(C_csr, L_E, res.d, U_F,
+                                          device=device)
+                else:
+                    S = _compute_schur(C_tail, L_E, res.d, U_F)
             E = Ah2[m:, :][:, :m].tocsr()
             F = Ah2[:m, :][:, m:].tocsr()
             E = CSR(n - m, m, E.indptr.astype(np.int64), E.indices, E.data)

@@ -51,6 +51,7 @@ from ..ops.spmv import SlicedELL, sliced_ell_from_csr, sliced_ell_sub_mrhs
 from ..ops.trsv import (build_trsv_block_dense, build_trsv_dense,
                         build_trsv_schedule, trsv_apply_mrhs)
 from ..small_scale.dense import solve_rank
+from ..trace import span
 
 __all__ = ["DeviceLevel", "DenseTail", "TranLevel", "ProdLevel",
            "ProdTranLevel", "DevicePrec", "prec_solve_mrhs",
@@ -459,21 +460,28 @@ class DevicePrec:
             return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
 
         i64 = torch.int64
-        levels = [DeviceLevel(
-            p=vec(prec.p, i64), q_inv=vec(prec.q_inv, i64),
-            s_p=vec(prec.s[prec.p]), t=vec(prec.t), d=vec(prec.d),
-            L=_ldu_form(prec.L_B, True, dense_inv, chunk, k_cap, ndt, dev),
-            U=_ldu_form(prec.U_B, False, dense_inv, chunk, k_cap, ndt, dev),
-            E=sliced_ell_from_csr(prec.E, dtype=ndt, device=dev),
-            F=sliced_ell_from_csr(prec.F, dtype=ndt, device=dev),
-            m=prec.m, n=prec.n, q=vec(prec.q, i64),
-            p_inv=vec(prec.p_inv, i64), s=vec(prec.s),
-            t_q=vec(prec.t[prec.q])) for prec in precs]
-        last = precs[-1]
-        if tail_on_device and last.dense_matrix is not None:
-            tail = _device_tail(last.dense_matrix, tdt, dev)
-        else:
-            tail = _dense_tail(last, tdt, dev)
+        form = (dense_inv, chunk, k_cap, ndt, dev)
+        with span("hifir.pack"):
+            levels = []
+            for prec in precs:
+                with span("hifir.pack.trsv"):
+                    L = _ldu_form(prec.L_B, True, *form)
+                    U = _ldu_form(prec.U_B, False, *form)
+                with span("hifir.pack.ell"):
+                    E = sliced_ell_from_csr(prec.E, dtype=ndt, device=dev)
+                    F = sliced_ell_from_csr(prec.F, dtype=ndt, device=dev)
+                levels.append(DeviceLevel(
+                    p=vec(prec.p, i64), q_inv=vec(prec.q_inv, i64),
+                    s_p=vec(prec.s[prec.p]), t=vec(prec.t), d=vec(prec.d),
+                    L=L, U=U, E=E, F=F, m=prec.m, n=prec.n,
+                    q=vec(prec.q, i64), p_inv=vec(prec.p_inv, i64),
+                    s=vec(prec.s), t_q=vec(prec.t[prec.q])))
+            last = precs[-1]
+            with span("hifir.pack.tail"):
+                if tail_on_device and last.dense_matrix is not None:
+                    tail = _device_tail(last.dense_matrix, tdt, dev)
+                else:
+                    tail = _dense_tail(last, tdt, dev)
         return cls(levels=levels, tail=tail,
                    n=precs[0].n, dtype=tdt, device=dev, dense_inv=dense_inv,
                    chunk=chunk, k_cap=k_cap, graphs=graphs)
@@ -547,27 +555,31 @@ class DevicePrec:
         the pack's device.  ``r > 0`` overrides the dense tail's rank; the
         filter ``nsp`` (``nsp_tran``) is applied to every column, after the
         graph."""
-        X = self._solve(B, trans, r)
-        return nsp_filter(self.nsp_tran if trans else self.nsp, X)
+        with span("hifir.solve"):
+            X = self._solve(B, trans, r)
+            return nsp_filter(self.nsp_tran if trans else self.nsp, X)
 
     def solve(self, b, trans: bool = False, r: int = 0) -> torch.Tensor:
         """x = M^{-1} b (``trans``: M^{-H} b) for one vector: the one-column
         batched solve, then the filter on the vector."""
-        x = self._solve(as_values(b, self.dtype, self.device)[:, None],
-                        trans, r)[:, 0]
-        return nsp_filter(self.nsp_tran if trans else self.nsp, x)
+        with span("hifir.solve"):
+            x = self._solve(as_values(b, self.dtype, self.device)[:, None],
+                            trans, r)[:, 0]
+            return nsp_filter(self.nsp_tran if trans else self.nsp, x)
 
     def mmultiply(self, x, trans: bool = False) -> torch.Tensor:
         """y = M x (``trans``: M^H x) for one vector, on the pack's
         device."""
-        X = as_values(x, self.dtype, self.device)[:, None]
-        if trans:
-            if self.prod_tran is None:
-                raise RuntimeError("call pack_prod_tran() before trans "
-                                   "mmultiply")
-            return self._call(prec_prod_tran_mrhs, self.levels, self.tran,
-                              self.prod_tran, self.tail, X)[:, 0]
-        if self.prod is None:
-            raise RuntimeError("call pack_prod() before mmultiply")
-        return self._call(prec_prod_mrhs, self.levels, self.prod, self.tail,
-                          X)[:, 0]
+        with span("hifir.solve"):
+            X = as_values(x, self.dtype, self.device)[:, None]
+            if trans:
+                if self.prod_tran is None:
+                    raise RuntimeError("call pack_prod_tran() before trans "
+                                       "mmultiply")
+                return self._call(prec_prod_tran_mrhs, self.levels,
+                                  self.tran, self.prod_tran, self.tail,
+                                  X)[:, 0]
+            if self.prod is None:
+                raise RuntimeError("call pack_prod() before mmultiply")
+            return self._call(prec_prod_mrhs, self.levels, self.prod,
+                              self.tail, X)[:, 0]

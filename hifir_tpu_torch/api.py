@@ -30,9 +30,9 @@ from .nsp import NspFilter
 from .options import Options, get_default_options
 from .small_scale.dense import make_dense_solver
 from .solvers.gmres import fgmres_hifir, gmres_hif, gmres_mrhs
-from .utils.log import hif_error, hif_info, hif_warning
+from .trace import snapshot, span
+from .utils.log import hif_error, hif_info, hif_warning, verbose_enabled
 from .utils.serialize import load_prec, prec_from_arrays, save_prec
-from .utils.timer import Timer
 
 __all__ = ["HIF", "load_prec", "save_prec", "prec_from_arrays", "NspFilter",
            "gmres_hif", "fgmres_hifir", "gmres_mrhs"]
@@ -65,6 +65,24 @@ def _classify_symmetry(A: CSR) -> int:
     if np.iscomplexobj(A.data) and np.array_equal(As.data, np.conj(AT.data)):
         return 2
     return 0
+
+
+# the factorize's phases (spans of :mod:`.trace`) in its timing report
+_PHASES = (("preprocessing", "hifir.factorize.pre"),
+           ("crout", "hifir.factorize.crout"),
+           ("schur", "hifir.factorize.schur"),
+           ("dense tail", "hifir.factorize.tail"))
+
+
+def _report_phases(opts, before: dict, total: float) -> None:
+    """The ``VERBOSE_PRE_TIME`` lines: each phase's seconds in the
+    factorize just done (its spans' gains since ``before``) and the
+    total."""
+    now = snapshot()["spans"]
+    for label, name in _PHASES:
+        sec = now.get(name, (0.0, 0))[0] - before.get(name, (0.0, 0))[0]
+        hif_info(opts, "time: %s %gs", label, sec, tag="pre_time")
+    hif_info(opts, "time: factorize %gs", total, tag="pre_time")
 
 
 class HIF:
@@ -174,40 +192,47 @@ class HIF:
                             "exactly symmetric nor Hermitian; using the "
                             "general LDU path")
                 opts = dataclasses.replace(opts, is_symm=0)
-        t = Timer().start()
-        N = opts.N if opts.N >= 0 else A.nrows
-        row_sizes = np.empty(0, dtype=np.int64)
-        col_sizes = np.empty(0, dtype=np.int64)
-        S: Optional[CSR] = A
-        level = 1
-        while S is not None:
-            m_in = S.nrows if (level > 1 or not m0) else m0
-            # ref builder.hpp:534-535: a user-declared leading block (m0 > 0)
-            # at level 1 selects the symmetric-block mirror factorization
-            prec, S, row_sizes, col_sizes = level_factorize(
-                S, m_in if m_in else S.nrows, N, level, opts,
-                row_sizes, col_sizes, self.stats_,
-                sym_block=(level == 1 and m0 > 0), device=device)
-            self.precs.append(prec)
-            level += 1
-        if opts.dtype == "float32":
-            want = np.complex64 if np.iscomplexobj(A.data) else np.float32
-            self.precs = [p.astype(want) for p in self.precs]
-        # factor the dense tail if present (ref factor.hpp:1284-1296); a
-        # complex-symmetric tail is not Hermitian and takes the QRCP
-        last = self.precs[-1]
-        if last.dense_matrix is not None:
-            symm = bool(opts.is_symm) and not (
-                np.iscomplexobj(last.dense_matrix) and opts.symm_kind == 1)
-            solver = make_dense_solver(symm, opts.spd,
-                                       device=bool(opts.device_tail),
-                                       torch_device=device)
-            solver.factorize(last.dense_matrix, opts)
-            last.dense_solver = solver
-        t.finish()
+        before = snapshot()["spans"]
+        with span("hifir.factorize") as whole:
+            N = opts.N if opts.N >= 0 else A.nrows
+            row_sizes = np.empty(0, dtype=np.int64)
+            col_sizes = np.empty(0, dtype=np.int64)
+            S: Optional[CSR] = A
+            level = 1
+            while S is not None:
+                m_in = S.nrows if (level > 1 or not m0) else m0
+                # ref builder.hpp:534-535: a user-declared leading block
+                # (m0 > 0) at level 1 selects the symmetric-block mirror
+                # factorization
+                with span("hifir.factorize.level"):
+                    prec, S, row_sizes, col_sizes = level_factorize(
+                        S, m_in if m_in else S.nrows, N, level, opts,
+                        row_sizes, col_sizes, self.stats_,
+                        sym_block=(level == 1 and m0 > 0), device=device)
+                self.precs.append(prec)
+                level += 1
+            if opts.dtype == "float32":
+                want = np.complex64 if np.iscomplexobj(A.data) \
+                    else np.float32
+                self.precs = [p.astype(want) for p in self.precs]
+            # factor the dense tail if present (ref factor.hpp:1284-1296); a
+            # complex-symmetric tail is not Hermitian and takes the QRCP
+            last = self.precs[-1]
+            if last.dense_matrix is not None:
+                symm = bool(opts.is_symm) and not (
+                    np.iscomplexobj(last.dense_matrix)
+                    and opts.symm_kind == 1)
+                solver = make_dense_solver(symm, opts.spd,
+                                           device=bool(opts.device_tail),
+                                           torch_device=device)
+                with span("hifir.factorize.tail"):
+                    solver.factorize(last.dense_matrix, opts)
+                last.dense_solver = solver
         hif_info(opts, "input nnz(A)=%d, nnz(precs)=%d, ratio=%g, levels=%d, "
                        "time=%gs", A.nnz, self.nnz(),
-                 self.nnz() / max(A.nnz, 1), self.levels(), t.time())
+                 self.nnz() / max(A.nnz, 1), self.levels(), whole.seconds)
+        if verbose_enabled("pre_time", int(opts.verbose)):
+            _report_phases(opts, before, whole.seconds)
         return self
 
     def factorize_raw(self, n: int, indptr, indices, vals,

@@ -36,7 +36,12 @@ program; nothing runs eagerly in its place.
 
 The kernels count their launches in Python, which a replay does not run:
 a capture records what each counter gained while the program was captured
-(and takes it back, since nothing ran), and each replay adds it.
+(and takes it back, since nothing ran), and each replay adds it to the
+counters it moved.  The cache's phases are spans of
+:mod:`~hifir_tpu_torch.trace` (``hifir.graph.*``: the first call's warm-up
+and capture, each call's key, input copy, replay and output clone), and
+:meth:`GraphCache.call` counts the bytes it copies in and out
+(``graph.copy_bytes``).
 
 The backend follows the owner's devices (:func:`cache_of`): every device
 on one card (a pack, a mesh whose groups all live on one card) is
@@ -56,10 +61,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-import time
 from typing import Optional
 
 import torch
+
+from .trace import add, launch_counters, span
 
 __all__ = ["GraphCache", "GraphCaptureError", "GraphRefused", "CudaGraphs",
            "MultiCardGraphs", "BACKENDS", "cache_of", "jit",
@@ -74,37 +80,14 @@ class GraphRefused(TypeError):
     """An object that cannot run inside a captured graph was handed to one."""
 
 
-def _counters():
-    from .ops import bsr_spmv, chunk, spmv, trsv
-    from .parallel import schur
-
-    return ((spmv.sell_spmv_cuda, "launches"),
-            (spmv.sell_spmv_cuda, "plus_launches"),
-            (trsv.trsv_apply_cuda, "launches"),
-            (bsr_spmv.bsr_spmv_cuda, "launches"),
-            (spmv.sliced_ell_sub_mrhs_plain, "calls"),
-            (trsv.trsv_apply_plain, "calls"),
-            (bsr_spmv.bsr_matvec_mrhs_plain, "calls"),
-            (chunk.ChunkSweep, "launches"),
-            (chunk.ChunkSweepKernel, "launches"),
-            (chunk.PeerSweepKernel, "launches"),
-            (schur.schur_partial_cuda, "launches"),
-            (chunk.chunk_fma_plain, "calls"),
-            (chunk.chunk_sweep_plain, "calls"),
-            (chunk.chunk_sweep_peer_plain, "calls"),
-            (schur.schur_partial_plain, "calls"))
-
-
 def read_counters() -> tuple:
-    """The launch counters of K1 (and its sign=+1 launches), K2 and K7 and
-    the call counters of their plain versions, then those of the
-    distribution's kernels (K10a a chunk, the sweep, the peer sweep, K10b)
-    and of their plain versions, in :func:`_counters` order."""
-    return tuple(getattr(o, a) for o, a in _counters())
+    """The kernels' launch counters, in
+    :func:`~hifir_tpu_torch.trace.launch_counters` order."""
+    return tuple(getattr(o, a) for o, a, _ in launch_counters())
 
 
 def _set_counters(values) -> None:
-    for (o, a), v in zip(_counters(), values):
+    for (o, a, _), v in zip(launch_counters(), values):
         setattr(o, a, v)
 
 
@@ -265,8 +248,9 @@ class _Entry:
     graph: object
     out: object       # the static output (overwritten by every replay)
     args: tuple       # the static inputs and the operands, kept alive
-    delta: tuple      # what one run adds to each counter
-    seconds: float    # the capture's host seconds
+    delta: tuple      # what one run adds to each launch counter
+    moved: tuple      # (wrapper, attribute, gain) of the counters it moves
+    seconds: float = 0.0  # the first call's host seconds: warm-up, capture
 
 
 def _tensors(a) -> bool:
@@ -308,6 +292,15 @@ def _copy_in(static, a) -> None:
             s.copy_(t)
 
 
+def _nbytes(a) -> int:
+    """Bytes of a tensor, a list of tensors or a tuple of either."""
+    if torch.is_tensor(a):
+        return a.nbytes
+    if isinstance(a, tuple) or _tensors(a):
+        return sum(_nbytes(t) for t in a)
+    return 0
+
+
 def _name(fn) -> str:
     return getattr(fn, "__qualname__", repr(fn))
 
@@ -325,27 +318,39 @@ class GraphCache:
     def call(self, fn, *args):
         """``fn(*args)`` as a replay of its captured graph: the tensors of
         ``args`` are copied into the program's static inputs; the result
-        is a fresh tensor (or tuple of them)."""
-        key = (fn,) + tuple(_spec(a, True) for a in args)
-        ent = self.entries.get(key)
-        if ent is None:
-            static = tuple(_fresh(a) if torch.is_tensor(a) or _tensors(a)
-                           else a for a in args)
-            return _fresh(self._first(key, fn, static))
-        for s, a in zip(ent.args, args):
-            _copy_in(s, a)
-        return _fresh(self._replay(ent))
+        is a fresh tensor (or tuple of them).  The bytes of both copies
+        count in ``graph.copy_bytes``."""
+        with span("hifir.graph.call"):
+            with span("hifir.graph.key"):
+                key = (fn,) + tuple(_spec(a, True) for a in args)
+                ent = self.entries.get(key)
+            if ent is None:
+                static = tuple(_fresh(a) if torch.is_tensor(a) or _tensors(a)
+                               else a for a in args)
+                out = self._first(key, fn, static)
+            else:
+                with span("hifir.graph.copy_in"):
+                    for s, a in zip(ent.args, args):
+                        _copy_in(s, a)
+                with span("hifir.graph.replay"):
+                    out = self._replay(ent)
+            with span("hifir.graph.out"):
+                out = _fresh(out)
+            add("graph.copy_bytes", _nbytes(args) + _nbytes(out))
+            return out
 
     def step(self, fn, *args) -> None:
         """``fn(*args)`` on persistent tensors, read and written in place
         (they must outlive the cache's use of them; see
         :meth:`workspace`)."""
-        key = (fn,) + tuple(_spec(a, False) for a in args)
-        ent = self.entries.get(key)
-        if ent is None:
-            self._first(key, fn, args)
-        else:
-            self._replay(ent)
+        with span("hifir.graph.step"):
+            key = (fn,) + tuple(_spec(a, False) for a in args)
+            ent = self.entries.get(key)
+            if ent is None:
+                self._first(key, fn, args)
+            else:
+                with span("hifir.graph.replay"):
+                    self._replay(ent)
 
     def workspace(self, make, *args):
         """``make(*args)``, made once for each (make, args) key and kept:
@@ -364,25 +369,31 @@ class GraphCache:
             del self.entries[key]
 
     def _first(self, key, fn, args):
-        out = self.backend.warm(fn, args)
-        before = read_counters()
-        t0 = time.perf_counter()
-        try:
-            graph, static_out = self.backend.capture(fn, args)
-        except Exception as e:
-            raise GraphCaptureError(
-                f"capture of {_name(fn)} failed: {type(e).__name__}: "
-                f"{e}") from e
-        finally:
-            delta = tuple(a - b for a, b in zip(read_counters(), before))
-            _set_counters(before)
-        self.entries[key] = _Entry(graph, static_out, args, delta,
-                                   time.perf_counter() - t0)
+        with span("hifir.graph.first") as first:
+            with span("hifir.graph.warm"):
+                out = self.backend.warm(fn, args)
+            before = read_counters()
+            try:
+                with span("hifir.graph.capture"):
+                    graph, static_out = self.backend.capture(fn, args)
+            except Exception as e:
+                raise GraphCaptureError(
+                    f"capture of {_name(fn)} failed: {type(e).__name__}: "
+                    f"{e}") from e
+            finally:
+                delta = tuple(a - b for a, b in zip(read_counters(), before))
+                _set_counters(before)
+            moved = tuple((o, a, d) for (o, a, _), d
+                          in zip(launch_counters(), delta) if d)
+            ent = self.entries[key] = _Entry(graph, static_out, args, delta,
+                                             moved)
+        ent.seconds = first.seconds
         return out
 
     def _replay(self, ent: _Entry):
         self.backend.replay(ent.graph)
-        _set_counters(a + d for a, d in zip(read_counters(), ent.delta))
+        for o, a, d in ent.moved:
+            setattr(o, a, getattr(o, a) + d)
         return ent.out
 
 

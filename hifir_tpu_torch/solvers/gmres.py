@@ -49,6 +49,7 @@ from ..alg.prec import DevicePrec, prec_solve_mrhs
 from ..device import as_values, real_dtype
 from ..graphs import GraphRefused, cache_of
 from ..ops.spmv import ell_matvec, ell_matvec_mrhs
+from ..trace import add, span
 from .ir import ir_apply_mrhs, residual_mrhs
 
 __all__ = ["gmres_hif", "fgmres_hifir", "gmres_mrhs", "SEGMENT"]
@@ -184,16 +185,28 @@ def _workspace(cache, make, *args):
     return make(*args) if cache is None else cache.workspace(make, *args)
 
 
+def _read(t, host=float):
+    """``host(t)``: one of the driver's reads of a device value, which
+    waits for the device (counted in ``gmres.reads``)."""
+    add("gmres.reads")
+    with span("hifir.gmres.read"):
+        return host(t)
+
+
 def _restart_cycle(A, prec, cache, w: _Cycle, nirs: int, r, seg: int):
     """One GMRES(m) restart cycle in segments of ``seg`` steps; returns the
-    |residual| estimate and the steps done (x_new is in ``w.xo``)."""
+    |residual| estimate and the steps done (x_new is in ``w.xo``).  The
+    steps the segments run (masked ones included) count in
+    ``gmres.steps_run``, those the cycle uses in ``gmres.steps_used``."""
     m = w.Z.shape[0]
     for j0 in range(0, m, seg):
-        _run(cache, _segment, A, prec.levels, prec.tail, nirs, r, j0,
-             min(m, j0 + seg), w)
-        done, jused, res = w.stat.tolist()
+        j1 = min(m, j0 + seg)
+        _run(cache, _segment, A, prec.levels, prec.tail, nirs, r, j0, j1, w)
+        add("gmres.steps_run", j1 - j0)
+        done, jused, res = _read(w.stat, torch.Tensor.tolist)
         if done:
             break
+    add("gmres.steps_used", int(jused))
     return res, int(jused)
 
 
@@ -215,28 +228,29 @@ def _gmres(A, prec, b, restart, rtol, maxit, x0, nirs_of, r):
     """The restart loop shared by :func:`gmres_hif` and
     :func:`fgmres_hifir`; ``nirs_of(cycle)`` is a cycle's inner count."""
     cache = _cycle_cache(prec)
-    b = as_values(b, prec.dtype, prec.device)
-    bnrm = float(torch.linalg.vector_norm(b))
-    if bnrm == 0.0:
-        return torch.zeros_like(b), 0, 0
-    w = _workspace(cache, _Cycle.new, b.shape[0], restart, prec.dtype,
-                   prec.device)
-    w.b.copy_(b)
-    if x0 is None:
-        w.xo.zero_()
-    else:
-        w.xo.copy_(as_values(x0, prec.dtype, prec.device))
-    w.rtol.fill_(rtol * bnrm)
-    it, flag, cycle = 0, 1, 0
-    while it < maxit:
-        res, j_used = _restart_cycle(A, prec, cache, w, nirs_of(cycle), r,
-                                     SEGMENT)
-        it += j_used
-        cycle += 1
-        if res <= rtol * bnrm:
-            flag = 0
-            break
-    return w.xo.clone(), flag, it
+    with span("hifir.gmres"):
+        b = as_values(b, prec.dtype, prec.device)
+        bnrm = _read(torch.linalg.vector_norm(b))
+        if bnrm == 0.0:
+            return torch.zeros_like(b), 0, 0
+        w = _workspace(cache, _Cycle.new, b.shape[0], restart, prec.dtype,
+                       prec.device)
+        w.b.copy_(b)
+        if x0 is None:
+            w.xo.zero_()
+        else:
+            w.xo.copy_(as_values(x0, prec.dtype, prec.device))
+        w.rtol.fill_(rtol * bnrm)
+        it, flag, cycle = 0, 1, 0
+        while it < maxit:
+            res, j_used = _restart_cycle(A, prec, cache, w, nirs_of(cycle),
+                                         r, SEGMENT)
+            it += j_used
+            cycle += 1
+            if res <= rtol * bnrm:
+                flag = 0
+                break
+        return w.xo.clone(), flag, it
 
 
 def gmres_hif(A, prec, b, restart: int = 30, rtol: float = 1e-6,
@@ -345,19 +359,20 @@ def gmres_mrhs(A, prec, B, restart: int = 30, rtol: float = 1e-6,
     one).  Returns (X, flag, cycles); flag 0 once every column's residual
     estimate is within ``rtol`` of its ||b||."""
     cache = _cycle_cache(prec)
-    B = as_values(B, prec.dtype, prec.device)
-    n, R = B.shape
-    w = _workspace(cache, _CycleMrhs.new, n, R, restart, prec.dtype,
-                   prec.device)
-    w.B.copy_(B)
-    w.X.zero_()
-    bnrm = torch.linalg.vector_norm(B, dim=0)
-    w.bsafe.copy_(torch.where(bnrm > 0, bnrm, 1))
-    cycles, flag = 0, 1
-    while cycles * restart < maxit:
-        _run(cache, _cycle_mrhs, A, prec.levels, prec.tail, w)
-        cycles += 1
-        if float(w.stat) <= rtol:
-            flag = 0
-            break
-    return w.X.clone(), flag, cycles
+    with span("hifir.gmres"):
+        B = as_values(B, prec.dtype, prec.device)
+        n, R = B.shape
+        w = _workspace(cache, _CycleMrhs.new, n, R, restart, prec.dtype,
+                       prec.device)
+        w.B.copy_(B)
+        w.X.zero_()
+        bnrm = torch.linalg.vector_norm(B, dim=0)
+        w.bsafe.copy_(torch.where(bnrm > 0, bnrm, 1))
+        cycles, flag = 0, 1
+        while cycles * restart < maxit:
+            _run(cache, _cycle_mrhs, A, prec.levels, prec.tail, w)
+            cycles += 1
+            if _read(w.stat) <= rtol:
+                flag = 0
+                break
+        return w.X.clone(), flag, cycles
