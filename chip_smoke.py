@@ -152,6 +152,13 @@ Phases, in order; any failed gate raises and the script exits non-zero:
    (restart 30, rtol 1e-6, one RHS: flag 0, true residual within 1.01
    rtol, counts within one), and HIFIR nirs = 4 in f64 with A as sliced
    ELL (the residual falls every step for every column).
+12a. K2's column tiles, generator --seed + 13: level 0's L and U of
+   poisson2d(512), whose slot vectors live in global memory, in f32, f64,
+   c64 and c128 (the complex factors times seeded unit phases), at 2, 7,
+   8, 64 and 128 RHS: against the plain version (1e-5 f32 and c64, 1e-12
+   f64 and c128), bit for bit against the column form run on each column
+   alone, the tile launches counted as trsv_tile says; both forms timed at
+   64 and 128.
 13. Saddle point (bench.py's correctness leg), generator --seed + 5: the
    native factorize of saddle_point_stokes(64), packed in f32, 10
    Richardson steps with the f64 residual on the host and the M-solve on
@@ -2957,6 +2964,97 @@ def million_phase(torch, rng, smi):
                                         B=Bd["float32"])
 
 
+# K2's tile phase: the operator and the widths (ragged last tiles included)
+TILE_NX = 512
+TILE_WIDTHS = (2, 7, 8, 64, 128)
+
+
+def k2_tile_phase(torch, rng, smi) -> dict:
+    """K2's column tiles on schedules whose slot vector lives in global
+    memory and whose levels are wide enough for the tile form: level 0's L
+    and U of poisson2d(TILE_NX) (host factorize, ``Options(verbose=0)``),
+    built as the packs build them (``chunk`` and ``k_cap`` "auto") in f32
+    and f64, and times seeded unit phases in c64 and c128.  At each width
+    of TILE_WIDTHS (tiles of 2 to 8 columns, clusters of 1 to 8 CTAs)
+    the shape rule (``trsv.trsv_tile``) must give a tile, and the kernel
+    is held to the plain version within the column form's limits
+    (``k2_row``'s: 1e-5 in f32 and c64, 1e-12 in f64 and c128) and, bit for
+    bit, to the column form run on each column alone;
+    ``trsv_apply_cuda.tile_launches`` counts the one launch a width and
+    none for the single columns.  Then both forms are timed at 64 and 128
+    columns.  Returns the report."""
+    import hifir_tpu_torch as ht
+    from hifir_tpu_torch.ds.csr import CSR
+    from hifir_tpu_torch.models.problems import poisson2d
+    from hifir_tpu_torch.ops import trsv
+
+    P = ht.HIF().factorize(poisson2d(TILE_NX), ht.Options(verbose=0))
+    hp = P.precs[0]
+    k2 = trsv.trsv_apply_cuda
+    report = {}
+    for dt in (torch.float32, torch.float64, torch.complex64,
+               torch.complex128):
+        dname = str(dt).removeprefix("torch.")
+        tol = 1e-5 if dt in (torch.float32, torch.complex64) else 1e-12
+        for name, Th, lower in (("L", hp.L_B, True), ("U", hp.U_B, False)):
+            if dt.is_complex:
+                phase = np.exp(2j * np.pi * rng.random(Th.data.size))
+                Th = CSR(Th.nrows, Th.ncols, Th.indptr, Th.indices,
+                         Th.data * phase)
+            S = trsv.build_trsv_schedule(
+                Th, lower=lower, chunk="auto", k_cap="auto",
+                dtype=np.dtype(dname), device="cuda")
+            es = torch.empty((), dtype=dt).element_size()
+            nslots, K = S.nchunks * S.chunk, int(S.cols.shape[2])
+            B = randn(rng, (S.n, max(TILE_WIDTHS)), dt)
+            for w in TILE_WIDTHS:
+                Bw = B[:, :w].contiguous()
+                shape = trsv.trsv_tile(nslots, S.nlevels, K, es, w)
+                gate(shape[0] > 1, f"K2 tile {dname} {name} nrhs={w}: the "
+                     f"schedule ({nslots} slots, {S.nlevels} levels, K {K}) "
+                     "takes the column form; the phase needs the tile form")
+                t0 = k2.tile_launches
+                X = trsv.trsv_apply_mrhs(S, Bw)
+                tiles = k2.tile_launches - t0
+                Xp = trsv.trsv_apply_plain(S, Bw)
+                t0 = k2.tile_launches
+                cols = torch.cat([trsv.trsv_apply_mrhs(
+                    S, Bw[:, j:j + 1].contiguous()) for j in range(w)], 1)
+                col_tiles = k2.tile_launches - t0
+                torch.cuda.synchronize()
+                rel = rel_diff(X, Xp)
+                same = torch.equal(X, cols)
+                key = f"{dname} {name} nrhs={w}"
+                report[key] = dict(
+                    slots=nslots, K=K, levels=S.nlevels, tile=shape[0],
+                    cluster=shape[1], rel_diff=rel, tol=tol, bit_equal=same,
+                    tile_launches=tiles, column_tile_launches=col_tiles)
+                log(f"  K2 tile {key}: {shape[0]} columns x {shape[1]} "
+                    f"CTAs, rel "
+                    f"diff to plain {rel:.3e} (tol {tol:.0e}), bit-equal "
+                    f"to the single columns {same}, tile launches {tiles}"
+                    f" (single columns {col_tiles})")
+                gate(rel <= tol, f"K2 tile {key}: rel diff {rel:.3e} to "
+                     f"the plain version > {tol}")
+                gate(same, f"K2 tile {key}: the tile form differs from the "
+                     "column form run on each column alone")
+                gate(tiles == 1 and col_tiles == 0,
+                     f"K2 tile {key}: {tiles} tile launches (want 1), "
+                     f"{col_tiles} for the single columns (want 0)")
+            for w in (64, 128):
+                Bw = B[:, :w].contiguous()
+                tile_ms = timed(torch, lambda: trsv.trsv_apply_mrhs(S, Bw),
+                                5)
+                col_ms = timed(torch,
+                               lambda: trsv._trsv_launch(S, Bw, 1, 1), 5)
+                report[f"{dname} {name} nrhs={w}"].update(
+                    tile_ms=tile_ms, column_ms=col_ms)
+                log(f"  K2 tile {dname} {name} nrhs={w}: tile form "
+                    f"{tile_ms:.4f} ms, column form {col_ms:.4f} ms "
+                    f"({S.nlevels} levels) [{smi}]")
+    return report
+
+
 def saddle_phase(torch, rng, smi):
     """bench.py's correctness leg on the card: the port's native factorize
     of saddle_point_stokes(64) (n = 5120, robust options), packed in f32,
@@ -5237,6 +5335,15 @@ def main(argv=None) -> int:
     for k in ("K1", "K2"):
         gate(mtotal[k] > 0, f"kernel {k} was not launched on the 1M path")
 
+    log(f"== K2 tiles: poisson2d({TILE_NX}) level 0, x in global memory, "
+        f"{TILE_WIDTHS} RHS in f32, f64, c64 and c128")
+    # its own generator, so that its inputs do not move with the rows above
+    t_phase = time.perf_counter()
+    treport = k2_tile_phase(torch, np.random.default_rng(args.seed + 13),
+                            smi)
+    treport["seconds"] = time.perf_counter() - t_phase
+    log(f"  K2 tile phase {treport['seconds']:.1f} s")
+
     log("== saddle point: saddle_point_stokes(64), mixed-precision IR "
         "(bench.py's correctness leg)")
     sreport_ir, sir_launches, _ = saddle_phase(
@@ -5439,7 +5546,8 @@ def main(argv=None) -> int:
                            k8_report=k8report, k8_launches=k8launches,
                            million=mreport,
                            million_launches=mlaunches,
-                           million_want=mwant, saddle=sreport_ir,
+                           million_want=mwant, k2_tiles=treport,
+                           saddle=sreport_ir,
                            saddle_launches=sir_launches,
                            distribution=dreport,
                            distribution_launches=dlaunches,

@@ -43,6 +43,7 @@
 #include <algorithm>
 #include <climits>
 #include <cstdint>
+#include <cstring>
 
 // ---------------------------------------------------------------------------
 // Complex values, stored as torch stores them: the real and the imaginary
@@ -903,14 +904,34 @@ sell_narrow_kernel(const int* __restrict__ idx, const T* __restrict__ val,
 // against ~0.05 us of bytes, so the levels are walked inside one launch,
 // and the entry and exit gathers are fused into it.
 //
-// The columns of B are independent, so thread block j owns column j and
-// walks every level with __syncthreads() between levels; no barrier between
-// blocks.  Its slot vector x ([nslots + 1]) lives in shared memory where it
-// fits (SMEM, chosen by ops/trsv.py:trsv_shape) and in a global scratch
-// (L2-resident) otherwise; a complex slot is 8 or 16 bytes, so about 14.5K
-// c128 slots fit the 227 KB.  On the H100, one column a block beat two and
-// four, and beat a cooperative grid split over (slot, column) items at one
-// right-hand side on every schedule of the frozen fixture (PERF.md).
+// The columns of B are independent.  In the column form thread block j
+// owns column j and walks every level with __syncthreads() between levels;
+// no barrier between blocks.  Its slot vector x ([nslots + 1]) lives in
+// shared memory where it fits (SMEM, chosen by ops/trsv.py:trsv_shape; a
+// complex slot is 8 or 16 bytes, so about 14.5K c128 slots fit the 227 KB)
+// and in a global scratch otherwise.  Where x fits, one column a block beat
+// two and four on the H100, and beat a cooperative grid split over (slot,
+// column) items at one right-hand side, on every schedule of the frozen
+// fixture (PERF.md): a tile there multiplies the shared memory x takes.
+//
+// The tile form (G > 1), where x is global, there are several columns and
+// the levels are wide (ops/trsv.py:trsv_tile): a cluster of C CTAs owns a
+// tile of G columns, at most one 32-byte sector of x a slot (8 f32, 4 f64
+// and c64, 2 c128; the last tile masked).  x is laid out [tile][slot][G],
+// so a dependency's gather moves G columns in one or two vector loads and
+// each (col, val) entry is loaded once for the tile; the cluster's CTAs
+// split each level's slots (runs of whole 16-byte lines of rows, each CTA
+// with its own ring) and meet at a cluster barrier (arrive.release,
+// wait.acquire) between levels, reading x with ld.global.cg.  Why: with a
+// block a column and x global, every block re-read the whole factor and
+// the blocks' traffic slowed each other's passes (the 1M factor's pass at
+// 64 columns took 1.85x the single column's).  A tile on one block put G
+// columns' gathers through one SM's L1 and lost (3.5x slower at 8
+// columns): the column form's neighbouring lanes share sectors, a tile's
+// do not.  Spread over a cluster it won: the launch aims at about 64 CTAs,
+// and on the 1M factor at 64 columns a pass fell from 3.31 to 2.09 us
+// (PERF.md).  Each column's sum keeps the column form's order and shuffle
+// tree, so a tile's columns equal the column form's bit for bit.
 //
 // Slots of one level never depend on each other (chunks are level-aligned
 // and the partial-sum slots of split rows sit in earlier sub-levels), so a
@@ -944,6 +965,7 @@ constexpr int kRingDepth = 2;    // levels copied ahead into shared memory
 constexpr int kRingSlots = kRingDepth + 1;
 constexpr int kRingBarBytes = 32;  // the slots' mbarriers, 16-byte rounded
 constexpr int kRingGlobalBytes = 128 * 1024;
+constexpr int kTrsvMaxCluster = 8;  // CTAs of a tile's (portable) cluster
 
 // Four consecutive elements from a 16-byte aligned address (shared or
 // global).
@@ -1002,7 +1024,56 @@ struct Line<C128> {  // 64 bytes: four 16-byte loads
   }
 };
 
-template <typename T, bool SMEM, bool RING>
+// A tile's slot of x: G consecutive elements from an address aligned to
+// their G * sizeof(T) bytes (8, 16 or 32: one or two vector accesses); G ==
+// 1 is the column form's one element.  The tile form's loads bypass L1
+// (ld.global.cg): the cluster's other CTAs write x during the launch.
+template <typename T, int G>
+__device__ __forceinline__ void sector_load(T (&a)[G], const T* p) {
+  constexpr int kBytes = G * (int)sizeof(T);
+  if constexpr (G == 1) {
+    a[0] = *p;
+  } else if constexpr (kBytes == 8) {
+    const uint2 q = __ldcg(reinterpret_cast<const uint2*>(p));
+    memcpy(&a[0], &q, 8);
+  } else if constexpr (kBytes == 16) {
+    const uint4 q = __ldcg(reinterpret_cast<const uint4*>(p));
+    memcpy(&a[0], &q, 16);
+  } else {
+    static_assert(kBytes == 32, "a tile's slot is at most one sector");
+    const uint4 q0 = __ldcg(reinterpret_cast<const uint4*>(p));
+    const uint4 q1 = __ldcg(reinterpret_cast<const uint4*>(p) + 1);
+    memcpy(&a[0], &q0, 16);
+    memcpy(&a[G / 2], &q1, 16);
+  }
+}
+template <typename T, int G>
+__device__ __forceinline__ void sector_store(T* p, const T (&a)[G]) {
+  constexpr int kBytes = G * (int)sizeof(T);
+  if constexpr (G == 1) {
+    *p = a[0];
+  } else if constexpr (kBytes == 8) {
+    uint2 q;
+    memcpy(&q, &a[0], 8);
+    *reinterpret_cast<uint2*>(p) = q;
+  } else if constexpr (kBytes == 16) {
+    uint4 q;
+    memcpy(&q, &a[0], 16);
+    *reinterpret_cast<uint4*>(p) = q;
+  } else {
+    uint4 q0, q1;
+    memcpy(&q0, &a[0], 16);
+    memcpy(&q1, &a[G / 2], 16);
+    reinterpret_cast<uint4*>(p)[0] = q0;
+    reinterpret_cast<uint4*>(p)[1] = q1;
+  }
+}
+
+// G == 1: the column form, block j owns column j.  G > 1: the tile form,
+// launched as clusters of ncta CTAs; cluster t owns columns [t G, t G + G)
+// and its CTAs split each level's slots (and the entry and exit gathers)
+// and meet at a cluster barrier between levels.
+template <typename T, bool SMEM, bool RING, int G>
 __global__ void __launch_bounds__(kTrsvThreads)
 trsv_solve_kernel(const T* __restrict__ B, T* __restrict__ X,
                   const int* __restrict__ in_rows,
@@ -1010,11 +1081,40 @@ trsv_solve_kernel(const T* __restrict__ B, T* __restrict__ X,
                   const int* __restrict__ out_slots,
                   const int64_t* __restrict__ level_slots, int nlev, int K,
                   int n, int nrhs, int nslots, int tps, int cap, int xbytes,
-                  T* scratch) {
+                  int ncta, T* scratch) {
+  constexpr bool kTiled = G > 1;
+  static_assert(!kTiled || !SMEM, "a tile keeps x in global memory");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int j = blockIdx.x;  // this block's column
+  const int nb = kTiled ? ncta : 1;  // the CTAs that share x
+  const int rank = kTiled ? (int)blockIdx.x % ncta : 0;
+  const int tile = kTiled ? (int)blockIdx.x / ncta : (int)blockIdx.x;
+  const int j0 = tile * G;  // the first column of this block's x
+  // slot s of x is x[s * G, s * G + G): column j0 + g at g
   T* x = SMEM ? reinterpret_cast<T*>(smem_raw)
-              : scratch + (int64_t)blockIdx.x * (nslots + 1);
+              : scratch + (int64_t)tile * (nslots + 1) * G;
+  // this CTA's share [a, b) of the slots [s0, s1): all of them in the
+  // column form, a run of whole 16-byte lines of each CTA's rows in the
+  // tile form
+  auto share = [&](int s0, int s1, int& a, int& b) {
+    if constexpr (kTiled) {
+      const int per = ((s1 - s0 + nb - 1) / nb + 7) & ~7;
+      a = min(s1, s0 + rank * per);
+      b = min(s1, a + per);
+    } else {
+      a = s0;
+      b = s1;
+    }
+  };
+  // every write of x before every read of the next level, across the
+  // cluster in the tile form
+  auto level_barrier = [&]() {
+    if constexpr (kTiled) {
+      asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+      asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+    } else {
+      __syncthreads();
+    }
+  };
   // a team of tps lanes (a power of two up to 32, within one warp) shares
   // one slot
   const int st = threadIdx.x / tps, lt = threadIdx.x % tps;
@@ -1031,8 +1131,9 @@ trsv_solve_kernel(const T* __restrict__ B, T* __restrict__ X,
   T* ring_v = reinterpret_cast<T*>(ring_c + kRingSlots * cap * K);
   auto ring_copy = [&](int l) {  // thread 0 only
     if (l >= nlev) return;
-    const int a = (int)level_slots[l];
-    const int m = min(cap, (int)level_slots[l + 1] - a);
+    int a, b;
+    share((int)level_slots[l], (int)level_slots[l + 1], a, b);
+    const int m = min(cap, b - a);
     const int q = l % kRingSlots;
     const unsigned cb = m * K * (unsigned)sizeof(int);
     const unsigned vb = m * K * (unsigned)sizeof(T);
@@ -1064,25 +1165,34 @@ trsv_solve_kernel(const T* __restrict__ B, T* __restrict__ X,
       for (int l = 0; l < kRingDepth; ++l) ring_copy(l);
   }
 
-  // entry gather, kGatherBatch independent loads at a time
-  for (int sb = threadIdx.x; sb <= nslots; sb += kTrsvThreads * kGatherBatch) {
-    int r[kGatherBatch];
-    T v[kGatherBatch];
+  // entry gather, kGatherBatch independent loads at a time (a tile's G
+  // columns of a row count as G of them), the cluster's CTAs taking turns
+  // by runs of kBatch * kTrsvThreads slots; the last tile's columns past
+  // nrhs stay 0
+  constexpr int kBatch = G >= kGatherBatch ? 1 : kGatherBatch / G;
+  constexpr int kRun = kTrsvThreads * kBatch;
+  for (int sb = rank * kRun + threadIdx.x; sb <= nslots; sb += nb * kRun) {
+    int r[kBatch];
+    T v[kBatch][G];
 #pragma unroll
-    for (int u = 0; u < kGatherBatch; ++u) {
+    for (int u = 0; u < kBatch; ++u) {
       const int s = sb + u * kTrsvThreads;
       r[u] = s < nslots ? in_rows[s] : n;
     }
 #pragma unroll
-    for (int u = 0; u < kGatherBatch; ++u)
-      v[u] = r[u] < n ? B[(int64_t)r[u] * nrhs + j] : T(0);
+    for (int u = 0; u < kBatch; ++u)
 #pragma unroll
-    for (int u = 0; u < kGatherBatch; ++u) {
+      for (int g = 0; g < G; ++g)
+        v[u][g] = r[u] < n && j0 + g < nrhs
+                      ? B[(int64_t)r[u] * nrhs + j0 + g]
+                      : T(0);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
       const int s = sb + u * kTrsvThreads;
-      if (s <= nslots) x[s] = v[u];
+      if (s <= nslots) sector_store(x + (int64_t)s * G, v[u]);
     }
   }
-  __syncthreads();
+  level_barrier();
 
   int s0 = (int)level_slots[0];
   int s1 = nlev > 0 ? (int)level_slots[1] : s0;
@@ -1092,14 +1202,17 @@ trsv_solve_kernel(const T* __restrict__ B, T* __restrict__ X,
       if (threadIdx.x == 0) ring_copy(l + kRingDepth);
       ring_wait(l);
     }
-    const int m = RING ? min(cap, s1 - s0) : 0;
+    int a, b;
+    share(s0, s1, a, b);
+    const int m = RING ? min(cap, b - a) : 0;
     const int* rc = ring_c + (l % kRingSlots) * cap * K;
     const T* rv = ring_v + (l % kRingSlots) * cap * K;
     // with K a multiple of 4, lane lt takes dependencies [4 lt, 4 lt + 4)
     // of every 4 tps, one 16-byte line of cols and of vals; else lt, lt +
-    // tps, lt + 2 tps, lt + 3 tps, so that a team's loads are contiguous
-    auto gather = [&](const int* cs, const T* vs) {
-      T acc = T(0);
+    // tps, lt + 2 tps, lt + 3 tps, so that a team's loads are contiguous.
+    // Each entry is applied to the tile's G columns, each column's sum in
+    // the column form's order
+    auto gather = [&](const int* cs, const T* vs, T(&acc)[G]) {
       int c[kDepsPerLane];
       T v[kDepsPerLane];
       if (K % kDepsPerLane == 0) {
@@ -1107,9 +1220,14 @@ trsv_solve_kernel(const T* __restrict__ B, T* __restrict__ X,
           Line<int>::load(c, cs + k0);
           Line<T>::load(v, vs + k0);
 #pragma unroll
-          for (int u = 0; u < kDepsPerLane; ++u) madd(acc, v[u], x[c[u]]);
+          for (int u = 0; u < kDepsPerLane; ++u) {
+            T xs[G];
+            sector_load(xs, x + (int64_t)c[u] * G);
+#pragma unroll
+            for (int g = 0; g < G; ++g) madd(acc[g], v[u], xs[g]);
+          }
         }
-        return acc;
+        return;
       }
       for (int k0 = lt; k0 < K; k0 += kDepsPerLane * tps) {
 #pragma unroll
@@ -1119,43 +1237,59 @@ trsv_solve_kernel(const T* __restrict__ B, T* __restrict__ X,
           v[u] = k < K ? vs[k] : T(0);
         }
 #pragma unroll
-        for (int u = 0; u < kDepsPerLane; ++u) madd(acc, v[u], x[c[u]]);
+        for (int u = 0; u < kDepsPerLane; ++u) {
+          T xs[G];
+          sector_load(xs, x + (int64_t)c[u] * G);
+#pragma unroll
+          for (int g = 0; g < G; ++g) madd(acc[g], v[u], xs[g]);
+        }
       }
-      return acc;
     };
-    for (int q = 0; s0 + st_warp + q * tstride < s1; ++q) {
-      const int s = s0 + st + q * tstride;
-      const bool live = s < s1;
-      const int i = s - s0;
-      T acc = T(0);
+    for (int q = 0; a + st_warp + q * tstride < b; ++q) {
+      const int s = a + st + q * tstride;
+      const bool live = s < b;
+      const int i = s - a;
+      T acc[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) acc[g] = T(0);
       if (live && i < m) {
-        acc = gather(rc + i * K, rv + i * K);
+        gather(rc + i * K, rv + i * K, acc);
       } else if (live) {
-        acc = gather(cols + (int64_t)s * K, vals + (int64_t)s * K);
+        gather(cols + (int64_t)s * K, vals + (int64_t)s * K, acc);
       }
-      for (int o = tps / 2; o > 0; o /= 2) acc += shfl_xor(acc, o);
-      if (live && lt == 0) x[s] -= acc;
+      for (int o = tps / 2; o > 0; o /= 2)
+#pragma unroll
+        for (int g = 0; g < G; ++g) acc[g] += shfl_xor(acc[g], o);
+      if (live && lt == 0) {
+        T xs[G];
+        sector_load(xs, x + (int64_t)s * G);
+#pragma unroll
+        for (int g = 0; g < G; ++g) xs[g] -= acc[g];
+        sector_store(x + (int64_t)s * G, xs);
+      }
     }
-    __syncthreads();
+    level_barrier();
     s0 = s1;
     s1 = s2;
   }
 
   // exit gather, kGatherBatch independent loads at a time
-  for (int rb = threadIdx.x; rb < n; rb += kTrsvThreads * kGatherBatch) {
-    int o[kGatherBatch];
-    T v[kGatherBatch];
+  for (int rb = rank * kRun + threadIdx.x; rb < n; rb += nb * kRun) {
+    int o[kBatch];
+    T v[kBatch][G];
 #pragma unroll
-    for (int u = 0; u < kGatherBatch; ++u) {
+    for (int u = 0; u < kBatch; ++u) {
       const int r = rb + u * kTrsvThreads;
       o[u] = r < n ? out_slots[r] : nslots;
     }
 #pragma unroll
-    for (int u = 0; u < kGatherBatch; ++u) v[u] = x[o[u]];
+    for (int u = 0; u < kBatch; ++u) sector_load(v[u], x + (int64_t)o[u] * G);
 #pragma unroll
-    for (int u = 0; u < kGatherBatch; ++u) {
+    for (int u = 0; u < kBatch; ++u) {
       const int r = rb + u * kTrsvThreads;
-      if (r < n) X[(int64_t)r * nrhs + j] = v[u];
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        if (r < n && j0 + g < nrhs) X[(int64_t)r * nrhs + j0 + g] = v[u][g];
     }
   }
 }
@@ -1279,42 +1413,71 @@ int sell_spmv(const int* idx, const T* val, const int* order,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool SMEM, bool RING>
+template <typename T, bool SMEM, bool RING, int G>
 int trsv_launch(const T* B, T* X, const int* in_rows, const int* cols,
                 const T* vals, const int* out_slots,
                 const int64_t* level_slots, int nlev, int K, int n, int nrhs,
-                int ns, int tps, int cap, int xbytes, T* scratch,
+                int ns, int tps, int cap, int xbytes, int ncta, T* scratch,
                 cudaStream_t s) {
   const int smem =
       xbytes + (RING ? kRingBarBytes + cap * kRingSlots * K *
                                            (int)(sizeof(int) + sizeof(T))
                      : 0);
+  auto kernel = trsv_solve_kernel<T, SMEM, RING, G>;
   static Granted granted;
-  const cudaError_t err =
-      allow_smem(trsv_solve_kernel<T, SMEM, RING>, smem, granted);
+  cudaError_t err = allow_smem(kernel, smem, granted);
   if (err != cudaSuccess) return (int)err;
-  trsv_solve_kernel<T, SMEM, RING><<<(unsigned)nrhs, kTrsvThreads, smem, s>>>(
-      B, X, in_rows, cols, vals, out_slots, level_slots, nlev, K, n, nrhs, ns,
-      tps, cap, xbytes, scratch);
+  const int tiles = (nrhs + G - 1) / G;
+  if constexpr (G == 1) {
+    kernel<<<(unsigned)tiles, kTrsvThreads, smem, s>>>(
+        B, X, in_rows, cols, vals, out_slots, level_slots, nlev, K, n, nrhs,
+        ns, tps, cap, xbytes, 1, scratch);
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(tiles * ncta));
+    cfg.blockDim = dim3((unsigned)kTrsvThreads);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)ncta;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, B, X, in_rows, cols, vals,
+                             out_slots, level_slots, nlev, K, n, nrhs, ns,
+                             tps, cap, xbytes, ncta, scratch);
+    if (err != cudaSuccess) return (int)err;
+  }
   return (int)cudaGetLastError();
 }
 
-// One block a column.  x in shared memory when scratch is null, else in
-// scratch (nrhs * (nslots + 1) elements).  The ring holds up to the widest
-// level (max_level slots; 0: no ring) in the shared memory x leaves, or in
-// kRingGlobalBytes with x in scratch.  level_slots is a DEVICE array of
-// nlev + 1 slot offsets.
+// One block a column (tile == 1, ncta == 1), or, with x in scratch, a
+// cluster of ncta <= 8 blocks a tile of ``tile`` columns (a power of two
+// up to 32 / sizeof(T): at most one 32-byte sector of x a slot; the last
+// tile masked).  x in shared memory when scratch is null, else in scratch
+// (ceil(nrhs / tile) * tile * (nslots + 1) elements).  The ring
+// holds up to the widest level (max_level slots; 0: no ring) in the shared
+// memory x leaves, or in kRingGlobalBytes with x in scratch.  level_slots
+// is a DEVICE array of nlev + 1 slot offsets.
 template <typename T>
 int trsv_solve(const T* B, T* X, const int* in_rows, const int* cols,
                const T* vals, const int* out_slots,
                const int64_t* level_slots, int nlev, int K, int n, int nrhs,
-               int64_t nslots, int max_level, T* scratch, void* stream) {
+               int64_t nslots, int max_level, int tile, int ncta,
+               T* scratch, void* stream) {
+  constexpr int kTile = 32 / sizeof(T);
   const cudaStream_t s = (cudaStream_t)stream;
   int tps = 1;
   while (tps < 32 && tps * kDepsPerLane < K) tps *= 2;
   if (nslots + 1 >= (int64_t)1 << 31) return (int)cudaErrorInvalidValue;
   const int ns = (int)nslots;
   const bool smem = scratch == nullptr;
+  if (tile < 1 || tile > kTile || (tile & (tile - 1)) || (tile > 1 && smem))
+    return (int)cudaErrorInvalidValue;
+  if (ncta < 1 || ncta > kTrsvMaxCluster || (tile == 1 && ncta != 1))
+    return (int)cudaErrorInvalidValue;
   const int64_t x64 = smem ? ((int64_t)ns + 1) * sizeof(T) : 0;
   if (x64 > kMaxSmem) return (int)cudaErrorInvalidValue;
   const int xbytes = (int)((x64 + 15) / 16 * 16);
@@ -1325,16 +1488,32 @@ int trsv_solve(const T* B, T* X, const int* in_rows, const int* cols,
   // room for one
   const int cap =
       max(0, min(room / per_slot / 8 * 8, (max_level + 7) / 8 * 8));
-#define TRSV_LAUNCH(SMEM, RING)                                               \
-  return trsv_launch<T, SMEM, RING>(B, X, in_rows, cols, vals, out_slots,     \
-                                    level_slots, nlev, K, n, nrhs, ns, tps,   \
-                                    cap, xbytes, scratch, s)
+#define TRSV_LAUNCH(SMEM, RING, G)                                            \
+  return trsv_launch<T, SMEM, RING, G>(B, X, in_rows, cols, vals, out_slots,  \
+                                       level_slots, nlev, K, n, nrhs, ns,     \
+                                       tps, cap, xbytes, ncta, scratch, s)
   if (smem) {
-    if (cap > 0) TRSV_LAUNCH(true, true);
-    TRSV_LAUNCH(true, false);
+    if (cap > 0) TRSV_LAUNCH(true, true, 1);
+    TRSV_LAUNCH(true, false, 1);
   }
-  if (cap > 0) TRSV_LAUNCH(false, true);
-  TRSV_LAUNCH(false, false);
+  if (tile == 2) {
+    if (cap > 0) TRSV_LAUNCH(false, true, 2);
+    TRSV_LAUNCH(false, false, 2);
+  }
+  if constexpr (kTile >= 4) {
+    if (tile == 4) {
+      if (cap > 0) TRSV_LAUNCH(false, true, 4);
+      TRSV_LAUNCH(false, false, 4);
+    }
+  }
+  if constexpr (kTile >= 8) {
+    if (tile == 8) {
+      if (cap > 0) TRSV_LAUNCH(false, true, 8);
+      TRSV_LAUNCH(false, false, 8);
+    }
+  }
+  if (cap > 0) TRSV_LAUNCH(false, true, 1);
+  TRSV_LAUNCH(false, false, 1);
 #undef TRSV_LAUNCH
 }
 
@@ -3039,10 +3218,11 @@ int read_rate(const void* p, int64_t nbytes, unsigned* out,
                           const int* cols, const T* vals,                    \
                           const int* out_slots, const int64_t* level_slots,  \
                           int nlev, int K, int n, int nrhs, int64_t nslots,  \
-                          int max_level, T* scratch, void* stream) {         \
+                          int max_level, int tile, int ncta, T* scratch,     \
+                          void* stream) {                                     \
     return trsv_solve<T>(B, X, in_rows, cols, vals, out_slots, level_slots,  \
-                         nlev, K, n, nrhs, nslots, max_level, scratch,       \
-                         stream);                                             \
+                         nlev, K, n, nrhs, nslots, max_level, tile, ncta,    \
+                         scratch, stream);                                    \
   }
 
 #define HIFIR_DEFINE_DIST(SUFFIX, T)                                          \

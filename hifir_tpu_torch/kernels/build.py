@@ -33,8 +33,8 @@ _SIGNATURES = {
     "bsr_spmv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sell_spmv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
                   _I, _P],
-    "trsv_solve": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P,
-                   _P],
+    "trsv_solve": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I,
+                   _I, _P, _P],
     "chunk_fma": [_P, _L, _I, _I, _P, _P, _L, _I, _I, _I, _P, _P],
     "chunk_sweep": [_P, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
                     _P],

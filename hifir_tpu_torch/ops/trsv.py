@@ -31,7 +31,7 @@ from ..kernels.build import check, kernel_fn
 __all__ = ["TrsvSchedule", "TrsvDense", "TrsvBlockDense",
            "build_trsv_schedule", "build_trsv_dense",
            "build_trsv_block_dense", "trsv_apply_mrhs", "trsv_apply_plain",
-           "trsv_shape"]
+           "trsv_shape", "trsv_team", "trsv_tile"]
 
 
 @dataclasses.dataclass
@@ -486,6 +486,59 @@ def trsv_shape(nslots: int, itemsize: int) -> str:
     return "shared" if (nslots + 1) * itemsize <= SMEM_BYTES else "global"
 
 
+# K2's block: its threads, and the dependencies a lane gathers a pass
+TRSV_THREADS = 1024
+DEPS_PER_LANE = 4
+# The tile form: a tile's slot of x is at most one 32-byte sector; a launch
+# aims at TILE_CTAS blocks (about half the H100's 132 SMs: on the 1M and
+# 3-D factors, 64 blocks beat 32 and 128 at 8, 64 and 128 columns), in
+# clusters of at most TILE_MAX_CLUSTER (the portable size); a schedule
+# takes it where its mean level fills at least TILE_MIN_PASSES passes of
+# the block (narrower levels lost to the column form: a split level pays a
+# cluster barrier for little work)
+SECTOR_BYTES = 32
+TILE_CTAS = 64
+TILE_MAX_CLUSTER = 8
+TILE_MIN_PASSES = 1.5
+
+
+def _pow2_floor(v: int) -> int:
+    return 1 << (v.bit_length() - 1) if v >= 1 else 0
+
+
+def trsv_team(K: int) -> int:
+    """K2's team of lanes a slot: the least power of two ``tps`` with
+    ``tps * 4 >= K``, at most a warp (as ``kernels.cu:trsv_solve``)."""
+    tps = 1
+    while tps < 32 and tps * DEPS_PER_LANE < K:
+        tps *= 2
+    return tps
+
+
+def trsv_tile(nslots: int, nlevels: int, K: int, itemsize: int,
+              nrhs: int) -> Tuple[int, int]:
+    """K2's launch shape, ``(G, C)``: a cluster of C blocks owns a tile of
+    G columns.  ``(1, 1)`` is the column form (a block a column), where x
+    lives in shared memory, there is one column, or the schedule's mean
+    level (``nslots / nlevels``) fills less than TILE_MIN_PASSES passes of
+    the block.  Else the tile form: G the largest power of two at most
+    ``nrhs / 8``, held between 2 and one 32-byte sector of x a slot (``32
+    // itemsize``: 8 f32, 4 f64 and c64, 2 c128), so that a dependency's
+    gather serves G columns and each entry of the factor is read once for
+    them; C the power of two up to TILE_MAX_CLUSTER that brings the
+    launch's blocks nearest below TILE_CTAS (at least 1), so that the
+    cluster's blocks split each level's slots."""
+    if nrhs == 1 or trsv_shape(nslots, itemsize) == "shared":
+        return 1, 1
+    per_pass = TRSV_THREADS // trsv_team(K)
+    if nslots < TILE_MIN_PASSES * per_pass * max(nlevels, 1):
+        return 1, 1
+    G = min(SECTOR_BYTES // itemsize, max(2, _pow2_floor(nrhs // 8)))
+    tiles = -(-nrhs // G)
+    C = min(TILE_MAX_CLUSTER, max(1, _pow2_floor(TILE_CTAS // tiles)))
+    return G, C
+
+
 def _ring_width(sched: TrsvSchedule) -> int:
     """The widest level, in slots, for K2's ring of copied dependencies; 0
     (no ring) when a level's rows are not whole 16-byte lines (chunk % 4)."""
@@ -496,19 +549,36 @@ def _ring_width(sched: TrsvSchedule) -> int:
 
 def trsv_apply_cuda(sched: TrsvSchedule, B: torch.Tensor) -> torch.Tensor:
     """Launch K2 once for the whole solve, B to X, one thread block a
-    column; ``trsv_apply_cuda.launches`` counts its launches.  Safe inside a
-    captured graph: the level table it reads on the host is numpy, and its
-    scratch comes from the caching allocator (the graph's pool)."""
+    column or a cluster a tile of columns (:func:`trsv_tile`);
+    ``trsv_apply_cuda.launches`` counts its launches and ``.tile_launches``
+    those in the tile form.  Safe inside a captured graph: the level table
+    it reads on the host is numpy, and its scratch comes from the caching
+    allocator (the graph's pool)."""
     n, nrhs = B.shape
     if n != sched.n:
         raise ValueError(f"B has {n} rows, the schedule {sched.n}")
+    tile, ncta = trsv_tile(sched.nchunks * sched.chunk, sched.nlevels,
+                           sched.cols.shape[2], B.element_size(), nrhs)
+    return _trsv_launch(sched, B, tile, ncta)
+
+
+trsv_apply_cuda.launches = 0
+trsv_apply_cuda.tile_launches = 0
+
+
+def _trsv_launch(sched: TrsvSchedule, B: torch.Tensor, tile: int,
+                 ncta: int = 1) -> torch.Tensor:
+    """K2 with ``tile`` columns a cluster of ``ncta`` blocks (1 and 1: the
+    column form): :func:`trsv_apply_cuda`'s launch, which a probe may call
+    with other shapes to time them."""
+    n, nrhs = B.shape
     X = B.new_empty((n, nrhs))
     if nrhs == 0 or sched.nchunks == 0:
         return X
     nslots = sched.nchunks * sched.chunk
     scratch = None
     if trsv_shape(nslots, B.element_size()) == "global":
-        scratch = B.new_empty((nrhs * (nslots + 1),))
+        scratch = B.new_empty((-(-nrhs // tile) * tile * (nslots + 1),))
     extra = {} if scratch is None else dict(scratch=scratch)
     fn = kernel_fn("trsv_solve", index_dtypes=(torch.int32,) * 3
                    + (torch.int64,), B=B, X=X, in_rows=sched.in_rows,
@@ -521,15 +591,13 @@ def trsv_apply_cuda(sched: TrsvSchedule, B: torch.Tensor) -> torch.Tensor:
                  sched.out_slots.data_ptr(),
                  sched.level_slots_dev.data_ptr(),
                  sched.nlevels, sched.cols.shape[2], n, nrhs, nslots,
-                 _ring_width(sched),
+                 _ring_width(sched), tile, ncta,
                  None if scratch is None else scratch.data_ptr(),
                  torch.cuda.current_stream(B.device).cuda_stream)
     check(err, "trsv_solve")
     trsv_apply_cuda.launches += 1
+    trsv_apply_cuda.tile_launches += tile > 1
     return X
-
-
-trsv_apply_cuda.launches = 0
 
 
 def trsv_apply_mrhs(sched, B: torch.Tensor) -> torch.Tensor:

@@ -81,8 +81,8 @@ def launch_counters() -> list:
     """The kernels' launch counters, ``(wrapper, attribute, name)``: K1 (and
     its sign=+1 launches), K2 and K7 and the call counters of their plain
     versions, then those of the distribution's kernels (K10a a chunk, the
-    sweep, the peer sweep, K10b) and of their plain versions.  ``name`` is
-    ``<wrapper>.<attribute>``."""
+    sweep, the peer sweep, K10b) and of their plain versions, and last K2's
+    launches in the tile form.  ``name`` is ``<wrapper>.<attribute>``."""
     if not _LAUNCHES:
         from .ops import bsr_spmv, chunk, spmv, trsv
         from .parallel import schur
@@ -103,7 +103,8 @@ def launch_counters() -> list:
                 (chunk.chunk_fma_plain, "calls"),
                 (chunk.chunk_sweep_plain, "calls"),
                 (chunk.chunk_sweep_peer_plain, "calls"),
-                (schur.schur_partial_plain, "calls")))
+                (schur.schur_partial_plain, "calls"),
+                (trsv.trsv_apply_cuda, "tile_launches")))
     return _LAUNCHES
 
 

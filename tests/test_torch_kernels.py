@@ -177,6 +177,45 @@ def test_k2_shape_choice():
     assert shape(4384, 8) == "shared"
 
 
+@pytest.mark.parametrize("dtype,width", [(torch.float32, 8),
+                                         (torch.float64, 4),
+                                         (torch.complex64, 4),
+                                         (torch.complex128, 2)])
+def test_k2_tile_choice(dtype, width):
+    """The column form where x fits in shared memory, there is one column
+    or the levels are narrow; else a cluster of C blocks a tile of G
+    columns, G up to one 32-byte sector of x and C bringing the launch
+    near 64 blocks (the last tile masked)."""
+    tile = trsv.trsv_tile
+    es = torch.empty((), dtype=dtype).element_size()
+    assert width * es == trsv.SECTOR_BYTES
+    fits = trsv.SMEM_BYTES // es - 1
+    # the 1M pack's level-0 L: 1,929,216 slots, 377 levels, K 4
+    big = (1_929_216, 377, 4)
+    for nrhs in (1, 2, 7, 8, 64, 128):
+        assert tile(fits, 1, 4, es, nrhs) == (1, 1)
+    assert tile(*big, es, 1) == (1, 1)
+    # levels under 1.5 passes of the block stay on the column form: the 1M
+    # pack's level-2 L (110,336 slots, 190 levels, K 8: 512 slots a pass)
+    assert tile(110_336, 190, 8, es, 64) == (1, 1)
+    assert tile(3 * 512 * 190 // 2, 190, 8, es, 64) != (1, 1)
+    for nrhs in (2, 7, 8, 16, 32, 64, 128, 256, 1024):
+        G, C = tile(*big, es, nrhs)
+        assert 2 <= G <= width and G & (G - 1) == 0
+        assert G == min(width, max(2, 1 << max(0, (nrhs // 8).bit_length()
+                                                - 1)))
+        blocks = -(-nrhs // G) * C
+        assert C in (1, 2, 4, 8)
+        assert blocks <= 64 or C == 1
+        assert C == 8 or blocks * 2 > 64
+    if width == 8:     # f32: the apply cells' shapes
+        assert tile(*big, es, 64) == (8, 8)
+        assert tile(*big, es, 128) == (8, 4)
+        assert tile(*big, es, 8) == (2, 8)
+    assert trsv.trsv_team(4) == 1 and trsv.trsv_team(5) == 2
+    assert trsv.trsv_team(69) == 32 and trsv.trsv_team(500) == 32
+
+
 @pytest.mark.parametrize("chunk,ring", [(16, True), (6, False)])
 def test_k2_ring_needs_whole_lines(chunk, ring):
     """The ring copies a level's rows in 16-byte lines: only schedules whose

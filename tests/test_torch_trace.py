@@ -66,7 +66,19 @@ def test_span_nesting_and_totals():
     # the launch counters are read under their wrappers' names
     assert s1["counters"]["trsv_apply_cuda.launches"] == \
         trsv.trsv_apply_cuda.launches
-    assert len(trace.launch_counters()) == len(graphs.read_counters()) == 15
+    assert len(trace.launch_counters()) == len(graphs.read_counters()) == 16
+
+
+def test_k2_tile_launches_are_a_launch_counter(monkeypatch):
+    """K2's tile-form launches are read with the launch counters, last, so
+    that a replay re-adds what its capture counted and the earlier
+    counters keep their places."""
+    names = [name for _, _, name in trace.launch_counters()]
+    assert names[-1] == "trsv_apply_cuda.tile_launches"
+    assert names.index("trsv_apply_cuda.launches") == 2
+    monkeypatch.setattr(trsv.trsv_apply_cuda, "tile_launches", 7)
+    assert trace.snapshot()["counters"]["trsv_apply_cuda.tile_launches"] == 7
+    assert graphs.read_counters()[-1] == 7
 
 
 def test_no_range_without_a_profiler(monkeypatch):
