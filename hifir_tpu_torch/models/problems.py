@@ -1,8 +1,8 @@
 """Model problem generators (the port's copy of ``hifir_tpu/models``):
 2-D/3-D Poisson, convection-diffusion (5/7-point FDM), a saddle-point
 Stokes-like system with a zero (2,2) block, which exercises the static
-deferral, random sparse and strict-triangular test matrices, and a complex
-diagonal shift."""
+deferral, enclosed-flow 2-D Stokes on a MAC grid, random sparse and
+strict-triangular test matrices, and a complex diagonal shift."""
 
 from __future__ import annotations
 
@@ -11,7 +11,8 @@ import numpy as np
 from ..ds.csr import CSR
 
 __all__ = ["poisson2d", "poisson3d", "convdiff2d", "saddle_point_stokes",
-           "random_sparse", "random_strict_triangular", "shift_diagonal"]
+           "stokes2d_mac", "random_sparse", "random_strict_triangular",
+           "shift_diagonal"]
 
 
 def poisson2d(nx: int, ny: int | None = None, dtype=np.float64) -> CSR:
@@ -87,7 +88,10 @@ def convdiff2d(nx: int, ny: int | None = None, wind=(10.0, 20.0),
 
 
 def saddle_point_stokes(nx: int, dtype=np.float64, seed: int = 0) -> CSR:
-    """Small saddle-point system [[A, B^T], [B, 0]] with Poisson A.
+    """Small saddle-point system [[A, B^T], [B, 0]]: A the 5-point Poisson
+    operator, B a seeded random sparse matrix with three normal entries a
+    row.  It is no discretized Stokes operator, and it is not singular by
+    construction; :func:`stokes2d_mac` is the enclosed-flow Stokes operator.
 
     The zero (2,2) block produces structurally zero diagonals exercising the
     static-deferral machinery (ref ``pre/matching_scaling.hpp:99-183``).
@@ -107,6 +111,63 @@ def saddle_point_stokes(nx: int, dtype=np.float64, seed: int = 0) -> CSR:
     S = sp.bmat([[A.to_scipy(), B.to_scipy().T], [B.to_scipy(), None]],
                 format="csr")
     return CSR.from_scipy(S)
+
+
+def stokes2d_mac(N: int, dtype=np.float64) -> CSR:
+    """Enclosed-flow 2-D Stokes on the unit square, a MAC grid of N x N
+    cells (h = 1/N), no-slip walls:
+    A = [[-Lap_u, 0, Dx^T], [0, -Lap_v, Dy^T], [Dx, Dy, 0]].
+
+    u lives on the interior vertical faces ((N-1) x N, x fastest), v on the
+    interior horizontal faces (N x (N-1)), p at the cell centres (N x N),
+    in that order: n = 2 N (N-1) + N^2.  The Laplacians are 5-point, scaled
+    by 1/h^2; a neighbour on a wall normal to the velocity is the wall's
+    zero, and where the velocity runs parallel to a wall its no-slip value
+    is imposed through a ghost node (u_ghost = -u), so the diagonal is
+    3/h^2 in that direction.  D is the cell divergence (+-1/h); the (1,3)
+    and (2,3) blocks are its transpose (the pressure's sign folded in), so
+    A is exactly symmetric.  It is singular: its null space is the
+    constant pressure (0, 0, 1_p).
+    """
+    h = 1.0 / N
+    nu = (N - 1) * N
+    # face indices, [row j, column i]; p[j, i] the cell of row j, column i
+    u = np.arange(nu).reshape(N, N - 1)              # x-face i + 1 of row j
+    v = nu + np.arange(nu).reshape(N - 1, N)         # y-face j + 1 of col i
+    p = 2 * nu + np.arange(N * N).reshape(N, N)
+    rows, cols, vals = [], [], []
+
+    def put(r, c, x):
+        rows.append(r.ravel())
+        cols.append(c.ravel())
+        vals.append(np.broadcast_to(np.asarray(x, dtype=np.float64),
+                                    r.shape).ravel())
+
+    for f, across in ((u, 0), (v, 1)):
+        # the diagonal: 2 along the velocity (wall faces are zeros), 2
+        # across it, 3 beside a wall it runs parallel to (the ghost node)
+        d = np.full(f.shape, 4.0)
+        edge = [slice(None)] * 2
+        for end in (0, -1):
+            edge[across] = end
+            d[tuple(edge)] += 1.0
+        put(f, f, d / h ** 2)
+        for ax in (0, 1):
+            a = f[tuple(slice(None, -1) if k == ax else slice(None)
+                        for k in range(2))]
+            b = f[tuple(slice(1, None) if k == ax else slice(None)
+                        for k in range(2))]
+            put(a, b, -1.0 / h ** 2)
+            put(b, a, -1.0 / h ** 2)
+    # divergence: u face i + 1 of row j is the right face of cell (j, i)
+    # and the left face of cell (j, i + 1); likewise v in y
+    for f, lo, hi in ((u, p[:, :-1], p[:, 1:]), (v, p[:-1, :], p[1:, :])):
+        for c, s in ((lo, 1.0 / h), (hi, -1.0 / h)):
+            put(c, f, s)
+            put(f, c, s)
+    n = 2 * nu + N * N
+    return CSR.from_coo(n, n, np.concatenate(rows), np.concatenate(cols),
+                        np.concatenate(vals).astype(dtype))
 
 
 def random_sparse(n: int, nnz_per_row: int = 8, diag: bool = True,

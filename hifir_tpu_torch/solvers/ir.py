@@ -6,6 +6,8 @@ may be a sliced ELL, an ELL or a BSR (:mod:`..ops.spmv`,
 fused epilogue, or in K7 followed by a subtraction, on the card.  On a
 CUDA pack with ``graphs`` on, :func:`ir_apply` is one captured graph for
 each (A, nirs, r, shape), the counterpart of the JAX ``fori_loop``.
+Each call is a ``hifir.ir`` span and adds 1 to the counter ``ir.calls``
+and ``nirs`` to ``ir.msolves`` on the host, replays included.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from ..alg.prec import prec_solve_mrhs
 from ..device import as_values
 from ..graphs import cache_of
 from ..ops.spmv import ell_matvec_mrhs, sliced_ell_sub_mrhs
+from ..trace import add, span
 
 __all__ = ["ir_apply", "ir_apply_mrhs", "residual_mrhs"]
 
@@ -48,10 +51,13 @@ def ir_apply(A, prec, b, nirs: int, r: Optional[int] = None) -> torch.Tensor:
     M-solve.  As in the JAX package, the M-solves are the bare multilevel
     solve: ``prec.nsp`` is not applied.
     """
-    cache = cache_of(prec)
-    b = as_values(b, prec.dtype, prec.device)
-    B = b[:, None] if b.ndim == 1 else b
-    args = (A, prec.levels, prec.tail, B, nirs, r)
-    X = (ir_apply_mrhs(*args) if cache is None
-         else cache.call(ir_apply_mrhs, *args))
+    with span("hifir.ir"):
+        cache = cache_of(prec)
+        b = as_values(b, prec.dtype, prec.device)
+        B = b[:, None] if b.ndim == 1 else b
+        args = (A, prec.levels, prec.tail, B, nirs, r)
+        X = (ir_apply_mrhs(*args) if cache is None
+             else cache.call(ir_apply_mrhs, *args))
+    add("ir.calls")
+    add("ir.msolves", nirs)
     return X[:, 0] if b.ndim == 1 else X
