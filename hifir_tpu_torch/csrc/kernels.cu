@@ -602,9 +602,9 @@ bsr_stream_kernel(const T* __restrict__ blocks, const int* __restrict__ bcols,
 // Yardstick, called by no solve: reads ``nbytes`` (a multiple of 16, the
 // pointer 16-byte aligned) with 16-byte loads, four in flight a thread over
 // a grid that fills the card, and stores the xor of what it read only when
-// it equals ``sentinel``, so that no load is dropped.  chip_smoke.py times
-// it over K7's blocks: the read rate that the streaming path can reach at
-// that size and under that timer.
+// it equals ``sentinel``, so that no load is dropped.  Nothing calls it or
+// its host entry ``read_rate`` any more: it is a named debt in ROADMAP.md,
+// to be deleted by a change that may alter the kernels.
 __global__ void __launch_bounds__(256)
 read_rate_kernel(const uint4* __restrict__ p, int64_t n, unsigned* out,
                  unsigned sentinel) {
@@ -2259,8 +2259,8 @@ int chunk_peer(int G, const int64_t* xptr, const int64_t* flagptr,
 // and writes, at the position of the last entry of each run of equal
 // columns below cb, (column, sum of the run), and (cb, 0) elsewhere.
 //
-// Bound: bytes, as chip_smoke.py:k10b_row counts them: the masked (rows, W)
-// output that the JAX interface fixes, (4 + itemsize) bytes a position,
+// Bound: bytes: the masked (rows, W) output that the JAX interface fixes,
+// (4 + itemsize) bytes a position,
 // and the gathers (each live L_E entry, each U_F row and d entry that a
 // live entry references, once a rank); 0.0043 ms at convdiff2d(128)'s
 // level 0 in f64.  The first version (a block a row, a bitonic sort in

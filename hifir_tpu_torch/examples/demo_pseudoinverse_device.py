@@ -18,9 +18,10 @@ import argparse
 import numpy as np
 import torch
 
-# what the port's test and chip_smoke.py hold the float32-M run to: the
-# relative residual and the distance to pinv(D) b.  The residuals are
-# float64, as the printed line says, so 50 steps reach ~1e-13 on the CPU;
+# what the port's tests (tests/test_torch_graphs_card.py on the card) hold
+# the float32-M run to: the relative residual and the distance to pinv(D)
+# b.  The residuals are float64, as the printed line says, so 50 steps
+# reach ~1e-13 on the CPU;
 # the JAX demo, without x64, computes them in float32 and stops near 1e-5.
 RES_BOUND = 1e-10
 PINV_BOUND = 1e-9

@@ -103,7 +103,8 @@ bsr_matvec_mrhs_plain.calls = 0
 
 # Widest block of right-hand sides that the streaming kernel takes; up to
 # here it beat the tensor-core tile in both dtypes on the H100 at the main
-# path's bs=128 (chip_smoke.py's K7 path sweep).
+# path's bs=128 when both paths were timed at 1, 2 and 4 right-hand sides
+# (the bring-up record in PERF.md section 6; no code times them now).
 STREAM_MAX_NRHS = 2
 
 
@@ -118,9 +119,9 @@ def bsr_path(dtype: torch.dtype, nrhs: int) -> str:
 def bsr_spmv_cuda(A: BSR, X: torch.Tensor, path: str = None) -> torch.Tensor:
     """Launch K7 on ``path`` (default :func:`bsr_path`);
     ``bsr_spmv_cuda.launches`` counts its launches.  ``path`` is there for
-    chip_smoke.py, which times both sides of :func:`bsr_path`'s choice at
-    1, 2 and 4 right-hand sides on every run, each checked against the
-    plain version, so that ``STREAM_MAX_NRHS`` stays measured.  Safe inside
+    the card tests (``tests/test_torch_kernels_card.py``), which hold both
+    sides of :func:`bsr_path`'s choice at 1, 2 and 4 right-hand sides
+    against the plain version.  Safe inside
     a captured graph, as K1's wrapper is (the 16-byte test reads pointers
     that replays keep fixed)."""
     _real_only(X.dtype, "bsr_spmv")

@@ -9,7 +9,8 @@ the pivoting Crout, the level scan and the host triangular solve, in C++
 first use and raises if the build fails.  Every function returns what the
 JAX package's does; the ones that return ``None`` without a library do so
 only when :func:`_load` gives ``None``, which is how a caller (the tests,
-``chip_smoke.py``'s fixture phases) runs the numpy anchors instead.
+``tests/test_torch_factorize_card.py:anchors``) runs the numpy anchors
+instead.
 """
 
 from __future__ import annotations

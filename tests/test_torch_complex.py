@@ -266,8 +266,9 @@ def test_trsv_dense_keeps_complex(lower):
 
 
 def test_plain_versions_count_their_calls():
-    """The plain versions' call counters, which chip_smoke.py reads to show
-    that no operand of the complex phase reached one on the card."""
+    """The plain versions' call counters, which the card tests
+    (``tests/test_torch_prec_card.py``) read to show that no operand of the
+    complex parts reached one on the card."""
     A = spmv.sliced_ell_from_csr(_port(random_sparse(30, 3, seed=1)),
                                  device=CPU)
     s = trsv.build_trsv_schedule(_port(_ctriangle(40, True, 1)), lower=True,

@@ -10,12 +10,22 @@
   that kernel on an H100, is in ``data/k2_uniform_digests.json``
   (``python3 tools/probe_k2_schedule.py --digests ROOT`` prints the
   digests of the checkout at ROOT).
+- K2's column tiles where x lives in global memory: level 0's L and U of
+  poisson2d(512) (host factorize, ``Options(verbose=0)``) on the card
+  schedule in f32 and f64, and times seeded unit phases in c64 and c128,
+  at 2, 7, 8, 64 and 128 right-hand sides (tiles of 2 to 8 columns,
+  clusters of 1 to 8 CTAs, ragged last tiles): the shape rule
+  (``trsv.trsv_tile``) gives a tile, the kernel is within 1e-5 (f32, c64)
+  / 1e-12 (f64, c128) of the plain version and bit-equal to the column
+  form run on each column alone, one tile launch a width and none for the
+  single columns.  Its phases and right-hand sides are drawn from
+  ``default_rng(13)``.
 
 Every test needs an NVIDIA GPU and skips without one.  On the card:
 ``python3 -m pytest tests/test_torch_k2_card.py -q --noconftest`` (the
-tests' conftest imports JAX; ``chip_smoke.py``'s K2 tile phase runs it).
-This file imports no JAX; :func:`uniform_digests`
-uses only what the earlier K2 had, so that the probe can run it there.
+tests' conftest imports JAX).  This file imports no JAX;
+:func:`uniform_digests` uses only what the earlier K2 had, so that the
+probe can run it there.
 """
 
 import hashlib
@@ -132,3 +142,69 @@ def test_k2_uniform_bit_equal_to_earlier_kernel():
     got = uniform_digests()
     assert got.keys() == want.keys()
     assert [k for k in got if got[k] != want[k]] == []
+
+
+# K2's tile cases: the operator and the widths (ragged last tiles included)
+TILE_NX = 512
+TILE_WIDTHS = (2, 7, 8, 64, 128)
+TILE_DTYPES = ("float32", "float64", "complex64", "complex128")
+
+
+@pytest.fixture(scope="module")
+def tile_schedules():
+    """Level 0's L and U of poisson2d(512) on the card schedule in each
+    dtype (the complex factors times seeded unit phases) and their
+    right-hand sides, drawn from ``default_rng(13)`` in the order: dtype,
+    then L before U, the phases before the block."""
+    import hifir_tpu_torch as ht
+    from hifir_tpu_torch.models.problems import poisson2d
+
+    _card()
+    hp = ht.HIF().factorize(poisson2d(TILE_NX),
+                            ht.Options(verbose=0)).precs[0]
+    rng = np.random.default_rng(13)
+    out = {}
+    for dname in TILE_DTYPES:
+        dt = getattr(torch, dname)
+        for name, Th, lower in (("L", hp.L_B, True), ("U", hp.U_B, False)):
+            if dt.is_complex:
+                phase = np.exp(2j * np.pi * rng.random(Th.data.size))
+                Th = CSR(Th.nrows, Th.ncols, Th.indptr, Th.indices,
+                         Th.data * phase)
+            S = trsv.build_trsv_schedule_card(
+                Th, lower=lower, dtype=np.dtype(dname), device="cuda")
+            B = rng.standard_normal((S.n, max(TILE_WIDTHS)))
+            if dt.is_complex:
+                B = B + 1j * rng.standard_normal((S.n, max(TILE_WIDTHS)))
+            out[(dname, name)] = (S, torch.as_tensor(B, dtype=dt,
+                                                     device="cuda"))
+    return out
+
+
+@pytest.mark.parametrize("w", TILE_WIDTHS)
+@pytest.mark.parametrize("name", ["L", "U"])
+@pytest.mark.parametrize("dname", TILE_DTYPES)
+def test_k2_tile_form(dname, name, w, tile_schedules):
+    _card()
+    S, B = tile_schedules[(dname, name)]
+    k2 = trsv.trsv_apply_cuda
+    es = B.element_size()
+    Bw = B[:, :w].contiguous()
+    shape = trsv.trsv_tile(S.nslots, S.level_passes, es, w)
+    assert shape[0] > 1, (f"the schedule ({S.nslots} slots, {S.nlevels} "
+                          f"levels, K {S.K}) takes the column form")
+    t0 = k2.tile_launches
+    X = trsv.trsv_apply_mrhs(S, Bw)
+    tiles = k2.tile_launches - t0
+    Xp = trsv.trsv_apply_plain(S, Bw)
+    t0 = k2.tile_launches
+    cols = torch.cat([trsv.trsv_apply_mrhs(S, Bw[:, j:j + 1].contiguous())
+                      for j in range(w)], 1)
+    col_tiles = k2.tile_launches - t0
+    torch.cuda.synchronize()
+    tol = 1e-5 if dname in ("float32", "complex64") else 1e-12
+    rel = float((X - Xp).abs().max()) / max(float(Xp.abs().max()), 1e-300)
+    assert rel <= tol, f"{rel:.3e} from the plain version"
+    assert torch.equal(X, cols), ("the tile form differs from the column "
+                                  "form run on each column alone")
+    assert tiles == 1 and col_tiles == 0, (tiles, col_tiles)

@@ -12,7 +12,7 @@ the eight virtual CPU devices of ``tests/conftest.py`` (poisson2d(64),
 chunk 64, halo and all_gather forms, 1e-12 f64 and 1e-5 f32 of max|x|);
 the plan's form follows the mesh's peer access; the wrapper refuses CPU
 operands; and ``dryrun_multichip`` with one rank a listed device.  The
-kernel itself runs on the card only (``chip_smoke.py``).
+kernel itself runs on the card only (``tests/test_torch_dist_card.py``).
 """
 
 import numpy as np

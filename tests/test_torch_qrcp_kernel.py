@@ -3,7 +3,8 @@
 ``qrcp_device`` runs kernel K8 (``csrc/kernels.cu:qrcp_kernel``, one
 cooperative launch) on a CUDA tensor and its plain version, the eager loop
 ``qrcp_device_plain``, on a CPU one.  The kernel runs only on the card,
-where ``chip_smoke.py`` holds it against the plain version; here the plain
+where ``tests/test_torch_factorize_card.py`` holds it against the plain
+version; here the plain
 version is held to the JAX package's ``qrcp_device`` on the matrices whose
 pivots the position rule decides (the first maximal norm wins, as argmax
 takes it): 1x1, 2x2, the identity and a permutation matrix (every norm ties

@@ -4,7 +4,8 @@ version against the JAX kernel, and the tier plan of the CUDA kernel.
 ``schur_partial`` runs kernel K10b (``csrc/kernels.cu``: a warp a row, a
 CTA a row, or a CTA a row on global scratch, by the row's width W = KL *
 KU) on CUDA tensors and its plain version on CPU ones.  The kernel runs only
-on the card, where ``chip_smoke.py`` holds it against the plain version;
+on the card, where ``tests/test_torch_dist_card.py`` holds it against the
+plain version;
 here the plain version is held to the JAX package's ``_partial_kernel``
 (jitted on one CPU device with a leading axis of 1, a rank at a time) on
 seeded operands packed as the ring packs them, at widths in each tier's

@@ -14,7 +14,7 @@ only the stores.  On a seeded row set shaped as convdiff2d(128)'s level 0
 (8 ranks x 511 rows, KL = KU = 15, W = 225, panels of 511 columns), it
 first holds the real kernel against the plain version (columns exactly,
 values 1e-12 / 1e-5), then times every variant in f64 and f32 by CUDA
-events, each launch after the Timer's L2 flush (``chip_smoke.Timer``),
+events, each launch after the Timer's L2 flush (``probe_util.Timer``),
 beside a one-element fill (the timer's floor).  The differences say where
 the kernel's time goes; ``--out DIR`` writes ``DIR/probe_k10b.json``.
 """
@@ -29,13 +29,14 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-import chip_smoke as cs  # noqa: E402
+from card_common import k10b_inputs, k10b_run  # noqa: E402
 from hifir_tpu_torch.kernels import build  # noqa: E402
+from probe_util import Timer, power_line  # noqa: E402
 from hifir_tpu_torch.parallel import schur  # noqa: E402
 
 # (ranks, tail rows nm, U_F rows m, panel width cb, KL, KU, live share)
@@ -114,7 +115,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    smi = cs.power_line()
+    smi = power_line()
     t0 = time.perf_counter()
     texts = variants(build.SOURCE.read_text())
     libs = build_all(texts)
@@ -125,10 +126,9 @@ def main() -> int:
     def use(name):
         build.load_kernels = lambda: libs[name]
 
-    T = cs.Timer(torch)
+    T = Timer()
     D, nm, m, cb, KL, KU, live = SHAPE
-    ops = cs.k10b_inputs(np.random.default_rng(11), D, nm, m, cb, KL, KU,
-                         live)
+    ops = k10b_inputs(np.random.default_rng(11), D, nm, m, cb, KL, KU, live)
     x = torch.empty(1, device="cuda")
     out = dict(smi=smi, shape=SHAPE, floor_ms=T.ms(lambda: x.fill_(1.0)),
                ms={})
@@ -136,7 +136,7 @@ def main() -> int:
         for dt in (torch.float64, torch.float32):
             dn = str(dt).removeprefix("torch.")
             use("full")
-            cargs = cs.k10b_run(torch, ops, cb, dt, "convdiff-like")[0]
+            cargs = k10b_run(ops, cb, dt, "convdiff-like")[0]
             for name in texts:
                 use(name)
                 ms = T.ms(lambda: schur.schur_partial_cuda(*cargs, cb))

@@ -50,14 +50,6 @@ CELLS = {"stk256": ("stokes2d-mac-256", (("float64", 32),)),
 SCAN_ABOVE = 8 * 2048
 
 
-def power_line() -> str:
-    import subprocess
-
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-
-
 def digests(root: str, out: str) -> int:
     sys.path.insert(0, os.path.abspath(root))
     spec = importlib.util.spec_from_file_location(
@@ -70,19 +62,6 @@ def digests(root: str, out: str) -> int:
     with open(os.path.join(out, "k2_uniform_digests.json"), "w") as f:
         json.dump(got, f, indent=1)
     return 0
-
-
-def timed(torch, fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(reps):
-        fn()
-    e.record()
-    torch.cuda.synchronize()
-    return s.elapsed_time(e) / reps
 
 
 def fill(trsv, np, S):
@@ -146,6 +125,7 @@ def main() -> int:
     from hifbench import problems
     from hifir_tpu_torch.ds.csr import CSR
     from hifir_tpu_torch.ops import trsv
+    from probe_util import power_line, timed
 
     out = dict(smi=power_line(), torch=torch.__version__,
                cuda=torch.version.cuda, constants=dict(
@@ -207,12 +187,12 @@ def main() -> int:
                             bad += 1
                             print(f"FAIL {cell} {li}{fname} {vname}: gap "
                                   f"{gap:.3e}", flush=True)
-                        row["ms_column"] = timed(torch, col, args.reps)
+                        row["ms_column"] = timed(col, args.reps)
                         if row["x"] == "global" and nrhs > 1:
                             G, C = trsv.tile_shape(es, nrhs)
                             row["ms_tile"] = timed(
-                                torch, lambda S=S: trsv._trsv_launch(
-                                    S, B, G, C), args.reps)
+                                lambda S=S: trsv._trsv_launch(S, B, G, C),
+                                args.reps)
                         chosen = ("ms_tile" if tuple(row["form"]) != (1, 1)
                                   else "ms_column")
                         row["ms"] = row[chosen]

@@ -33,34 +33,13 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from probe_util import power_line, timed  # noqa: E402
+
 CONFIGS = {"p2d1m": "poisson2d-1m", "p3d64": "poisson3d-64"}
 WIDTHS = (1, 8, 64, 128)
 # (columns, CTAs) a tile of the sweep: the column form, then tiles of 2, 4
 # and 8 columns on clusters of 1 to 8 CTAs
 SHAPES = ((1, 1),) + tuple((t, c) for t in (2, 4, 8) for c in (1, 2, 4, 8))
-
-
-def power_line() -> str:
-    import subprocess
-
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-
-
-def timed(fn, reps: int) -> float:
-    """CUDA-event ms a call over ``reps`` back-to-back calls after a
-    warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(reps):
-        fn()
-    e.record()
-    torch.cuda.synchronize()
-    return s.elapsed_time(e) / reps
 
 
 def pack(cell: str):

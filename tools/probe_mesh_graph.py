@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with NVIDIA GPUs:
 
-    python3 tools/probe_mesh_graph.py [--multicard] [--out DIR]
+    python3 tools/probe_mesh_graph.py [--out DIR]
 
 The distributed jit sites (``DistPrec.solve`` and the mesh's programs)
 are captured through ``hifir_tpu_torch.graphs``; on a mesh over several
@@ -28,11 +28,9 @@ two or three; with one card, the two groups of one card):
 Design (b), one graph a card ordered by external events, is tried only
 where (a) fails: a graph a card, each running a kernel, the second
 waiting on an external event the first records.  Prints one line a check
-and the choice; ``--multicard`` then runs ``chip_smoke.py``'s multi-card
-legs (``multicard_phase``), which replay the four-card peer and chunk
-forms and time level 0's L alone (about 6 minutes of command on four
-H100s, most of it the four-card chunk form's first call).  ``--out DIR``
-writes ``DIR/probe_mesh_graph.json``.
+and the choice; the multi-card legs' replays of the four-card peer and
+chunk forms are card tests (``tests/test_torch_dist_card.py -k cards``).
+``--out DIR`` writes ``DIR/probe_mesh_graph.json``.
 """
 
 import argparse
@@ -43,12 +41,13 @@ import time
 import traceback
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-import chip_smoke as cs  # noqa: E402
+from card_common import RED_OPTS, sync_all  # noqa: E402
+from probe_util import log, power_line  # noqa: E402
 
 
 def pool_bytes_by_card(pool) -> dict:
@@ -79,12 +78,12 @@ def check_collectives(mesh) -> dict:
               for _ in range(4)]
     t0 = time.perf_counter()
     cache.call(collectives, mesh, inputs[0])      # warm-up and capture
-    cs.sync_all(torch)
+    sync_all()
     first = time.perf_counter() - t0
     equal = []
     for b in inputs[1:]:
         y = cache.call(collectives, mesh, b)
-        cs.sync_all(torch)
+        sync_all()
         equal.append(bool(torch.equal(y, collectives(mesh, b))))
     return dict(backend=type(cache.backend).__name__, bit_equal=equal,
                 first_call_seconds=first,
@@ -101,21 +100,21 @@ def check_distprec(mesh, P, b, xh) -> dict:
         dp = DistPrec.from_host(mesh, P, chunk=64, **kw)
         dp.graphs = False
         xe = dp.solve(b)
-        cs.sync_all(torch)
+        sync_all()
         dp.graphs = True
         t0 = time.perf_counter()
         dp.solve(b)
-        cs.sync_all(torch)
+        sync_all()
         first = time.perf_counter() - t0
         xr = dp.solve(b)
-        cs.sync_all(torch)
+        sync_all()
         xs = []
         if name == "peer halo":
             for _ in range(4):
                 for on in (False, True):
                     dp.graphs = on
                     xs.append(dp.solve(b))
-                    cs.sync_all(torch)
+                    sync_all()
         forms = sorted({op.plan.form for lv in dp.levels
                         for op in (lv.L_op, lv.U_op) if op.nchunks})
         ent = next(iter(dp.graph_cache.entries.values()))
@@ -151,14 +150,12 @@ def design_b(cards) -> dict:
     for c, g in zip(cards[:2], gs):
         with torch.cuda.device(c):
             g.replay()
-    cs.sync_all(torch)
+    sync_all()
     return dict(ok=all(float(x[0]) == 8.0 for x in xs))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--multicard", action="store_true",
-                    help="then chip_smoke.py's multi-card legs")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -171,7 +168,7 @@ def main(argv=None) -> int:
     from hifir_tpu_torch.native.build import load_native
     from hifir_tpu_torch.parallel import make_mesh
 
-    smi = cs.power_line()
+    smi = power_line()
     count = torch.cuda.device_count()
     out = dict(nvidia_smi=smi, cards=count, torch=torch.__version__,
                cuda=torch.version.cuda,
@@ -180,7 +177,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     load_kernels()
     load_native()
-    cs.log(f"build {time.perf_counter() - t0:.1f} s; torch {torch.__version__}"
+    log(f"build {time.perf_counter() - t0:.1f} s; torch {torch.__version__}"
            f" CUDA {torch.version.cuda}; {count} cards [{smi}]")
     k = 1 if count == 1 else (4 if count >= 4 else 2)
     cards = list(range(k))
@@ -191,14 +188,14 @@ def main(argv=None) -> int:
     checks = {}
     try:
         checks["collectives"] = check_collectives(mesh)
-        cs.log(f"(a) collectives over {out['layout']}: "
+        log(f"(a) collectives over {out['layout']}: "
                f"{checks['collectives']}")
         A = poisson2d(64)
-        P = ht.HIF().factorize(A, ht.Options(**cs.RED_OPTS), device="cuda")
+        P = ht.HIF().factorize(A, ht.Options(**RED_OPTS), device="cuda")
         b = np.random.default_rng(6).standard_normal(A.nrows)
         checks["distprec"] = check_distprec(mesh, P, b, P.solve(b))
         for name, r in checks["distprec"].items():
-            cs.log(f"(a) DistPrec poisson2d(64) {name}: {r} [{smi}]")
+            log(f"(a) DistPrec poisson2d(64) {name}: {r} [{smi}]")
         ok = all(checks["collectives"]["bit_equal"]) and all(
             r["bit_equal"] and r["interleaved_bit_equal"]
             and r["err_vs_host"] <= 1e-12
@@ -207,34 +204,20 @@ def main(argv=None) -> int:
     except Exception as e:      # the probe's finding, reported
         out["design_a"] = dict(ok=False, error=f"{type(e).__name__}: {e}",
                                trace=traceback.format_exc(), **checks)
-        cs.log(f"(a) failed: {type(e).__name__}: {e}")
+        log(f"(a) failed: {type(e).__name__}: {e}")
     if not out["design_a"]["ok"] and k > 1:
         try:
             out["design_b"] = design_b(cards)
         except Exception as e:
             out["design_b"] = dict(ok=False,
                                    error=f"{type(e).__name__}: {e}")
-        cs.log(f"(b) {out['design_b']}")
+        log(f"(b) {out['design_b']}")
     else:
         out["design_b"] = "not tried: design (a) captured every program"
     out["choice"] = ("a" if out["design_a"]["ok"] else
                      "b" if isinstance(out["design_b"], dict)
                      and out["design_b"].get("ok") else "neither")
-    cs.log(f"choice: {out['choice']}")
-    if args.multicard and k > 1:
-        from hifir_tpu_torch.models.problems import convdiff2d
-
-        A5 = poisson2d(cs.DIST_NX)
-        P5 = ht.HIF().factorize(A5, ht.Options(verbose=0), device="cuda")
-        b5 = np.random.default_rng(6).standard_normal(A5.nrows)
-        Ac = convdiff2d(128)
-        base = dict(cs.FIXTURE_OPTS, use_native=0)
-        ctx = dict(P=P5, A=A5, b=b5, xh=P5.solve(b5),
-                   single=P5.to_device(device="cuda"), Ac=Ac,
-                   Ph=ht.HIF().factorize(Ac, ht.Options(**base),
-                                         device="cuda"), base=base)
-        out["multicard"], out["multicard_launches"] = cs.multicard_phase(
-            torch, np.random.default_rng(16), smi, ctx)
+    log(f"choice: {out['choice']}")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "probe_mesh_graph.json"), "w") as f:

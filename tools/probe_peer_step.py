@@ -21,7 +21,7 @@ text substitution in the peer sweep's flag exchange alone
 
 On poisson2d(nx)'s ``DistPrec`` (chunk 1024, eight ranks, f64) it times
 one application of level 0's L (all_gather form) by CUDA events, each
-after the Timer's L2 flush (``chip_smoke.Timer``): the one-group sweep on
+after the Timer's L2 flush (``probe_util.Timer``): the one-group sweep on
 eight ranks of the card, and every variant of the peer sweep on two groups
 of four (``"cuda:0"`` and ``"cuda"``), after holding the real kernel,
 ``release`` and ``gpu`` against the plain version (1e-12).  The
@@ -39,14 +39,16 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-import chip_smoke as cs  # noqa: E402
+from card_common import (DIST_CHUNK, DIST_NX, peer_pair,  # noqa: E402
+                         rel_diff, sweep_pair)
 from hifir_tpu_torch.kernels import build  # noqa: E402
 from hifir_tpu_torch.ops import chunk  # noqa: E402
+from probe_util import Timer, log, power_line  # noqa: E402
 
 FENCE = '      asm volatile("fence.acq_rel.sys;\\n" ::: "memory");\n'
 STORE = '"st.relaxed.sys.global.u64 [%0], %1;\\n"'
@@ -120,7 +122,7 @@ def main() -> int:
         print("probe_peer_step: no CUDA device", file=sys.stderr)
         return 2
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--nx", type=int, default=cs.DIST_NX)
+    ap.add_argument("--nx", type=int, default=DIST_NX)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -129,13 +131,13 @@ def main() -> int:
     from hifir_tpu_torch.native.build import load_native
     from hifir_tpu_torch.parallel import DistPrec, make_mesh
 
-    smi = cs.power_line()
+    smi = power_line()
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(2) as ex:
         fl = ex.submit(build_all, variants(build.SOURCE.read_text()))
         ex.submit(load_native).result()
         libs = fl.result()
-    cs.log(f"built {len(libs)} libraries in {time.perf_counter() - t0:.1f} "
+    log(f"built {len(libs)} libraries in {time.perf_counter() - t0:.1f} "
            f"s [{smi}]")
 
     def use(name):
@@ -143,33 +145,31 @@ def main() -> int:
 
     A = poisson2d(args.nx)
     P = ht.HIF().factorize(A, ht.Options(verbose=0), device="cuda")
-    T = cs.Timer(torch)
+    T = Timer()
     rng = np.random.default_rng(14)
     out = dict(nvidia_smi=smi, nx=args.nx, ms={}, vs_plain={})
     use("full")
-    one = DistPrec.from_host(make_mesh(8), P, chunk=cs.DIST_CHUNK,
+    one = DistPrec.from_host(make_mesh(8), P, chunk=DIST_CHUNK,
                              max_halo_chunks=128)
-    sw, x0, xk, xp = cs.sweep_pair(torch, rng, one.levels[0].L_op,
-                                   torch.float64)
-    out["vs_plain"]["one group"] = cs.rel_diff(xk, xp)
+    sw, x0, xk, xp = sweep_pair(rng, one.levels[0].L_op, torch.float64)
+    out["vs_plain"]["one group"] = rel_diff(xk, xp)
     x = x0.clone()
     out["ms"]["one group"] = T.ms(lambda: chunk.chunk_sweep(x, sw))
     out["chunks"] = sw.nchunks
     mesh2 = make_mesh(devices=["cuda:0"] * 4 + ["cuda"] * 4)
     for name in libs:
         use(name)
-        dp = DistPrec.from_host(mesh2, P, chunk=cs.DIST_CHUNK,
+        dp = DistPrec.from_host(mesh2, P, chunk=DIST_CHUNK,
                                 max_halo_chunks=128)
-        plan, x0, Y, Yp = cs.peer_pair(torch, rng, dp.levels[0].L_op,
-                                       torch.float64)
-        err = cs.rel_diff(Y, Yp)
+        plan, x0, Y, Yp = peer_pair(rng, dp.levels[0].L_op, torch.float64)
+        err = rel_diff(Y, Yp)
         out["vs_plain"][name] = err
         if name in ("full", "release", "gpu"):
-            cs.gate(err <= 1e-12, f"{name}: vs plain {err:.3e}")
+            assert err <= 1e-12, f"{name}: vs plain {err:.3e}"
         xs = [x.clone() for x in x0]
         out["ms"][name] = T.ms(lambda: chunk.chunk_sweep_peer(xs, plan))
     for name, ms in out["ms"].items():
-        cs.log(f"level-0 L, {out['chunks']} chunks, {name:9s}: {ms:.4f} ms, "
+        log(f"level-0 L, {out['chunks']} chunks, {name:9s}: {ms:.4f} ms, "
                f"{ms * 1e3 / out['chunks']:.3f} us a step; vs plain "
                f"{out['vs_plain'][name]:.3e} [{smi}]")
     if args.out:

@@ -29,14 +29,15 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-import chip_smoke as cs  # noqa: E402
+from card_common import first_diff, qr_dist  # noqa: E402
 from hifir_tpu_torch.kernels.build import load_kernels  # noqa: E402
 from hifir_tpu_torch.small_scale import qrcp_device as qd  # noqa: E402
+from probe_util import Timer, power_line  # noqa: E402
 
 SIZES = (8, 33, 203, 360, 736, 1200, 1400, 2000)
 SWEEP = (203, 360, 736, 2000)
@@ -106,7 +107,7 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     quick = args.quick
-    smi = cs.power_line()
+    smi = power_line()
     t0 = time.perf_counter()
     kl = load_kernels()
     out = dict(smi=smi, build_seconds=time.perf_counter() - t0)
@@ -120,7 +121,7 @@ def main() -> int:
     out["first_launch_ms"] = watchdog_first_launch()
     print(f"first launch done in {out['first_launch_ms']:.1f} ms [{smi}]",
           flush=True)
-    T = cs.Timer(torch)
+    T = Timer()
     rng = np.random.default_rng(7)
     checks, times = [], []
     for n in SIZES:
@@ -135,8 +136,8 @@ def main() -> int:
             torch.cuda.synchronize()
             Fp = qd.qrcp_device_plain(A)
             pk, pp = F[2].cpu().numpy(), Fp[2].cpu().numpy()
-            s = cs.first_diff(pk, pp, n)
-            dq, dr, _ = cs.qr_dist(torch, F, Fp, s)
+            s = first_diff(pk, pp, n)
+            dq, dr, _ = qr_dist(F, Fp, s)
             A64 = A.double()
             res = float((F[0].double() @ F[1].double() - A64[:, F[2]])
                         .abs().max() / A64.abs().max())
