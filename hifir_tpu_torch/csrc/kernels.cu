@@ -938,6 +938,16 @@ sell_narrow_kernel(const int* __restrict__ idx, const T* __restrict__ val,
 // (PERF.md).  Each column's sum keeps the column form's order and shuffle
 // tree, so a tile's columns equal the column form's bit for bit.
 //
+// The split (G == 1, CL), where x is global, there is one column and the
+// levels are wide (ops/trsv.py:trsv_tile): the tile form's cluster at one
+// column.  With x global the ring holds kRingGlobalBytes, so a level's rows
+// past its cap (3,640 entries at f64) load from global memory on the
+// level's chain, and a wide level takes two or more passes of one block:
+// p3d64's f64 level-0 L had 64% of its entries past the cap and 2.2 rounds
+// a level.  Split over C CTAs, each CTA's share fits its own ring and takes
+// about one pass; one-pass levels stay on the column form, where a cluster
+// barrier costs more than the pass it splits (PERF.md).
+//
 // Slots of one level never depend on each other (chunks are level-aligned
 // and the partial-sum slots of split rows sit in earlier sub-levels), so a
 // level needs no order inside it.  The pad dependency (col == nslots) reads
@@ -1032,14 +1042,18 @@ struct Line<C128> {  // 64 bytes: four 16-byte loads
 };
 
 // A tile's slot of x: G consecutive elements from an address aligned to
-// their G * sizeof(T) bytes (8, 16 or 32: one or two vector accesses); G ==
-// 1 is the column form's one element.  The tile form's loads bypass L1
-// (ld.global.cg): the cluster's other CTAs write x during the launch.
-template <typename T, int G>
+// their G * sizeof(T) bytes (4 to 32: one or two accesses); G == 1 is one
+// column's element.  A cluster's loads (CL) bypass L1 (ld.global.cg): its
+// other CTAs write x during the launch; the column form's are plain.
+template <bool CL, typename T, int G>
 __device__ __forceinline__ void sector_load(T (&a)[G], const T* p) {
   constexpr int kBytes = G * (int)sizeof(T);
-  if constexpr (G == 1) {
+  if constexpr (!CL) {
+    static_assert(G == 1, "a tile runs on a cluster");
     a[0] = *p;
+  } else if constexpr (kBytes == 4) {
+    const unsigned q = __ldcg(reinterpret_cast<const unsigned*>(p));
+    memcpy(&a[0], &q, 4);
   } else if constexpr (kBytes == 8) {
     const uint2 q = __ldcg(reinterpret_cast<const uint2*>(p));
     memcpy(&a[0], &q, 8);
@@ -1076,11 +1090,11 @@ __device__ __forceinline__ void sector_store(T* p, const T (&a)[G]) {
   }
 }
 
-// G == 1: the column form, block j owns column j.  G > 1: the tile form,
-// launched as clusters of ncta CTAs; cluster t owns columns [t G, t G + G)
-// and its CTAs split each level's slots (and the entry and exit gathers)
-// and meet at a cluster barrier between levels.
-template <typename T, bool SMEM, bool RING, int G>
+// !CL: the column form, block j owns column j.  CL: launched as clusters
+// of ncta CTAs; cluster t owns columns [t G, t G + G) (G > 1: the tile form;
+// G == 1: the split) and its CTAs split each level's slots (and the entry
+// and exit gathers) and meet at a cluster barrier between levels.
+template <typename T, bool SMEM, bool RING, int G, bool CL>
 __global__ void __launch_bounds__(kTrsvThreads)
 trsv_solve_kernel(const T* __restrict__ B, T* __restrict__ X,
                   const int* __restrict__ in_rows,
@@ -1091,21 +1105,21 @@ trsv_solve_kernel(const T* __restrict__ B, T* __restrict__ X,
                   const int64_t* __restrict__ level_off, int nlev, int n,
                   int nrhs, int nslots, int cap, int xbytes, int ncta,
                   T* scratch) {
-  constexpr bool kTiled = G > 1;
-  static_assert(!kTiled || !SMEM, "a tile keeps x in global memory");
+  static_assert(CL || G == 1, "a tile runs on a cluster");
+  static_assert(!CL || !SMEM, "a cluster keeps x in global memory");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int nb = kTiled ? ncta : 1;  // the CTAs that share x
-  const int rank = kTiled ? (int)blockIdx.x % ncta : 0;
-  const int tile = kTiled ? (int)blockIdx.x / ncta : (int)blockIdx.x;
+  const int nb = CL ? ncta : 1;  // the CTAs that share x
+  const int rank = CL ? (int)blockIdx.x % ncta : 0;
+  const int tile = CL ? (int)blockIdx.x / ncta : (int)blockIdx.x;
   const int j0 = tile * G;  // the first column of this block's x
   // slot s of x is x[s * G, s * G + G): column j0 + g at g
   T* x = SMEM ? reinterpret_cast<T*>(smem_raw)
               : scratch + (int64_t)tile * (nslots + 1) * G;
   // this CTA's share [a, b) of the slots [s0, s1): all of them in the
-  // column form, a run of whole 16-byte lines of each CTA's rows in the
-  // tile form
+  // column form, a run of whole 16-byte lines of each CTA's rows on a
+  // cluster
   auto share = [&](int s0, int s1, int& a, int& b) {
-    if constexpr (kTiled) {
+    if constexpr (CL) {
       const int per = ((s1 - s0 + nb - 1) / nb + 7) & ~7;
       a = min(s1, s0 + rank * per);
       b = min(s1, a + per);
@@ -1115,9 +1129,9 @@ trsv_solve_kernel(const T* __restrict__ B, T* __restrict__ X,
     }
   };
   // every write of x before every read of the next level, across the
-  // cluster in the tile form
+  // cluster on one
   auto level_barrier = [&]() {
-    if constexpr (kTiled) {
+    if constexpr (CL) {
       asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
       asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
     } else {
@@ -1247,7 +1261,7 @@ trsv_solve_kernel(const T* __restrict__ B, T* __restrict__ X,
 #pragma unroll
           for (int u = 0; u < kDepsPerLane; ++u) {
             T xs[G];
-            sector_load(xs, x + (int64_t)c[u] * G);
+            sector_load<CL>(xs, x + (int64_t)c[u] * G);
 #pragma unroll
             for (int g = 0; g < G; ++g) madd(acc[g], v[u], xs[g]);
           }
@@ -1264,7 +1278,7 @@ trsv_solve_kernel(const T* __restrict__ B, T* __restrict__ X,
 #pragma unroll
         for (int u = 0; u < kDepsPerLane; ++u) {
           T xs[G];
-          sector_load(xs, x + (int64_t)c[u] * G);
+          sector_load<CL>(xs, x + (int64_t)c[u] * G);
 #pragma unroll
           for (int g = 0; g < G; ++g) madd(acc[g], v[u], xs[g]);
         }
@@ -1288,7 +1302,7 @@ trsv_solve_kernel(const T* __restrict__ B, T* __restrict__ X,
         for (int g = 0; g < G; ++g) acc[g] += shfl_xor(acc[g], o);
       if (live && lt == 0) {
         T xs[G];
-        sector_load(xs, x + (int64_t)s * G);
+        sector_load<CL>(xs, x + (int64_t)s * G);
 #pragma unroll
         for (int g = 0; g < G; ++g) xs[g] -= acc[g];
         sector_store(x + (int64_t)s * G, xs);
@@ -1309,7 +1323,8 @@ trsv_solve_kernel(const T* __restrict__ B, T* __restrict__ X,
       o[u] = r < n ? out_slots[r] : nslots;
     }
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) sector_load(v[u], x + (int64_t)o[u] * G);
+    for (int u = 0; u < kBatch; ++u)
+      sector_load<CL>(v[u], x + (int64_t)o[u] * G);
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int r = rb + u * kTrsvThreads;
@@ -1439,7 +1454,7 @@ int sell_spmv(const int* idx, const T* val, const int* order,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool SMEM, bool RING, int G>
+template <typename T, bool SMEM, bool RING, int G, bool CL>
 int trsv_launch(const T* B, T* X, const int* in_rows, const int* cols,
                 const T* vals, const int* out_slots,
                 const int64_t* level_slots, const int* level_K,
@@ -1449,12 +1464,12 @@ int trsv_launch(const T* B, T* X, const int* in_rows, const int* cols,
       xbytes + (RING ? kRingBarBytes + cap * kRingSlots *
                                            (int)(sizeof(int) + sizeof(T))
                      : 0);
-  auto kernel = trsv_solve_kernel<T, SMEM, RING, G>;
+  auto kernel = trsv_solve_kernel<T, SMEM, RING, G, CL>;
   static Granted granted;
   cudaError_t err = allow_smem(kernel, smem, granted);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (nrhs + G - 1) / G;
-  if constexpr (G == 1) {
+  if constexpr (!CL) {
     kernel<<<(unsigned)tiles, kTrsvThreads, smem, s>>>(
         B, X, in_rows, cols, vals, out_slots, level_slots, level_K, level_off,
         nlev, n, nrhs, ns, cap, xbytes, 1, scratch);
@@ -1482,7 +1497,8 @@ int trsv_launch(const T* B, T* X, const int* in_rows, const int* cols,
 // One block a column (tile == 1, ncta == 1), or, with x in scratch, a
 // cluster of ncta <= 8 blocks a tile of ``tile`` columns (a power of two
 // up to 32 / sizeof(T): at most one 32-byte sector of x a slot; the last
-// tile masked).  x in shared memory when scratch is null, else in scratch
+// tile masked; tile == 1 with ncta > 1 is the split, a cluster a column).
+// x in shared memory when scratch is null, else in scratch
 // (ceil(nrhs / tile) * tile * (nslots + 1) elements).  The ring
 // holds up to the widest level (max_level entries; 0: no ring) in the
 // shared memory x leaves, or in kRingGlobalBytes with x in scratch.
@@ -1502,7 +1518,7 @@ int trsv_solve(const T* B, T* X, const int* in_rows, const int* cols,
   const bool smem = scratch == nullptr;
   if (tile < 1 || tile > kTile || (tile & (tile - 1)) || (tile > 1 && smem))
     return (int)cudaErrorInvalidValue;
-  if (ncta < 1 || ncta > kTrsvMaxCluster || (tile == 1 && ncta != 1))
+  if (ncta < 1 || ncta > kTrsvMaxCluster || (ncta > 1 && smem))
     return (int)cudaErrorInvalidValue;
   const int64_t x64 = smem ? ((int64_t)ns + 1) * sizeof(T) : 0;
   if (x64 > kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -1514,32 +1530,36 @@ int trsv_solve(const T* B, T* X, const int* in_rows, const int* cols,
   // the schedule's levels are not whole lines or x leaves no room for one
   const int64_t fit = room / per_entry / 8 * 8, want = (max_level + 7) / 8 * 8;
   const int cap = (int)(fit < 0 ? 0 : fit < want ? fit : want);
-#define TRSV_LAUNCH(SMEM, RING, G)                                            \
-  return trsv_launch<T, SMEM, RING, G>(                                       \
+#define TRSV_LAUNCH(SMEM, RING, G, CL)                                        \
+  return trsv_launch<T, SMEM, RING, G, CL>(                                   \
       B, X, in_rows, cols, vals, out_slots, level_slots, level_K, level_off,  \
       nlev, n, nrhs, ns, cap, xbytes, ncta, scratch, s)
   if (smem) {
-    if (cap > 0) TRSV_LAUNCH(true, true, 1);
-    TRSV_LAUNCH(true, false, 1);
+    if (cap > 0) TRSV_LAUNCH(true, true, 1, false);
+    TRSV_LAUNCH(true, false, 1, false);
   }
   if (tile == 2) {
-    if (cap > 0) TRSV_LAUNCH(false, true, 2);
-    TRSV_LAUNCH(false, false, 2);
+    if (cap > 0) TRSV_LAUNCH(false, true, 2, true);
+    TRSV_LAUNCH(false, false, 2, true);
   }
   if constexpr (kTile >= 4) {
     if (tile == 4) {
-      if (cap > 0) TRSV_LAUNCH(false, true, 4);
-      TRSV_LAUNCH(false, false, 4);
+      if (cap > 0) TRSV_LAUNCH(false, true, 4, true);
+      TRSV_LAUNCH(false, false, 4, true);
     }
   }
   if constexpr (kTile >= 8) {
     if (tile == 8) {
-      if (cap > 0) TRSV_LAUNCH(false, true, 8);
-      TRSV_LAUNCH(false, false, 8);
+      if (cap > 0) TRSV_LAUNCH(false, true, 8, true);
+      TRSV_LAUNCH(false, false, 8, true);
     }
   }
-  if (cap > 0) TRSV_LAUNCH(false, true, 1);
-  TRSV_LAUNCH(false, false, 1);
+  if (ncta > 1) {
+    if (cap > 0) TRSV_LAUNCH(false, true, 1, true);
+    TRSV_LAUNCH(false, false, 1, true);
+  }
+  if (cap > 0) TRSV_LAUNCH(false, true, 1, false);
+  TRSV_LAUNCH(false, false, 1, false);
 #undef TRSV_LAUNCH
 }
 

@@ -740,6 +740,18 @@ SECTOR_BYTES = 32
 TILE_CTAS = 64
 TILE_MAX_CLUSTER = 8
 TILE_MIN_PASSES = 1.9
+# The split: one column's levels over a cluster of SPLIT_CTAS blocks, where
+# x is global and the same TILE_MIN_PASSES holds (see trsv_tile).  On an
+# H100 at 700 W, one column of every benchmark factor with x global, f32
+# and f64 (tools/probe_k2_tile.py --sweep; 16 schedules, each split bit for
+# bit equal to the column form), 8 CTAs beat 2 and 4 on each of the 14
+# whose levels take 1.75 passes or more on the mean (p3d64's f64 level-0
+# L, 2.51 passes a level: 4.46 -> 3.06 us a level; U, 1.99: 3.61 -> 2.77;
+# the 1M factors' level 0, 6.4-8.4 passes: about 3x faster); one-pass
+# levels lost (p3d64's f64 level 1, 1.06 and 1.08: 1.43 -> 2.80).  1.9
+# picks the faster shape on 15 of the 16 and gives up 5% on the 1M f64
+# level-2 L (1.75 passes)
+SPLIT_CTAS = TILE_MAX_CLUSTER
 
 
 def _pow2_floor(v: int) -> int:
@@ -756,14 +768,20 @@ def trsv_tile(nslots: int, level_passes, itemsize: int,
               nrhs: int) -> Tuple[int, int]:
     """K2's launch shape, ``(G, C)``: a cluster of C blocks owns a tile of
     G columns.  ``(1, 1)`` is the column form (a block a column), where x
-    lives in shared memory, there is one column, or the schedule's levels
-    (``level_passes``, :attr:`TrsvSchedule.level_passes`) fill on the mean
-    less than TILE_MIN_PASSES passes of the block.  Else the tile form
+    lives in shared memory or the schedule's levels (``level_passes``,
+    :attr:`TrsvSchedule.level_passes`) fill on the mean less than
+    TILE_MIN_PASSES passes of the block.  Else, at one column, the split
+    ``(1, SPLIT_CTAS)``: with x global the ring holds only 128 KB of a
+    level's rows, so a wide level loads the rest from global memory on its
+    chain; split over the cluster, each block's share of a level fits its
+    own ring and takes about one pass.  At several columns, the tile form
     (:func:`tile_shape`)."""
-    if nrhs == 1 or trsv_shape(nslots, itemsize) == "shared":
+    if trsv_shape(nslots, itemsize) == "shared":
         return 1, 1
     if not len(level_passes) or np.mean(level_passes) < TILE_MIN_PASSES:
         return 1, 1
+    if nrhs == 1:
+        return 1, SPLIT_CTAS
     return tile_shape(itemsize, nrhs)
 
 
@@ -795,7 +813,8 @@ def trsv_apply_cuda(sched: TrsvSchedule, B: torch.Tensor) -> torch.Tensor:
     column or a cluster a tile of columns (:func:`trsv_tile`);
     ``trsv_apply_cuda.launches`` counts its launches, ``.tile_launches``
     those in the tile form, ``.smem_launches`` those with x in shared
-    memory and ``.levels`` the effective levels they walk.  Safe inside a
+    memory, ``.split_launches`` those of one column on a cluster and
+    ``.levels`` the effective levels they walk.  Safe inside a
     captured graph: the level table it reads on the host is numpy, and its
     scratch comes from the caching allocator (the graph's pool)."""
     n, nrhs = B.shape
@@ -810,13 +829,14 @@ trsv_apply_cuda.launches = 0
 trsv_apply_cuda.tile_launches = 0
 trsv_apply_cuda.levels = 0
 trsv_apply_cuda.smem_launches = 0
+trsv_apply_cuda.split_launches = 0
 
 
 def _trsv_launch(sched: TrsvSchedule, B: torch.Tensor, tile: int,
                  ncta: int = 1) -> torch.Tensor:
     """K2 with ``tile`` columns a cluster of ``ncta`` blocks (1 and 1: the
-    column form): :func:`trsv_apply_cuda`'s launch, which a probe may call
-    with other shapes to time them."""
+    column form; 1 and more: the split): :func:`trsv_apply_cuda`'s launch,
+    which a probe may call with other shapes to time them."""
     n, nrhs = B.shape
     X = B.new_empty((n, nrhs))
     if nrhs == 0 or sched.nchunks == 0:
@@ -848,6 +868,7 @@ def _trsv_launch(sched: TrsvSchedule, B: torch.Tensor, tile: int,
     trsv_apply_cuda.tile_launches += tile > 1
     trsv_apply_cuda.levels += sched.nlevels
     trsv_apply_cuda.smem_launches += scratch is None
+    trsv_apply_cuda.split_launches += tile == 1 and ncta > 1
     return X
 
 

@@ -82,9 +82,9 @@ def launch_counters() -> list:
     its sign=+1 launches), K2 and K7 and the call counters of their plain
     versions, then those of the distribution's kernels (K10a a chunk, the
     sweep, the peer sweep, K10b) and of their plain versions, and last K2's
-    launches in the tile form, the effective levels its launches walk and
-    its launches with x in shared memory.  ``name`` is
-    ``<wrapper>.<attribute>``."""
+    launches in the tile form, the effective levels its launches walk, its
+    launches with x in shared memory and its launches of one column on a
+    cluster.  ``name`` is ``<wrapper>.<attribute>``."""
     if not _LAUNCHES:
         from .ops import bsr_spmv, chunk, spmv, trsv
         from .parallel import schur
@@ -108,7 +108,8 @@ def launch_counters() -> list:
                 (schur.schur_partial_plain, "calls"),
                 (trsv.trsv_apply_cuda, "tile_launches"),
                 (trsv.trsv_apply_cuda, "levels"),
-                (trsv.trsv_apply_cuda, "smem_launches")))
+                (trsv.trsv_apply_cuda, "smem_launches"),
+                (trsv.trsv_apply_cuda, "split_launches")))
     return _LAUNCHES
 
 

@@ -17,9 +17,21 @@
   clusters of 1 to 8 CTAs, ragged last tiles): the shape rule
   (``trsv.trsv_tile``) gives a tile, the kernel is within 1e-5 (f32, c64)
   / 1e-12 (f64, c128) of the plain version and bit-equal to the column
-  form run on each column alone, one tile launch a width and none for the
-  single columns.  Its phases and right-hand sides are drawn from
+  form (one block, forced) run on each column alone, one tile launch a
+  width and neither a tile nor a split launch for the single columns.  Its phases and right-hand sides are drawn from
   ``default_rng(13)``.
+- K2's split (one column on a cluster of 2, 4 or 8 CTAs, each walking its
+  share of every level) in f32, f64, c64 and c128: on the same level 0 of
+  poisson2d(512) (where ``trsv.trsv_tile`` picks it at one column), on a
+  layered triangle whose levels run from 1 to 3000 slots (so that some
+  CTAs get empty shares) on the card schedule, and on the same triangle's
+  uniform reference schedule of 7-slot chunks and 5 entries a slot
+  (levels off the 16-byte lines: no ring), the kernel is bit-equal to the
+  column form and within the tile cases' tolerance of the plain version,
+  and ``trsv_apply_cuda.split_launches`` counts exactly the split
+  launches.
+  The layered triangle and its right-hand sides are drawn from
+  ``default_rng(14)``.
 
 Every test needs an NVIDIA GPU and skips without one.  On the card:
 ``python3 -m pytest tests/test_torch_k2_card.py -q --noconftest`` (the
@@ -197,14 +209,123 @@ def test_k2_tile_form(dname, name, w, tile_schedules):
     X = trsv.trsv_apply_mrhs(S, Bw)
     tiles = k2.tile_launches - t0
     Xp = trsv.trsv_apply_plain(S, Bw)
-    t0 = k2.tile_launches
-    cols = torch.cat([trsv.trsv_apply_mrhs(S, Bw[:, j:j + 1].contiguous())
+    t0, s0 = k2.tile_launches, k2.split_launches
+    cols = torch.cat([trsv._trsv_launch(S, Bw[:, j:j + 1].contiguous(), 1, 1)
                       for j in range(w)], 1)
     col_tiles = k2.tile_launches - t0
+    col_splits = k2.split_launches - s0
     torch.cuda.synchronize()
     tol = 1e-5 if dname in ("float32", "complex64") else 1e-12
     rel = float((X - Xp).abs().max()) / max(float(Xp.abs().max()), 1e-300)
     assert rel <= tol, f"{rel:.3e} from the plain version"
     assert torch.equal(X, cols), ("the tile form differs from the column "
                                   "form run on each column alone")
-    assert tiles == 1 and col_tiles == 0, (tiles, col_tiles)
+    assert (tiles, col_tiles, col_splits) == (1, 0, 0), (tiles, col_tiles,
+                                                         col_splits)
+
+
+# K2's split cases: clusters, and a layered triangle's level widths (the
+# narrow ones leave some of a cluster's CTAs with nothing to do)
+SPLIT_CTAS = (2, 4, 8)
+SPLIT_N = 60_000          # x outgrows shared memory in every dtype
+SPLIT_WIDTHS = (1, 5, 17, 40, 63, 64, 65, 129, 500, 3000)
+
+
+def layered(n: int, lower: bool, rng, complex_: bool) -> CSR:
+    """A strict triangle whose dependency levels take SPLIT_WIDTHS rows in
+    turn: each row depends on one row of the level before and on up to 3
+    earlier rows (every 97th on up to 40), entries of size ~0.3 (~0.05 on
+    the wide rows) so that the solve stays bounded."""
+    bounds = np.cumsum(np.resize(SPLIT_WIDTHS, n))
+    level_of = np.searchsorted(bounds[bounds < n], np.arange(n),
+                               side="right")
+    start = np.r_[0, bounds][level_of]        # first row of the level
+    prev = np.r_[0, 0, bounds][level_of]      # first row of the one before
+    rows, cols, vals = [], [], []
+    deep = level_of > 0
+    r = np.flatnonzero(deep)
+    rows.append(r)
+    cols.append(prev[r] + np.floor(rng.random(r.size) * (start[r] - prev[r]))
+                .astype(np.int64))
+    vals.append(0.3 * rng.standard_normal(r.size))
+    for extra, scale, step in ((3, 0.3, 1), (40, 0.05, 97)):
+        r = np.repeat(np.flatnonzero(deep)[::step], extra)
+        rows.append(r)
+        cols.append(np.floor(rng.random(r.size) * start[r]).astype(np.int64))
+        vals.append(scale * rng.standard_normal(r.size))
+    rows, cols, vals = (np.concatenate(a) for a in (rows, cols, vals))
+    if complex_:
+        vals = vals * np.exp(2j * np.pi * rng.random(vals.size))
+    if not lower:
+        rows, cols = n - 1 - rows, n - 1 - cols
+    M = sp.csr_matrix((vals, (rows, cols)), shape=(n, n))
+    M.sum_duplicates()
+    return CSR.from_scipy(M)
+
+
+@pytest.fixture(scope="module")
+def split_schedules(tile_schedules):
+    """Each dtype's schedules for the split, and one column each: level 0's
+    L and U of poisson2d(512) (``tile_schedules``' first column), and the
+    layered triangle on the card schedule and on a uniform reference
+    schedule of 7-slot chunks and 5 entries a slot, drawn from
+    ``default_rng(14)`` in the order: dtype, then L before U, the triangle
+    before the column."""
+    rng = np.random.default_rng(14)
+    out = {}
+    for dname in TILE_DTYPES:
+        dt = getattr(torch, dname)
+        ndt = np.dtype(dname)
+        for name, lower in (("L", True), ("U", False)):
+            S, B = tile_schedules[(dname, name)]
+            out[(dname, name, "p2d512")] = (S, B[:, :1].contiguous())
+            T = layered(SPLIT_N, lower, rng, dt.is_complex)
+            b = rng.standard_normal((SPLIT_N, 1))
+            if dt.is_complex:
+                b = b + 1j * rng.standard_normal((SPLIT_N, 1))
+            b = torch.as_tensor(b, dtype=dt, device="cuda")
+            out[(dname, name, "layered")] = (trsv.build_trsv_schedule_card(
+                T, lower, dtype=ndt, device="cuda"), b)
+            out[(dname, name, "noring")] = (trsv.build_trsv_schedule(
+                T, lower=lower, chunk=7, dtype=ndt, k_cap=5,
+                device="cuda"), b)
+    return out
+
+
+@pytest.mark.parametrize("case", ["p2d512", "layered", "noring"])
+@pytest.mark.parametrize("ncta", SPLIT_CTAS)
+@pytest.mark.parametrize("name", ["L", "U"])
+@pytest.mark.parametrize("dname", TILE_DTYPES)
+def test_k2_split_form(dname, name, ncta, case, split_schedules):
+    _card()
+    S, b = split_schedules[(dname, name, case)]
+    k2 = trsv.trsv_apply_cuda
+    es = b.element_size()
+    assert trsv.trsv_shape(S.nslots, es) == "global"
+    widths = np.diff(S.level_slots)
+    if case == "p2d512":
+        assert trsv.trsv_tile(S.nslots, S.level_passes, es, 1) == \
+            (1, trsv.SPLIT_CTAS), "the rule takes the column form"
+    elif case == "layered":
+        assert widths.min() < ncta * 8 and widths.max() > 2048, (
+            "no level leaves a CTA without slots, or none takes two passes")
+    else:
+        assert trsv._ring_width(S) == 0, "the schedule has a ring"
+    t0 = k2.split_launches
+    col = trsv._trsv_launch(S, b, 1, 1)
+    cols_split = k2.split_launches - t0
+    X = trsv._trsv_launch(S, b, 1, ncta)
+    split = k2.split_launches - t0 - cols_split
+    t0 = k2.split_launches
+    Xr = trsv.trsv_apply_mrhs(S, b)
+    ruled = k2.split_launches - t0
+    Xp = trsv.trsv_apply_plain(S, b)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dname in ("float32", "complex64") else 1e-12
+    rel = float((X - Xp).abs().max()) / max(float(Xp.abs().max()), 1e-300)
+    assert torch.isfinite(Xp).all()
+    assert rel <= tol, f"{rel:.3e} from the plain version"
+    assert torch.equal(X, col), ("the split differs from the column form")
+    assert torch.equal(Xr, col)
+    picked = trsv.trsv_tile(S.nslots, S.level_passes, es, 1)
+    assert (cols_split, split, ruled) == (0, 1, int(picked[1] > 1))

@@ -296,24 +296,51 @@ def test_k2_shape_choice():
     assert shape(4384, 8) == "shared"
 
 
+# p3d64's factors at f64 (the gmres cell's pack): slots and passes a level
+P3D64_L0 = (310_972, np.r_[np.full(210, 2), np.full(210, 3)])
+P3D64_U0 = (374_654, np.r_[np.full(7, 1), np.full(507, 2)])
+P3D64_L1 = (33_282, np.r_[np.full(1006, 1), np.full(64, 2)])
+P3D64_U1 = (29_152, np.r_[np.full(971, 1), np.full(85, 2)])
+
+
 @pytest.mark.parametrize("dtype,width", [(torch.float32, 8),
                                          (torch.float64, 4),
                                          (torch.complex64, 4),
                                          (torch.complex128, 2)])
 def test_k2_tile_choice(dtype, width):
-    """The column form where x fits in shared memory, there is one column
-    or the levels are narrow; else a cluster of C blocks a tile of G
-    columns, G up to one 32-byte sector of x and C bringing the launch
-    near 64 blocks (the last tile masked)."""
+    """The column form where x fits in shared memory or the levels are
+    narrow; else at one column the split over a cluster, and at several a
+    cluster of C blocks a tile of G columns, G up to one 32-byte sector of
+    x and C bringing the launch near 64 blocks (the last tile masked)."""
     tile = trsv.trsv_tile
     es = torch.empty((), dtype=dtype).element_size()
     assert width * es == trsv.SECTOR_BYTES
+    assert trsv.SPLIT_CTAS in (2, 4, 8)
     fits = trsv.SMEM_BYTES // es - 1
     # the 1M pack's level-0 L: 1,929,216 slots, 377 levels of 5 passes
     big = (1_929_216, np.full(377, 5))
     for nrhs in (1, 2, 7, 8, 64, 128):
         assert tile(fits, np.full(1, 9), es, nrhs) == (1, 1)
-    assert tile(*big, es, 1) == (1, 1)
+    assert tile(fits + 1, np.full(3, 9), es, 1) == (1, trsv.SPLIT_CTAS)
+    assert tile(*big, es, 1) == (1, trsv.SPLIT_CTAS)
+    # at one column: the split on p3d64's level-0 L and U (2.50 and 1.99
+    # passes a level), the column form on its level-1 L and U (1.06, 1.08)
+    assert np.mean(P3D64_L0[1]) == 2.5
+    assert P3D64_L0[1].size == 420 and P3D64_U0[1].size == 514
+    for nslots, passes in (P3D64_L0, P3D64_U0):
+        assert trsv.trsv_shape(nslots, 8) == "global"
+        assert tile(nslots, passes, es, 1) == (1, trsv.SPLIT_CTAS)
+    for nslots, passes in (P3D64_L1, P3D64_U1):
+        assert trsv.trsv_shape(nslots, 8) == "global"
+        assert np.mean(passes) < 1.1
+        assert tile(nslots, passes, es, 1) == (1, 1)
+    # at TILE_MIN_PASSES passes a level on the mean and just below it
+    at = np.r_[np.full(10, 1), np.full(90, 2)]
+    assert np.mean(at) == pytest.approx(trsv.TILE_MIN_PASSES)
+    assert tile(10**6, at, es, 1) == (1, trsv.SPLIT_CTAS)
+    below = at.copy()
+    below[-1] = 1
+    assert tile(10**6, below, es, 1) == (1, 1)
     # levels under 1.9 passes of the block on the mean stay on the column
     # form: Stokes' level-1 U on the card schedule (72,964 slots, 3140
     # passes over 1727 levels, 1.82 a level); p3d64's level-0 U (1021
@@ -321,10 +348,10 @@ def test_k2_tile_choice(dtype, width):
     stokes = np.r_[np.full(314, 1), np.full(1413, 2)]
     assert stokes.size == 1727 and stokes.sum() == 3140
     assert tile(72_964, stokes, es, 64) == (1, 1)
-    p3d64 = np.r_[np.full(7, 1), np.full(507, 2)]
-    assert p3d64.size == 514 and p3d64.sum() == 1021
-    assert tile(374_654, p3d64, es, 128) != (1, 1)
-    assert tile(72_964, np.zeros(0, np.int64), es, 64) == (1, 1)
+    assert P3D64_U0[1].sum() == 1021
+    assert tile(*P3D64_U0, es, 128) != (1, 1)
+    for nrhs in (1, 64):
+        assert tile(72_964, np.zeros(0, np.int64), es, nrhs) == (1, 1)
     for nrhs in (2, 7, 8, 16, 32, 64, 128, 256, 1024):
         G, C = tile(*big, es, nrhs)
         assert 2 <= G <= width and G & (G - 1) == 0
@@ -340,6 +367,31 @@ def test_k2_tile_choice(dtype, width):
         assert tile(*big, es, 8) == (2, 8)
     assert trsv.trsv_team(4) == 1 and trsv.trsv_team(5) == 2
     assert trsv.trsv_team(69) == 32 and trsv.trsv_team(500) == 32
+
+
+# trsv_tile's shapes at several columns on the gmres and Stokes cells'
+# schedules, pinned: the split at one column must leave every multi-column
+# launch as it was
+TILE_PINNED = {
+    (4, "p3d64_U0"): [(2, 8)] * 4 + [(4, 8), (8, 8), (8, 4)],
+    (8, "p3d64_U0"): [(2, 8)] * 4 + [(4, 8), (4, 4), (4, 2)],
+    (16, "p3d64_U0"): [(2, 8)] * 4 + [(2, 4), (2, 2), (2, 1)],
+}
+PINNED_WIDTHS = (2, 7, 8, 16, 32, 64, 128)
+PINNED_SCHEDULES = {
+    "p3d64_U0": P3D64_U0,
+    "stk_U1": (72_964, np.r_[np.full(314, 1), np.full(1413, 2)]),
+    "p3d64_L1": P3D64_L1,
+}
+
+
+@pytest.mark.parametrize("itemsize", [4, 8, 16])
+@pytest.mark.parametrize("name", list(PINNED_SCHEDULES))
+def test_k2_tile_shapes_pinned(itemsize, name):
+    want = TILE_PINNED.get((itemsize, name), [(1, 1)] * len(PINNED_WIDTHS))
+    nslots, passes = PINNED_SCHEDULES[name]
+    assert [trsv.trsv_tile(nslots, passes, itemsize, w)
+            for w in PINNED_WIDTHS] == want
 
 
 @pytest.mark.parametrize("chunk,ring", [(16, True), (6, False)])

@@ -66,27 +66,30 @@ def test_span_nesting_and_totals():
     # the launch counters are read under their wrappers' names
     assert s1["counters"]["trsv_apply_cuda.launches"] == \
         trsv.trsv_apply_cuda.launches
-    assert len(trace.launch_counters()) == len(graphs.read_counters()) == 18
+    assert len(trace.launch_counters()) == len(graphs.read_counters()) == 19
 
 
 def test_k2_tile_launches_are_a_launch_counter(monkeypatch):
-    """K2's tile-form launches, then its levels walked and its launches
-    with x in shared memory, are read with the launch counters, last, so
-    that a replay re-adds what its capture counted and the earlier
-    counters keep their places."""
+    """K2's tile-form launches, then its levels walked, its launches with
+    x in shared memory and its launches of one column on a cluster, are
+    read with the launch counters, last, so that a replay re-adds what its
+    capture counted and the earlier counters keep their places."""
     names = [name for _, _, name in trace.launch_counters()]
-    assert names[-3:] == ["trsv_apply_cuda.tile_launches",
+    assert names[-4:] == ["trsv_apply_cuda.tile_launches",
                           "trsv_apply_cuda.levels",
-                          "trsv_apply_cuda.smem_launches"]
+                          "trsv_apply_cuda.smem_launches",
+                          "trsv_apply_cuda.split_launches"]
     assert names.index("trsv_apply_cuda.launches") == 2
     monkeypatch.setattr(trsv.trsv_apply_cuda, "tile_launches", 7)
     monkeypatch.setattr(trsv.trsv_apply_cuda, "levels", 9)
     monkeypatch.setattr(trsv.trsv_apply_cuda, "smem_launches", 5)
+    monkeypatch.setattr(trsv.trsv_apply_cuda, "split_launches", 3)
     counters = trace.snapshot()["counters"]
     assert counters["trsv_apply_cuda.tile_launches"] == 7
     assert counters["trsv_apply_cuda.levels"] == 9
     assert counters["trsv_apply_cuda.smem_launches"] == 5
-    assert graphs.read_counters()[-3:] == (7, 9, 5)
+    assert counters["trsv_apply_cuda.split_launches"] == 3
+    assert graphs.read_counters()[-4:] == (7, 9, 5, 3)
 
 
 def test_no_range_without_a_profiler(monkeypatch):
